@@ -1,0 +1,71 @@
+"""Ada-MVS feature U-Net (counterpart of adamvs_tpu/nn/featurenet.py::AdaFeatureNet).
+
+Outputs {"stage1": 4b @ H/4, "stage2": 2b @ H/2, "stage3": b @ H}, NCHW. Each
+output level concatenates two SPP branches (k×k average pool with stride k,
+1x1 ConvBlock, bilinear upsampling back) with the level's features, then a
+1x1 conv without bias.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .blocks import ConvBlock, DeConvFuse
+
+
+def _resize_bilinear(x, h: int, w: int):
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+
+class _SPPBranch(nn.Sequential):
+    """AvgPool k×k -> 1x1 ConvBlock -> bilinear upsample back to the input
+    size. Index 0 is the pool, so the conv block's names are ``1.conv`` /
+    ``1.bn`` as in the reference."""
+
+    def __init__(self, cin: int, cout: int, pool: int):
+        super().__init__(nn.AvgPool2d(pool, pool), ConvBlock(cin, cout, kernel=1))
+
+    def forward(self, x):
+        return _resize_bilinear(super().forward(x), x.shape[2], x.shape[3])
+
+
+class AdaFeatureNet(nn.Module):
+    def __init__(self, base: int = 8, num_stages: int = 3):
+        super().__init__()
+        b = base
+        self.num_stages = num_stages
+        self.conv0 = nn.Sequential(ConvBlock(3, b), ConvBlock(b, b))
+        self.conv1 = nn.Sequential(ConvBlock(b, 2 * b, 5, 2), ConvBlock(2 * b, 2 * b),
+                                   ConvBlock(2 * b, 2 * b))
+        self.conv2 = nn.Sequential(ConvBlock(2 * b, 4 * b, 5, 2), ConvBlock(4 * b, 4 * b),
+                                   ConvBlock(4 * b, 4 * b))
+        self.branch1_1 = _SPPBranch(4 * b, 2 * b, 4)
+        self.branch1_2 = _SPPBranch(4 * b, 2 * b, 8)
+        self.out1 = nn.Conv2d(8 * b, 4 * b, 1, bias=False)
+        if num_stages >= 2:
+            self.deconv1 = DeConvFuse(4 * b, 2 * b)
+            self.branch2_1 = _SPPBranch(2 * b, b, 4)
+            self.branch2_2 = _SPPBranch(2 * b, b, 8)
+            self.out2 = nn.Conv2d(4 * b, 2 * b, 1, bias=False)
+        if num_stages >= 3:
+            self.deconv2 = DeConvFuse(2 * b, b)
+            self.branch3_1 = _SPPBranch(b, b // 2, 4)
+            self.branch3_2 = _SPPBranch(b, b // 2, 8)
+            self.out3 = nn.Conv2d(2 * b, b, 1, bias=False)
+
+    def forward(self, x) -> dict[str, torch.Tensor]:
+        c0 = self.conv0(x)
+        c1 = self.conv1(c0)
+        intra = self.conv2(c1)
+        out = {"stage1": self.out1(torch.cat([self.branch1_1(intra), self.branch1_2(intra), intra], 1))}
+        if self.num_stages >= 2:
+            intra = self.deconv1(c1, intra)
+            out["stage2"] = self.out2(
+                torch.cat([self.branch2_1(intra), self.branch2_2(intra), intra], 1))
+        if self.num_stages >= 3:
+            intra = self.deconv2(c0, intra)
+            out["stage3"] = self.out3(
+                torch.cat([self.branch3_1(intra), self.branch3_2(intra), intra], 1))
+        return out

@@ -1,0 +1,131 @@
+"""JAX variables -> port state_dict.
+
+Inverts the JAX package's reference-checkpoint importer
+(adamvs_tpu/train/torch_import.py:52-108): its tables map the reference
+PyTorch names, which the port's modules use, onto the flax tree. This module
+keeps its own copy of those tables and runs them backwards:
+
+- conv kernel, flax HWIO -> PyTorch OIHW;
+- transposed-conv kernel, flax HWIO (spatially flipped, since flax
+  correlates) -> PyTorch IOHW, un-flipped;
+- BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/
+  running_var.
+
+Inputs are nested mappings of numpy-convertible arrays (a flax
+``{"params", "batch_stats"}`` tree); no JAX import is needed.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _feature_plan() -> list[tuple[str, str, str]]:
+    """(PyTorch prefix, flax path under 'feature', kind)."""
+    plan = []
+    trunk = [
+        ("conv0.0", "ConvBlock_0"), ("conv0.1", "ConvBlock_1"),
+        ("conv1.0", "ConvBlock_2"), ("conv1.1", "ConvBlock_3"), ("conv1.2", "ConvBlock_4"),
+        ("conv2.0", "ConvBlock_5"), ("conv2.1", "ConvBlock_6"), ("conv2.2", "ConvBlock_7"),
+    ]
+    for t, f in trunk:
+        plan.append((f"{t}.conv", f"{f}/FastConv_0", "conv"))
+        plan.append((f"{t}.bn", f"{f}/BatchNorm_0", "bn"))
+    spp = [
+        ("branch1_1", "_SPPBranch_0"), ("branch1_2", "_SPPBranch_1"),
+        ("branch2_1", "_SPPBranch_2"), ("branch2_2", "_SPPBranch_3"),
+        ("branch3_1", "_SPPBranch_4"), ("branch3_2", "_SPPBranch_5"),
+    ]
+    for t, f in spp:  # element 0 of the branch is the pool
+        plan.append((f"{t}.1.conv", f"{f}/ConvBlock_0/FastConv_0", "conv"))
+        plan.append((f"{t}.1.bn", f"{f}/ConvBlock_0/BatchNorm_0", "bn"))
+    for t, f in [("deconv1", "DeConvFuse_0"), ("deconv2", "DeConvFuse_1")]:
+        plan.append((f"{t}.deconv.conv", f"{f}/DeconvBlock_0/FastConvTranspose_0", "convt"))
+        plan.append((f"{t}.deconv.bn", f"{f}/DeconvBlock_0/BatchNorm_0", "bn"))
+        plan.append((f"{t}.conv.conv", f"{f}/ConvBlock_0/FastConv_0", "conv"))
+        plan.append((f"{t}.conv.bn", f"{f}/ConvBlock_0/BatchNorm_0", "bn"))
+    for i in range(3):
+        plan.append((f"out{i + 1}", f"FastConv_{i}", "conv"))
+    return plan
+
+
+def _reg2d_plan() -> list[tuple[str, str, str]]:
+    plan = []
+    for i in range(7):
+        plan.append((f"conv{i}.conv", f"FastConv_{i}", "conv"))
+        plan.append((f"conv{i}.bn", f"BatchNorm_{i}", "bn"))
+    for j, t in enumerate(("conv7", "conv9", "conv11")):
+        plan.append((f"{t}.0", f"FastConvTranspose_{j}", "convt"))
+        plan.append((f"{t}.1", f"BatchNorm_{7 + j}", "bn"))
+    plan.append(("prob", "FastConv_7", "conv"))
+    return plan
+
+
+def _reg_fuse_plan(up: bool) -> list[tuple[str, str, str]]:
+    return [
+        ("conv1.conv", "cell/ConvReLU_0/FastConv_0", "conv"),
+        ("conv_gru1.conv_gates.0", "cell/ConvGRUCell_0/FastConv_0", "conv"),
+        ("conv_gru1.convc.0", "cell/ConvGRUCell_0/FastConv_1", "conv"),
+        ("conv2.conv", "cell/ConvReLU_1/FastConv_0", "conv"),
+        ("conv_gru2.conv_gates.0", "cell/ConvGRUCell_1/FastConv_0", "conv"),
+        ("conv_gru2.convc.0", "cell/ConvGRUCell_1/FastConv_1", "conv"),
+        ("upconv1", "cell/FastConvTranspose_0", "convt"),
+        ("upconv2d", "cell/FastConvTranspose_1", "convt") if up
+        else ("upconv2d", "cell/FastConv_0", "conv"),
+    ]
+
+
+def _get(tree: Mapping, path: str):
+    node = tree
+    for part in path.split("/"):
+        if part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.array(x, np.float32))
+
+
+def _apply_plan(params: Mapping, stats: Mapping, prefix: str, plan, sd: dict) -> None:
+    for tname, fpath, kind in plan:
+        node = _get(params, fpath)
+        if node is None:  # a level the model does not have (fewer stages)
+            continue
+        full = f"{prefix}{tname}"
+        if kind == "bn":
+            st = _get(stats, fpath)
+            sd[f"{full}.weight"] = _t(node["scale"])
+            sd[f"{full}.bias"] = _t(node["bias"])
+            sd[f"{full}.running_mean"] = _t(st["mean"])
+            sd[f"{full}.running_var"] = _t(st["var"])
+            sd[f"{full}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            continue
+        k = np.asarray(node["kernel"], np.float32)
+        if kind == "conv":
+            w = k.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        else:
+            w = k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # HWIO -> IOHW, un-flipped
+        sd[f"{full}.weight"] = _t(w)
+        if "bias" in node:
+            sd[f"{full}.bias"] = _t(node["bias"])
+
+
+def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """The port ``AdaMVS`` state_dict holding the weights of a JAX ``AdaMVS``
+    ``{"params", "batch_stats"}`` tree."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict = OrderedDict()
+    _apply_plan(params["feature"], stats.get("feature", {}), "feature.", _feature_plan(), sd)
+    _apply_plan(params["reg2d"], stats.get("reg2d", {}), "DepthNet.0.reg.", _reg2d_plan(), sd)
+    i = 0
+    while f"reg_fuse{i + 1}" in params:
+        _apply_plan(params[f"reg_fuse{i + 1}"], {}, f"DepthNet.{i}.reg_fuse.",
+                    _reg_fuse_plan(up=i < 2), sd)
+        i += 1
+    return sd

@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (adamvs_tpu_torch).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits nonzero:
+
+1. device: the card's name and power limit;
+2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source;
+3. kernels: K1 (corr sweep), K2 (fused sweep) and K3 (red-scan recurrence)
+   against their plain PyTorch versions at every stage shape of the main
+   path (2752x1856 frames, V=5, ndepths 48/32/8, base 8), in float32 with
+   TF32 off and in bfloat16, with their times (CUDA events, median); then
+   again at small ragged shapes (batch 2, rotated views, samples behind the
+   camera), float32;
+4. reference: the whole model on a small frame, kernels on the card against
+   the plain path on the CPU, float32;
+5. main path: PredictEngine on AdaMVS with seeded random weights in bfloat16
+   at full width answers 3 requests (one warm-up, two timed); outputs must be
+   finite with confidence in (0, 1], and the launch counters must show every
+   kernel ran; then the layers outside the kernels are timed alone;
+6. the kernels line (JSON), the card line, and the final JSON line.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+import types
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+H, W, V = 2752, 1856, 5
+NDEPTHS = (48, 32, 8)
+RATIOS = (4.0, 2.0, 1.0)
+NUM_DEPTH = 192
+BASE = 8
+DMIN, DMAX = 300.0, 500.0
+FOCAL = 2200.0
+DEV = "cuda"
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 outside the tensor cores,
+# dense bf16 tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+
+# tolerance on max|kernel - plain| relative to max|plain|
+TOL = {
+    ("K1", torch.float32): 1e-5, ("K1", torch.bfloat16): 1e-5,  # float32 output
+    ("K2", torch.float32): 1e-5, ("K2", torch.bfloat16): 8e-3,  # one bf16 rounding of the output
+    ("K3", torch.float32): 1e-4, ("K3", torch.bfloat16): 5e-2,  # bf16 stores of every GRU step
+}
+REPLACES = {
+    "K1": ("corr_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:611"),
+    "K2": ("fused_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:418"),
+    "K3": ("red_scan", "adamvs_tpu_torch/csrc/red_scan.cu", "adamvs_tpu/ops/red_scan.py:542"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bench_projs(height: int, width: int, views: int, focal: float) -> dict:
+    """Aerial bench geometry: identical intrinsics, a 10 m x-baseline per
+    view, projections scaled per stage (stage k at 1/2^(3-k))."""
+    proj = np.tile(np.eye(4, dtype=np.float32), (views, 1, 1))
+    for v in range(views):
+        proj[v, 0, 0] = proj[v, 1, 1] = focal
+        proj[v, 0, 2] = width / 2
+        proj[v, 1, 2] = height / 2
+        proj[v, 0, 3] = focal * 10.0 * v
+    out = {}
+    for k in (1, 2, 3):
+        p = proj.copy()
+        p[:, :2, :] /= 2 ** (3 - k)
+        out[f"stage{k}"] = p
+    return out
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    return smi
+
+
+def phase_build() -> None:
+    from adamvs_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    log(f"[build] {sorted(reports)} built in {time.perf_counter() - t0:.1f} s")
+    for name, text in sorted(reports.items()):
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"[build] {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
+            f"spill stores max {max(spills, default=0)} bytes")
+
+
+class StageInputs:
+    """Seeded inputs of one stage at the main path's shapes."""
+
+    def __init__(self, si: int, gen: torch.Generator):
+        dev = torch.device(DEV)
+        s = 2 ** (2 - si)
+        self.si, self.h, self.w, self.C, self.D = si, H // s, W // s, (4, 2, 1)[si] * BASE, NDEPTHS[si]
+        self.up = si < 2
+        h, w, C = self.h, self.w, self.C
+        projs = torch.from_numpy(bench_projs(H, W, V, FOCAL)[f"stage{si + 1}"]).to(dev)
+        self.ref_proj, self.src_projs = projs[None, 0], projs[1:, None]  # [1,4,4], [Vs,1,4,4]
+        self.ref = torch.randn((1, h, w, C), generator=gen, device=dev)
+        self.srcs = torch.randn((V - 1, 1, h, w, C), generator=gen, device=dev)
+        self.weights = torch.rand((1, V - 1, h, w), generator=gen, device=dev)
+        if si == 0:
+            self.lo = torch.full((1, h, w), DMIN, device=dev)
+            self.step = torch.full((1, h, w), (DMAX - DMIN) / (self.D - 1), device=dev)
+        else:  # a smooth random window around a smooth random depth
+            coarse = 400.0 + 30.0 * torch.randn((1, 1, 8, 8), generator=gen, device=dev)
+            prev = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)[:, 0]
+            interval = RATIOS[si] * (DMAX - DMIN) / NUM_DEPTH
+            lo = prev - self.D / 2 * interval
+            self.lo, self.step = lo.contiguous(), ((prev + self.D / 2 * interval - lo) / (self.D - 1)).contiguous()
+
+    def feats(self, dtype):
+        return self.ref.to(dtype), self.srcs.to(dtype)
+
+
+def _bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sweep_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
+    """Least float32 work of a sweep volume, counting a multiply-add as 2.
+
+    Coordinates: R.[x,y,1] per (view, pixel), 12; hyp = lo + d.step per
+    (hypothesis, pixel), 2; per (view, hypothesis, pixel) p = R.[x,y,1].hyp + t
+    (6), u and v (2 divisions), their floors (2), the fractions and their
+    complements (4) and the four tap weights (4), 18 in all.
+    K1: mean_C(ref * sum_k w_k s_k) = sum_k w_k (ref . s_k) / C, four length-C
+    dot products (8C) and their weighted sum over C (8) per sample.
+    K2: sum_v w'_v (ref * sum_k w_k s_k) = ref * sum_v sum_k (w'_v w_k) s_k,
+    four weight products (4) and four length-C multiply-adds (8C) per sample,
+    then the product with ref (C) per (hypothesis, pixel)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    Vs, hw, C, D = V - 1, st.h * st.w, st.C, st.D
+    nbytes = (1 + Vs) * hw * C * es + 2 * hw * 4
+    flops = Vs * hw * 12 + D * hw * 2
+    if kind == "K1":
+        nbytes += Vs * D * hw * 4
+        flops += Vs * D * hw * (18 + 8 * C + 8)
+    else:
+        nbytes += Vs * hw * 4 + D * hw * C * es
+        flops += Vs * D * hw * (18 + 4 + 8 * C) + D * hw * C
+    return _bound(nbytes, flops, F32_FLOPS)
+
+
+def red_scan_bound(st: StageInputs, dtype) -> tuple[float, str]:
+    es = torch.tensor([], dtype=dtype).element_size()
+    b, cin, h, w, D = BASE, st.C, st.h, st.w, st.D
+    hw, qw = h * w, (h // 2) * (w // 2)
+    macs = 9 * (hw * (cin * b + 2 * b * 2 * b + 2 * b * b)  # conv1, GRU1 gates, candidate
+                + qw * (b * 2 * b + 4 * b * 4 * b + 4 * b * 2 * b)  # conv2, GRU2 gates, cand.
+                + qw * 2 * b * b  # up-deconv (per input pixel)
+                + hw * b)  # head
+    oh, ow = (2 * h, 2 * w) if st.up else (h, w)
+    nbytes = D * (cin * hw + oh * ow) * es
+    peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return _bound(nbytes, 2 * macs * D, peak)
+
+
+def _compare(tag: str, key, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    if got.shape != want.shape:
+        fail(f"{tag}: shape {tuple(got.shape)} vs plain {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{tag}: non-finite kernel output")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    rel = err / max(scale, 1e-30)
+    ok = rel <= TOL[key]
+    log(f"[kernels] {tag}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, rel {rel:.3e}, "
+        f"tol {TOL[key]:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{tag} disagrees with its plain version")
+    return err, rel
+
+
+def phase_kernels(reps: int = 3) -> dict:
+    from adamvs_tpu_torch.nn.blocks import init_parameters
+    from adamvs_tpu_torch.nn.costreg import AdaRedCell
+    from adamvs_tpu_torch.ops import red_scan as rs
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    res = {k: {"err": {}, "stages": []} for k in ("K1", "K2", "K3")}
+    for si in range(3):
+        st = StageInputs(si, gen)
+        cell32 = AdaRedCell(st.C, BASE, st.up)
+        init_parameters(cell32, torch.Generator().manual_seed(10 + si))
+        cell32 = cell32.to(DEV).eval()
+        for dtype in (torch.float32, torch.bfloat16):
+            tn = "f32" if dtype == torch.float32 else "bf16"
+            ref, srcs = st.feats(dtype)
+            geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
+            timing = {}
+            with torch.no_grad():
+                if si == 0:
+                    k1 = lambda: sf.corr_sweep_volume(ref, srcs, *geo)
+                    p1 = lambda: sf.corr_volume_ref(ref, srcs, *geo)
+                    res["K1"]["err"][tn] = _compare(f"K1 stage1 {tn}", ("K1", dtype), k1(), p1())
+                    if dtype == torch.bfloat16:
+                        timing["K1"] = (time_ms(k1, reps), time_ms(p1, 1), sweep_bound("K1", st, dtype))
+                k2 = lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo)
+                p2 = lambda: sf.fused_volume_ref(ref, srcs, st.weights, *geo)
+                vol = k2()
+                e2 = _compare(f"K2 stage{si + 1} {tn}", ("K2", dtype), vol, p2())
+                cell = copy.deepcopy(cell32).to(dtype)
+                k3 = lambda: rs.red_scan(cell, vol)
+                p3 = lambda: rs.red_scan_ref(cell, vol)
+                e3 = _compare(f"K3 stage{si + 1} {tn}", ("K3", dtype), k3(), p3())
+                for k, e in (("K2", e2), ("K3", e3)):
+                    old = res[k]["err"].get(tn, (0.0, 0.0))
+                    res[k]["err"][tn] = (max(old[0], e[0]), max(old[1], e[1]))
+                if dtype == torch.bfloat16:
+                    timing["K2"] = (time_ms(k2, reps), time_ms(p2, 1), sweep_bound("K2", st, dtype))
+                    timing["K3"] = (time_ms(k3, reps), time_ms(p3, 1), red_scan_bound(st, dtype))
+            for k, (ms, pms, (bms, by)) in timing.items():
+                res[k]["stages"].append({"stage": si + 1, "ms": ms, "plain_ms": pms,
+                                         "bound_ms": bms, "bound_by": by})
+                log(f"[kernels] {k} stage{si + 1} bf16: {ms:.3f} ms (plain {pms:.3f} ms, "
+                    f"bound {bms:.3f} ms by {by})")
+            del ref, srcs, vol
+        del st
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_edges() -> None:
+    """The kernels against their plain versions at small ragged shapes, in
+    float32: batch 2, sizes that are no multiple of the thread blocks, an odd
+    hypothesis count, rotated views, samples behind the camera and out of
+    the image, both regulariser widths and both head kinds."""
+    from adamvs_tpu_torch.nn.blocks import init_parameters
+    from adamvs_tpu_torch.nn.costreg import AdaRedCell
+    from adamvs_tpu_torch.ops import red_scan as rs
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    B, Vs, h, w, D = 2, 3, 38, 54, 11
+    projs = torch.from_numpy(bench_projs(h, w, Vs + 1, 60.0)["stage3"]).to(DEV)
+    projs[1:, :3, :3] += 0.02 * torch.randn((Vs, 3, 3), generator=gen, device=DEV)
+    ref_proj = projs[:1].expand(B, 4, 4).contiguous()
+    src_projs = projs[1:, None].expand(Vs, B, 4, 4).contiguous()
+    lo = -2.0 + 32.0 * torch.rand((B, h, w), generator=gen, device=DEV)  # some behind the camera
+    step = 0.5 + torch.rand((B, h, w), generator=gen, device=DEV)
+    f32 = torch.float32
+    with torch.no_grad():
+        for C in (8, 16, 32):
+            ref = torch.randn((B, h, w, C), generator=gen, device=DEV)
+            srcs = torch.randn((Vs, B, h, w, C), generator=gen, device=DEV)
+            wts = torch.rand((B, Vs, h, w), generator=gen, device=DEV)
+            geo = (src_projs, ref_proj, lo, step, D)
+            _compare(f"K1 edge C{C}", ("K1", f32), sf.corr_sweep_volume(ref, srcs, *geo),
+                     sf.corr_volume_ref(ref, srcs, *geo))
+            _compare(f"K2 edge C{C}", ("K2", f32), sf.fused_sweep_volume(ref, srcs, wts, *geo),
+                     sf.fused_volume_ref(ref, srcs, wts, *geo))
+        for base, up in ((4, True), (8, False), (8, True)):
+            cell = AdaRedCell(16, base, up)
+            init_parameters(cell, torch.Generator().manual_seed(base + up))
+            cell = cell.to(DEV).eval()
+            vol = torch.randn((5, B, 16, h, w), generator=gen, device=DEV)
+            _compare(f"K3 edge base {base} up {up}", ("K3", f32), rs.red_scan(cell, vol),
+                     rs.red_scan_ref(cell, vol))
+
+
+def phase_reference() -> None:
+    """The model on a small frame: kernels on the card against the plain path
+    on the CPU, float32."""
+    from adamvs_tpu_torch.models import build_model
+
+    h, w = 128, 160
+    model = build_model(seed=1, device=DEV, ndepths=NDEPTHS, base=BASE, cr_base=(BASE,) * 3)
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.RandomState(1)
+    imgs = torch.from_numpy(rng.randn(1, V, h, w, 3).astype(np.float32))
+    projs = {k: torch.from_numpy(p[None]) for k, p in bench_projs(h, w, V, FOCAL * h / H).items()}
+    dv = torch.tensor([[DMIN, DMAX]])
+    got = model(imgs.to(DEV), {k: p.to(DEV) for k, p in projs.items()}, dv.to(DEV),
+                num_depth=NUM_DEPTH)
+    want = cpu_model(imgs, projs, dv, num_depth=NUM_DEPTH)
+    for key in ("stage1", "stage2", "stage3"):
+        derr = (got[key]["depth"].cpu() - want[key]["depth"]).abs().max().item() / (DMAX - DMIN)
+        cerr = (got[key]["photometric_confidence"].cpu()
+                - want[key]["photometric_confidence"]).abs().max().item()
+        log(f"[reference] {key}: depth err {derr:.2e} of the range, confidence err {cerr:.2e}")
+        if not (derr < 1e-4 and cerr < 1e-3):
+            fail(f"{key}: kernels on the card disagree with the plain path on the CPU")
+
+
+def phase_main_path() -> tuple[dict, dict]:
+    from adamvs_tpu_torch.models import build_model
+    from adamvs_tpu_torch.ops import red_scan as rs
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.predict.engine import PredictEngine
+
+    model = build_model(seed=0, device=DEV, dtype=torch.bfloat16, ndepths=NDEPTHS,
+                        depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3)
+    engine = PredictEngine(model, num_depth=NUM_DEPTH, device=DEV)
+    rng = np.random.RandomState(0)
+    sample = types.SimpleNamespace(
+        imgs=rng.randn(V, H, W, 3).astype(np.float32),
+        proj_matrices=bench_projs(H, W, V, FOCAL),
+        depth_values=np.array([DMIN, DMAX], np.float32),
+    )
+    wrappers = {"K1": sf.corr_sweep_volume, "K2": sf.fused_sweep_volume, "K3": rs.red_scan}
+    per_map = {"K1": 1, "K2": 3, "K3": 3}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        depth, conf = engine.predict_sample(sample)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if depth.shape != (H, W) or conf.shape != (H, W):
+            fail(f"output shapes {depth.shape} {conf.shape}")
+        if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
+            fail("non-finite depth or confidence")
+        if not (conf.min() > 0.0 and conf.max() <= 1.0):
+            fail(f"confidence outside (0, 1]: [{conf.min()}, {conf.max()}]")
+        log(f"[main] request {i}: {times[-1]:.1f} ms, depth [{depth.min():.1f}, {depth.max():.1f}], "
+            f"confidence [{conf.min():.3f}, {conf.max():.3f}]")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for k, n in launches.items():
+        if n != 3 * per_map[k]:
+            fail(f"{k}: {n} launches on the main path, expected {3 * per_map[k]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    main = {"ms_per_map": statistics.mean(times[1:]), "timed_ms": times[1:],
+            "warmup_ms": times[0], "peak_gib": peak, "layers_ms": layer_times(model, sample)}
+    log(f"[main] {H}x{W} V={V} ndepths {NDEPTHS} bf16: {main['ms_per_map']:.1f} ms per depth map "
+        f"(timed {times[1]:.1f}, {times[2]:.1f}; warm-up {times[0]:.1f}), peak {peak:.2f} GiB, "
+        f"launches {launches}")
+    return launches, main
+
+
+def layer_times(model, sample) -> dict:
+    """Milliseconds of the main path's layers outside the kernels, each timed
+    alone at its full-width shape: the image upload, the feature net on the
+    V views, the stage-1 CostRegNet2D on the V-1 corr volumes, and the three
+    stages' softmax regression."""
+    from adamvs_tpu_torch.ops.regression import softmax_regression
+
+    dt = torch.bfloat16
+    t0 = time.perf_counter()
+    imgs = torch.from_numpy(sample.imgs).to(DEV)
+    torch.cuda.synchronize()
+    out = {"upload": (time.perf_counter() - t0) * 1e3}
+    x = imgs.permute(0, 3, 1, 2).to(dt)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    corr = torch.randn((V - 1, NDEPTHS[0], H // 4, W // 4), generator=gen, device=DEV, dtype=dt)
+    with torch.no_grad():
+        out["feature_net"] = time_ms(lambda: model.feature(x), 3)
+        out["reg2d"] = time_ms(lambda: model.DepthNet[0].reg(corr), 3)
+        tails = 0.0
+        for si, D in enumerate(NDEPTHS):
+            oh, ow = (H // 2, W // 2) if si == 0 else (H, W)
+            cost = torch.randn((D, 1, oh, ow), generator=gen, device=DEV, dtype=dt)
+            lo = torch.full((1, oh, ow), DMIN, device=DEV)
+            tails += time_ms(lambda: softmax_regression(cost, lo, lo), 3)
+        out["softmax_regression"] = tails
+    log("[main] layers outside the kernels (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def kernels_line(res: dict, launches: dict) -> dict:
+    out = []
+    for k in ("K1", "K2", "K3"):
+        name, source, replaces = REPLACES[k]
+        stages = res[k]["stages"]
+        bound_ms = sum(s["bound_ms"] for s in stages)
+        by = max(stages, key=lambda s: s["bound_ms"])["bound_by"]
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[k],
+            "max_abs_err": res[k]["err"]["bf16"][0],
+            "ms": sum(s["ms"] for s in stages),
+            "plain_ms": sum(s["plain_ms"] for s in stages),
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "max_abs_err_f32": res[k]["err"]["f32"][0],
+            "max_rel_err": {t: e[1] for t, e in res[k]["err"].items()},
+            "stages": stages,
+        })
+    return {"kernels": out}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs one GPU")
+    try:
+        import adamvs_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port package is not importable here: {e}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    smi = phase_device()
+    phase_build()
+    res = phase_kernels()
+    phase_edges()
+    phase_reference()
+    launches, main_stats = phase_main_path()
+    line = kernels_line(res, launches)
+    line["main_path"] = main_stats
+    print(smi)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
