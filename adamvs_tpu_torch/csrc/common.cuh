@@ -1,4 +1,5 @@
-// Helpers shared by the port's kernel sources: element conversion, the
+// Helpers shared by the port's kernel sources: element conversion, 16-byte
+// row loads and stores of NHWC features, the four-tap bilinear gather, the
 // argument error codes the C entries return, and the error-string entry every
 // library exports.
 #pragma once
@@ -24,6 +25,95 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// One pixel's C channels of an NHWC tensor, moved as 16-byte vectors and
+// held as float32.
+template <typename T, int C>
+struct Row;
+
+template <int C>
+struct Row<float, C> {
+  static_assert(C % 4 == 0, "float32 rows move as float4");
+  __device__ __forceinline__ static void load(const float* __restrict__ p, float* v) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) {
+      const float4 a = __ldg(q + i);
+      v[4 * i] = a.x;
+      v[4 * i + 1] = a.y;
+      v[4 * i + 2] = a.z;
+      v[4 * i + 3] = a.w;
+    }
+  }
+  __device__ __forceinline__ static void store(float* __restrict__ p, const float* v) {
+    float4* q = reinterpret_cast<float4*>(p);
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i)
+      q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  }
+};
+
+template <int C>
+struct Row<__nv_bfloat16, C> {
+  static_assert(C % 8 == 0, "bfloat16 rows move as 16-byte vectors");
+  __device__ __forceinline__ static void load(const __nv_bfloat16* __restrict__ p, float* v) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < C / 8; ++i) {
+      const uint4 a = __ldg(q + i);
+      const uint32_t words[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // element 2j is the low half of the word, 2j+1 the high half
+        v[8 * i + 2 * j] = __uint_as_float(words[j] << 16);
+        v[8 * i + 2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
+      }
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* __restrict__ p, const float* v) {
+    uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < C / 8; ++i) {
+      uint32_t words[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // round to nearest even, as a cast to bfloat16 in PyTorch does
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(v[8 * i + 2 * j], v[8 * i + 2 * j + 1]);
+        words[j] = *reinterpret_cast<const uint32_t*>(&pr);
+      }
+      q[i] = make_uint4(words[0], words[1], words[2], words[3]);
+    }
+  }
+};
+
+// Bilinear sample (zeros padding) of src [H,W,C] at pixel coordinates (u, v),
+// in float32, into out. A tap counts only when 0 <= xi <= W-1 and
+// 0 <= yi <= H-1, so a sample at -1e9 (behind the camera) gives zero. The
+// weights and the sum over taps follow ops/warp.py::bilinear_sample's order.
+template <typename T, int C>
+__device__ __forceinline__ void bilinear_taps(const T* __restrict__ src, int H, int W, float u,
+                                              float v, float* out) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c] = 0.f;
+  const float u0 = floorf(u), v0 = floorf(v);
+  const float du = __fsub_rn(u, u0), dv = __fsub_rn(v, v0);
+  const float eu = __fsub_rn(1.f, du), ev = __fsub_rn(1.f, dv);
+  const float u1 = __fadd_rn(u0, 1.f), v1 = __fadd_rn(v0, 1.f);
+  const float xs[4] = {u0, u1, u0, u1};
+  const float ys[4] = {v0, v0, v1, v1};
+  const float ws[4] = {__fmul_rn(eu, ev), __fmul_rn(du, ev), __fmul_rn(eu, dv), __fmul_rn(du, dv)};
+  const float xmax = static_cast<float>(W - 1), ymax = static_cast<float>(H - 1);
+  float vals[C];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (xs[k] >= 0.f && xs[k] <= xmax && ys[k] >= 0.f && ys[k] <= ymax) {
+      const int xi = static_cast<int>(xs[k]), yi = static_cast<int>(ys[k]);
+      Row<T, C>::load(src + (static_cast<size_t>(yi) * W + xi) * C, vals);
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[c] = __fadd_rn(out[c], __fmul_rn(vals[c], ws[k]));
+    }
+  }
+}
 
 }  // namespace adamvs
 

@@ -1,19 +1,23 @@
-// Plane-sweep volumes by direct gather: kernels K1 (corr) and K2 (fused).
+// Plane-sweep volumes by direct gather: kernels K1 (corr), K2 (fused) and K4
+// (var).
 //
 // Replaces the Pallas kernel adamvs_tpu/ops/sweep_fuse.py::_sweep_kernel in
-// its two inference modes:
+// its three inference modes:
 //   K1 corr_sweep_volume (:611, pallas_call :679): per source view v and
 //      hypothesis d, mean_C(ref * bilinear_v(hyp_d)), hyp_d = lo + d*step;
 //      exact form _xla_corr_volume (:763).
 //   K2 fused_sweep_volume (:418, pallas_call :483):
 //      sum_v w'_v (ref * bilinear_v(hyp_d)) with w' = w / (1e-5 + sum w)
 //      normalised by the caller; exact form _xla_fused_volume (:725).
+//   K4 var_sweep_volume (:515, pallas_call :571): the variance
+//      E[x^2] - E[x]^2 over {ref, bilinear_1(hyp_d) .. bilinear_Vs(hyp_d)},
+//      nv = Vs + 1; exact form _xla_var_volume (:743).
 //
 // What bounds it on an H100: the arithmetic of the bilinear taps (at least 8
 // float32 operations per channel and sample, four length-C dot products or
 // multiply-adds, at 67 TFLOP/s outside the tensor cores; these kernels do 10
-// for K1 and 11 for K2) and, at the full-resolution stage, the output bytes.
-// The source
+// for K1 and 11 for K2 and K4) and, at the full-resolution stage, the output
+// bytes (K2 and K4 write a C-channel volume per hypothesis). The source
 // features are read from L2 mostly: neighbouring reference pixels sample
 // neighbouring source pixels.
 //
@@ -21,10 +25,12 @@
 // The thread keeps the reference features in registers, computes each
 // sample's coordinates from the 3x4 ref->src transform (rot, trans) and
 // reads the four taps as 16-byte vector loads from NHWC source features
-// (C contiguous). Everything accumulates in float32. The TPU kernel's
-// merged-lane band DMA, band origins and S-matrix combine are TPU artefacts
-// and are not copied: the gather here is exact for every in-image sample,
-// where the TPU kernel zeroes samples that leave its band.
+// (C contiguous; the gather is common.cuh::bilinear_taps, shared with the
+// bilinear sampler). Everything accumulates in float32: K4 keeps s and sq
+// per channel in registers, starting from ref and adding the views in order.
+// The TPU kernel's merged-lane band DMA, band origins and S-matrix combine
+// are TPU artefacts and are not copied: the gather here is exact for every
+// in-image sample, where the TPU kernel zeroes samples that leave its band.
 //
 // Coordinates are computed with round-to-nearest intrinsics in the same
 // operation order as the plain PyTorch version (ops/warp.py), so the two
@@ -32,56 +38,20 @@
 //
 // Layouts: ref [B,h,w,C], src [Vs,B,H,W,C] (float32 or bfloat16), geom
 // [Vs*B,12] float32 (rot row-major, then trans), lo/step [B,h,w] float32,
-// wn [B,Vs,h,w] float32. K1 writes float32 [Vs,B,D,h,w]; K2 writes the
-// feature dtype as [D,B,C,h,w], the layout the K3 regulariser reads.
+// wn [B,Vs,h,w] float32. K1 writes float32 [Vs,B,D,h,w]; K2 and K4 write the
+// feature dtype as [D,B,C,h,w], the layout the regularisers read one depth
+// slice [B,C,h,w] at a time.
 
 #include "common.cuh"
 
 namespace {
 
+using adamvs::Row;
 using adamvs::store;
 
 constexpr int kThreads = 128;
 constexpr int kDChunk = 8;
 constexpr int kMaxViews = 16;
-
-template <typename T, int C>
-struct Row;
-
-template <int C>
-struct Row<float, C> {
-  static_assert(C % 4 == 0, "float32 rows load as float4");
-  __device__ __forceinline__ static void load(const float* __restrict__ p, float* v) {
-    const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
-      const float4 a = __ldg(q + i);
-      v[4 * i] = a.x;
-      v[4 * i + 1] = a.y;
-      v[4 * i + 2] = a.z;
-      v[4 * i + 3] = a.w;
-    }
-  }
-};
-
-template <int C>
-struct Row<__nv_bfloat16, C> {
-  static_assert(C % 8 == 0, "bfloat16 rows load as 16-byte vectors");
-  __device__ __forceinline__ static void load(const __nv_bfloat16* __restrict__ p, float* v) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-    for (int i = 0; i < C / 8; ++i) {
-      const uint4 a = __ldg(q + i);
-      const uint32_t words[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // element 2j is the low half of the word, 2j+1 the high half
-        v[8 * i + 2 * j] = __uint_as_float(words[j] << 16);
-        v[8 * i + 2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
-      }
-    }
-  }
-};
 
 // Bilinear sample (zeros padding) of src [H,W,C] at the source position of
 // reference pixel (x, y) at depth hyp. g = rot (9) then trans (3).
@@ -89,8 +59,6 @@ template <typename T, int C>
 __device__ __forceinline__ void warp_sample(const T* __restrict__ src, int H, int W,
                                             const float* g, float x, float y, float hyp,
                                             float* out) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) out[c] = 0.f;
   float p[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -98,27 +66,12 @@ __device__ __forceinline__ void warp_sample(const T* __restrict__ src, int H, in
         __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], x), __fmul_rn(g[3 * i + 1], y)), g[3 * i + 2]);
     p[i] = __fadd_rn(__fmul_rn(rxyz, hyp), g[9 + i]);
   }
-  if (!(p[2] > 1e-6f)) return;  // behind the camera: every tap is out of image
-  const float u = __fdiv_rn(p[0], p[2]);
-  const float v = __fdiv_rn(p[1], p[2]);
-  const float u0 = floorf(u), v0 = floorf(v);
-  const float du = __fsub_rn(u, u0), dv = __fsub_rn(v, v0);
-  const float eu = __fsub_rn(1.f, du), ev = __fsub_rn(1.f, dv);
-  const float u1 = __fadd_rn(u0, 1.f), v1 = __fadd_rn(v0, 1.f);
-  const float xs[4] = {u0, u1, u0, u1};
-  const float ys[4] = {v0, v0, v1, v1};
-  const float ws[4] = {__fmul_rn(eu, ev), __fmul_rn(du, ev), __fmul_rn(eu, dv), __fmul_rn(du, dv)};
-  const float xmax = static_cast<float>(W - 1), ymax = static_cast<float>(H - 1);
-  float vals[C];
+  if (!(p[2] > 1e-6f)) {  // behind the camera: every tap is out of image
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (xs[k] >= 0.f && xs[k] <= xmax && ys[k] >= 0.f && ys[k] <= ymax) {
-      const int xi = static_cast<int>(xs[k]), yi = static_cast<int>(ys[k]);
-      Row<T, C>::load(src + (static_cast<size_t>(yi) * W + xi) * C, vals);
-#pragma unroll
-      for (int c = 0; c < C; ++c) out[c] = __fadd_rn(out[c], __fmul_rn(vals[c], ws[k]));
-    }
+    for (int c = 0; c < C; ++c) out[c] = 0.f;
+    return;
   }
+  adamvs::bilinear_taps<T, C>(src, H, W, __fdiv_rn(p[0], p[2]), __fdiv_rn(p[1], p[2]), out);
 }
 
 template <typename T, int C>
@@ -193,6 +146,53 @@ fused_kernel(const T* __restrict__ ref, const T* __restrict__ src, const float* 
 }
 
 template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+var_kernel(const T* __restrict__ ref, const T* __restrict__ src, const float* __restrict__ geom,
+           const float* __restrict__ lo, const float* __restrict__ step, T* __restrict__ out,
+           int Vs, int B, int h, int w, int H, int W, int D) {
+  const int hw = h * w;
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  __shared__ float g[kMaxViews * 12];
+  for (int i = threadIdx.x; i < Vs * 12; i += kThreads) g[i] = geom[((i / 12) * B + b) * 12 + i % 12];
+  __syncthreads();
+  if (pix >= hw) return;
+  const float x = static_cast<float>(pix % w), y = static_cast<float>(pix / w);
+  const size_t bp = static_cast<size_t>(b) * hw + pix;
+  float r[C];
+  Row<T, C>::load(ref + bp * C, r);
+  const float l = lo[bp], st = step[bp];
+  const float nv = static_cast<float>(Vs + 1);
+  const size_t src_view = static_cast<size_t>(H) * W * C;
+  const int d0 = blockIdx.z * kDChunk;
+  const int d1 = min(D, d0 + kDChunk);
+  float wv[C], s[C], sq[C];
+  for (int d = d0; d < d1; ++d) {
+    const float hyp = __fadd_rn(l, __fmul_rn(static_cast<float>(d), st));
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      s[c] = r[c];
+      sq[c] = __fmul_rn(r[c], r[c]);
+    }
+    for (int v = 0; v < Vs; ++v) {
+      warp_sample<T, C>(src + (static_cast<size_t>(v) * B + b) * src_view, H, W, g + 12 * v, x, y,
+                        hyp, wv);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        s[c] = __fadd_rn(s[c], wv[c]);
+        sq[c] = __fadd_rn(sq[c], __fmul_rn(wv[c], wv[c]));
+      }
+    }
+    T* o = out + (static_cast<size_t>(d) * B + b) * C * hw + pix;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float m = __fdiv_rn(s[c], nv);
+      store(o + static_cast<size_t>(c) * hw, __fsub_rn(__fdiv_rn(sq[c], nv), __fmul_rn(m, m)));
+    }
+  }
+}
+
+template <typename T, int C>
 int launch_corr(int Vs, int B, int h, int w, int H, int W, int D, const void* ref, const void* src,
                 const void* geom, const void* lo, const void* step, void* out, cudaStream_t s) {
   const dim3 grid((h * w + kThreads - 1) / kThreads, Vs * B, (D + kDChunk - 1) / kDChunk);
@@ -213,6 +213,29 @@ int launch_fused(int Vs, int B, int h, int w, int H, int W, int D, const void* r
       static_cast<const float*>(lo), static_cast<const float*>(step), static_cast<const float*>(wn),
       static_cast<T*>(out), Vs, B, h, w, H, W, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int C>
+int launch_var(int Vs, int B, int h, int w, int H, int W, int D, const void* ref, const void* src,
+               const void* geom, const void* lo, const void* step, void* out, cudaStream_t s) {
+  const dim3 grid((h * w + kThreads - 1) / kThreads, B, (D + kDChunk - 1) / kDChunk);
+  var_kernel<T, C><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(ref), static_cast<const T*>(src), static_cast<const float*>(geom),
+      static_cast<const float*>(lo), static_cast<const float*>(step), static_cast<T*>(out), Vs, B,
+      h, w, H, W, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int var_for_channels(int C, int Vs, int B, int h, int w, int H, int W, int D, const void* ref,
+                     const void* src, const void* geom, const void* lo, const void* step,
+                     void* out, cudaStream_t s) {
+  switch (C) {
+    case 8: return launch_var<T, 8>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
+    case 16: return launch_var<T, 16>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
+    case 32: return launch_var<T, 32>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
+    default: return adamvs::kBadChannels;
+  }
 }
 
 template <typename T>
@@ -266,5 +289,19 @@ extern "C" int adamvs_fused_sweep(int dtype, int Vs, int B, int h, int w, int H,
   if (dtype == adamvs::kBFloat16)
     return fused_for_channels<__nv_bfloat16>(C, Vs, B, h, w, H, W, D, ref, src, geom, lo, step,
                                              wn, out, s);
+  return adamvs::kBadDtype;
+}
+
+// K4. Returns 0 or the launch error.
+extern "C" int adamvs_var_sweep(int dtype, int Vs, int B, int h, int w, int H, int W, int C, int D,
+                                const void* ref, const void* src, const void* geom, const void* lo,
+                                const void* step, void* out, void* stream) {
+  if (Vs > kMaxViews) return adamvs::kBadViews;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == adamvs::kFloat32)
+    return var_for_channels<float>(C, Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
+  if (dtype == adamvs::kBFloat16)
+    return var_for_channels<__nv_bfloat16>(C, Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out,
+                                           s);
   return adamvs::kBadDtype;
 }

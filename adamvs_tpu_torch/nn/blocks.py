@@ -6,8 +6,11 @@ state_dict loads as it is:
 - ``ConvBlock``: conv without bias + BatchNorm + ReLU;
 - ``DeconvBlock``: stride-2 transposed conv + BatchNorm + ReLU, exactly 2x;
 - ``ConvReLU``: conv without bias + ReLU;
+- ``ConvTransReLU``: stride-2 transposed conv without bias + ReLU, exactly 2x;
 - ``ConvGRUCell``: sigmoid gates from concat(x, h), tanh candidate from
   concat(x, r*h), ``h' = u*h + (1-u)*c``;
+- ``GNConvGRUCell``: the same GRU with GroupNorm(1) on each gate and on the
+  candidate before their activations (``group_norm1``);
 - ``DeConvFuse``: deconv x2, concat skip, ConvBlock.
 
 A conv is ``nn.Conv2d(padding=(k-1)//2)``; a stride-2 transposed conv is
@@ -25,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+GN_EPS = 1e-5
 
 
 class ConvBlock(nn.Module):
@@ -63,6 +67,18 @@ class ConvReLU(nn.Module):
         return F.relu(self.conv(x))
 
 
+class ConvTransReLU(nn.Module):
+    """Stride-2 3x3 transposed conv without bias + ReLU, exactly 2x."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
+                                       bias=False)
+
+    def forward(self, x):
+        return F.relu(self.conv(x))
+
+
 class ConvGRUCell(nn.Module):
     """Plain 3x3 convolutional GRU; ``forward(h, x)`` returns the new state."""
 
@@ -81,6 +97,45 @@ class ConvGRUCell(nn.Module):
         return u * h + (1 - u) * c
 
 
+def group_norm1(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+    """``norm``, a GroupNorm with one group, applied to ``x`` [B,C,H,W]: mean
+    and variance over (C, H, W) per sample in float32, then the per-channel
+    affine as one ``addcmul``, in the dtype of ``x``. It computes what
+    ``norm(x)`` does; PyTorch's own kernel reduces each (sample, group) in a
+    single thread block, so with one group a full-resolution map is reduced
+    by one block at a time, where ``var_mean`` spreads the reduction over
+    the card."""
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=(1, 2, 3), correction=0, keepdim=True)
+    scale = norm.weight.float()[None, :, None, None] * torch.rsqrt(var + norm.eps)
+    shift = norm.bias.float()[None, :, None, None] - mean * scale
+    return torch.addcmul(shift, x32, scale).to(x.dtype)
+
+
+class GNConvGRUCell(nn.Module):
+    """3x3 convolutional GRU with GroupNorm(1) on both gates and on the
+    candidate: each norm's statistics are global over (C, H, W) per sample,
+    as flax's ``GroupNorm(num_groups=1)`` computes them (``group_norm1``).
+    ``forward(h, x)`` returns the new state."""
+
+    def __init__(self, cin: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.gate_conv = nn.Conv2d(cin + hidden, 2 * hidden, 3, padding=1)
+        self.reset_gate_norm = nn.GroupNorm(1, hidden, eps=GN_EPS)
+        self.update_gate_norm = nn.GroupNorm(1, hidden, eps=GN_EPS)
+        self.output_conv = nn.Conv2d(cin + hidden, hidden, 3, padding=1)
+        self.output_norm = nn.GroupNorm(1, hidden, eps=GN_EPS)
+
+    def forward(self, h, x):
+        r, u = torch.split(self.gate_conv(torch.cat([x, h], dim=1)), self.hidden, dim=1)
+        r = torch.sigmoid(group_norm1(r, self.reset_gate_norm))
+        u = torch.sigmoid(group_norm1(u, self.update_gate_norm))
+        o = torch.tanh(group_norm1(self.output_conv(torch.cat([x, r * h], dim=1)),
+                                   self.output_norm))
+        return u * h + (1 - u) * o
+
+
 class DeConvFuse(nn.Module):
     """U-Net up step: deconv x2, concat skip, fuse 3x3 ConvBlock."""
 
@@ -97,7 +152,8 @@ class DeConvFuse(nn.Module):
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation of every conv in ``module``: PyTorch's default
     uniform(±1/sqrt(fan_in)) for weights and biases, drawn from ``generator``
-    so a seed fixes the weights. BatchNorm keeps its identity init."""
+    so a seed fixes the weights. BatchNorm and GroupNorm keep their identity
+    init."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.weight.shape[1] * m.weight[0, 0].numel()

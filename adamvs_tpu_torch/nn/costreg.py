@@ -6,6 +6,9 @@
 - ``AdaRedCell``: one depth step of the Ada-MVS recurrent regulariser:
   conv -> GRU(b) -> stride-2 conv -> GRU(2b) -> deconv + skip -> 1-channel
   head (a stride-2 deconv to 2x when ``up``, else a 3x3 conv).
+- ``RedCell``: one depth step of the MS-REDNet recurrent encoder-decoder:
+  four GroupNorm GRUs at 1, 1/2, 1/4 and 1/8 resolution, joined by stride-2
+  transposed convs, and a 1-channel head.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import BN_EPS, ConvBlock, ConvGRUCell, ConvReLU
+from .blocks import BN_EPS, ConvBlock, ConvGRUCell, ConvReLU, ConvTransReLU, GNConvGRUCell
 
 
 def _up(c: int) -> nn.Sequential:
@@ -90,4 +93,52 @@ class AdaRedCell(nn.Module):
         return (
             torch.zeros((batch, b, height, width), dtype=dtype, device=device),
             torch.zeros((batch, 2 * b, height // 2, width // 2), dtype=dtype, device=device),
+        )
+
+
+class RedCell(nn.Module):
+    """MS-REDNet recurrent encoder-decoder, one depth slice.
+
+    state = (h1 [B,b,h,w], h2 [B,2b,h/2,w/2], h3 [B,4b,h/4,w/4],
+    h4 [B,8b,h/8,w/8]); input cost [B,cin,h,w]; output cost [B,1,h,w]. The
+    input is negated first, as the reference feeds the negated variance. The
+    head ``upconv2d`` is a stride-1 transposed conv, as in the reference.
+    """
+
+    def __init__(self, cin: int, base: int = 8):
+        super().__init__()
+        b = base
+        self.base = base
+        self.conv_gru1 = GNConvGRUCell(cin, b)
+        self.conv_gru2 = GNConvGRUCell(2 * b, 2 * b)
+        self.conv_gru3 = GNConvGRUCell(4 * b, 4 * b)
+        self.conv_gru4 = GNConvGRUCell(8 * b, 8 * b)
+        self.conv1 = ConvReLU(cin, 2 * b, stride=2)
+        self.conv2 = ConvReLU(2 * b, 4 * b, stride=2)
+        self.conv3 = ConvReLU(4 * b, 8 * b, stride=2)
+        self.upconv3 = ConvTransReLU(8 * b, 4 * b)
+        self.upconv2 = ConvTransReLU(4 * b, 2 * b)
+        self.upconv1 = ConvTransReLU(2 * b, b)
+        self.upconv2d = nn.ConvTranspose2d(b, 1, 3, padding=1)
+
+    def forward(self, state, cost):
+        h1, h2, h3, h4 = state
+        x = -cost
+        c1 = self.conv1(x)
+        c2 = self.conv2(c1)
+        c3 = self.conv3(c2)
+        h4 = self.conv_gru4(h4, c3)
+        u3 = self.upconv3(h4)
+        h3 = self.conv_gru3(h3, c2)
+        u2 = self.upconv2(u3 + h3)
+        h2 = self.conv_gru2(h2, c1)
+        u1 = self.upconv1(u2 + h2)
+        h1 = self.conv_gru1(h1, x)
+        return (h1, h2, h3, h4), self.upconv2d(u1 + h1)
+
+    def init_state(self, batch: int, height: int, width: int, dtype, device):
+        b = self.base
+        return tuple(
+            torch.zeros((batch, c, height // s, width // s), dtype=dtype, device=device)
+            for c, s in ((b, 1), (2 * b, 2), (4 * b, 4), (8 * b, 8))
         )

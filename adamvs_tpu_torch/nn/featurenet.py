@@ -1,9 +1,13 @@
-"""Ada-MVS feature U-Net (counterpart of adamvs_tpu/nn/featurenet.py::AdaFeatureNet).
+"""Feature U-Nets (counterpart of adamvs_tpu/nn/featurenet.py).
 
-Outputs {"stage1": 4b @ H/4, "stage2": 2b @ H/2, "stage3": b @ H}, NCHW. Each
-output level concatenates two SPP branches (k×k average pool with stride k,
-1x1 ConvBlock, bilinear upsampling back) with the level's features, then a
-1x1 conv without bias.
+Both output {"stage1": 4b @ H/4, "stage2": 2b @ H/2, "stage3": b @ H}, NCHW,
+from one trunk (``conv0``..``conv2``) and two ``DeConvFuse`` up steps:
+
+- ``AdaFeatureNet``: each output level concatenates two SPP branches (k×k
+  average pool with stride k, 1x1 ConvBlock, bilinear upsampling back) with
+  the level's features, then a 1x1 conv without bias;
+- ``RedFeatureNet`` (MS-REDNet, ``arch_mode="unet"``): a 1x1 conv without
+  bias on each level's features.
 """
 
 from __future__ import annotations
@@ -31,16 +35,21 @@ class _SPPBranch(nn.Sequential):
         return _resize_bilinear(super().forward(x), x.shape[2], x.shape[3])
 
 
+def _trunk(module: nn.Module, b: int) -> None:
+    """``conv0`` (b @ H), ``conv1`` (2b @ H/2), ``conv2`` (4b @ H/4)."""
+    module.conv0 = nn.Sequential(ConvBlock(3, b), ConvBlock(b, b))
+    module.conv1 = nn.Sequential(ConvBlock(b, 2 * b, 5, 2), ConvBlock(2 * b, 2 * b),
+                                 ConvBlock(2 * b, 2 * b))
+    module.conv2 = nn.Sequential(ConvBlock(2 * b, 4 * b, 5, 2), ConvBlock(4 * b, 4 * b),
+                                 ConvBlock(4 * b, 4 * b))
+
+
 class AdaFeatureNet(nn.Module):
     def __init__(self, base: int = 8, num_stages: int = 3):
         super().__init__()
         b = base
         self.num_stages = num_stages
-        self.conv0 = nn.Sequential(ConvBlock(3, b), ConvBlock(b, b))
-        self.conv1 = nn.Sequential(ConvBlock(b, 2 * b, 5, 2), ConvBlock(2 * b, 2 * b),
-                                   ConvBlock(2 * b, 2 * b))
-        self.conv2 = nn.Sequential(ConvBlock(2 * b, 4 * b, 5, 2), ConvBlock(4 * b, 4 * b),
-                                   ConvBlock(4 * b, 4 * b))
+        _trunk(self, b)
         self.branch1_1 = _SPPBranch(4 * b, 2 * b, 4)
         self.branch1_2 = _SPPBranch(4 * b, 2 * b, 8)
         self.out1 = nn.Conv2d(8 * b, 4 * b, 1, bias=False)
@@ -68,4 +77,34 @@ class AdaFeatureNet(nn.Module):
             intra = self.deconv2(c0, intra)
             out["stage3"] = self.out3(
                 torch.cat([self.branch3_1(intra), self.branch3_2(intra), intra], 1))
+        return out
+
+
+class RedFeatureNet(nn.Module):
+    """MS-REDNet feature U-Net in its ``unet`` form."""
+
+    def __init__(self, base: int = 8, num_stages: int = 3):
+        super().__init__()
+        b = base
+        self.num_stages = num_stages
+        _trunk(self, b)
+        self.out1 = nn.Conv2d(4 * b, 4 * b, 1, bias=False)
+        if num_stages >= 2:
+            self.deconv1 = DeConvFuse(4 * b, 2 * b)
+            self.out2 = nn.Conv2d(2 * b, 2 * b, 1, bias=False)
+        if num_stages >= 3:
+            self.deconv2 = DeConvFuse(2 * b, b)
+            self.out3 = nn.Conv2d(b, b, 1, bias=False)
+
+    def forward(self, x) -> dict[str, torch.Tensor]:
+        c0 = self.conv0(x)
+        c1 = self.conv1(c0)
+        intra = self.conv2(c1)
+        out = {"stage1": self.out1(intra)}
+        if self.num_stages >= 2:
+            intra = self.deconv1(c1, intra)
+            out["stage2"] = self.out2(intra)
+        if self.num_stages >= 3:
+            intra = self.deconv2(c0, intra)
+            out["stage3"] = self.out3(intra)
         return out

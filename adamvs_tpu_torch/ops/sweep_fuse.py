@@ -1,18 +1,18 @@
-"""Plane-sweep cost volumes: kernels K1 (corr) and K2 (fused) and their plain
-versions.
+"""Plane-sweep cost volumes: kernels K1 (corr), K2 (fused) and K4 (var) and
+their plain versions.
 
 Counterpart of ``adamvs_tpu/ops/sweep_fuse.py``. The JAX package builds these
 volumes with one Pallas kernel (``_sweep_kernel``); here they are the CUDA
 kernels of ``csrc/sweep_fuse.cu`` (direct gather, see the note there). The
 plain versions are built from ``ops/warp.py::plane_sweep_warp`` and compute in
-float32, like the exact forms ``_xla_corr_volume`` and ``_xla_fused_volume``
-they mirror.
+float32, like the exact forms ``_xla_corr_volume``, ``_xla_fused_volume`` and
+``_xla_var_volume`` they mirror.
 
 Layouts: features are NHWC at this boundary, as in the JAX package (ref
 [B,h,w,C], sources [Vs,B,h,w,C]); the corr volume is [Vs,B,D,h,w] (depth as
-channels, what the stage-1 ``CostRegNet2D`` reads) and the fused volume is
-[D,B,C,h,w] (what the K3 regulariser reads). Visibility weights are
-[B,Vs,h,w].
+channels, what the stage-1 ``CostRegNet2D`` reads); the fused and variance
+volumes are [D,B,C,h,w] (what the K3 regulariser and MS-REDNet's ``RedCell``
+read one depth slice at a time). Visibility weights are [B,Vs,h,w].
 
 A wrapper takes the plain version for CPU tensors. For CUDA tensors it
 launches the kernel or raises.
@@ -90,12 +90,37 @@ def fused_volume_ref(ref, srcs, weights, src_projs, ref_proj, lo, step, num_dept
     return out
 
 
+def var_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int, block: int = 8):
+    """Plain K4: variance volume [D,B,C,h,w] in the feature dtype over the
+    nv = Vs+1 views {ref, warp_1..warp_Vs} at ``lo + d·step``:
+    ``sq/nv - (s/nv)²`` with ``s`` and ``sq`` summed in float32 from ref
+    through the views in order."""
+    Vs, B = srcs.shape[:2]
+    h, w, C = ref.shape[1:4]
+    nv = Vs + 1
+    ref32 = ref.float()
+    out = torch.empty((num_depth, B, C, h, w), dtype=ref.dtype, device=ref.device)
+    for d0, d1 in _blocks(num_depth, block):
+        hyp = _hyp(lo, step, d0, d1)
+        s = ref32[:, None].expand(B, d1 - d0, h, w, C)
+        sq = s * s
+        for v in range(Vs):
+            warped = plane_sweep_warp(srcs[v].float(), src_projs[v], ref_proj, hyp)
+            s = s + warped
+            sq = sq + warped * warped
+        m = s / nv
+        out[d0:d1] = (sq / nv - m * m).permute(1, 0, 4, 2, 3)
+    return out
+
+
 @functools.cache
 def _entries():
     lib = build.load_library("sweep_fuse")
-    corr = build.bind(lib, "adamvs_corr_sweep", n_ptr=6, n_int=9)
-    fused = build.bind(lib, "adamvs_fused_sweep", n_ptr=7, n_int=9)
-    return lib, corr, fused
+    return lib, {
+        "corr": build.bind(lib, "adamvs_corr_sweep", n_ptr=6, n_int=9),
+        "fused": build.bind(lib, "adamvs_fused_sweep", n_ptr=7, n_int=9),
+        "var": build.bind(lib, "adamvs_var_sweep", n_ptr=6, n_int=9),
+    }
 
 
 def _check_inputs(ref, srcs, src_projs, ref_proj, lo, step):
@@ -127,10 +152,11 @@ def corr_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int) 
     Vs, B, H, W, C, h, w = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
     geom = sweep_geometry(src_projs, ref_proj)
     out = torch.empty((Vs, B, num_depth, h, w), dtype=torch.float32, device=ref.device)
-    lib, fn, _ = _entries()
-    err = fn(_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
-             ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(), step.data_ptr(),
-             out.data_ptr(), torch.cuda.current_stream(ref.device).cuda_stream)
+    lib, fns = _entries()
+    err = fns["corr"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
+                      ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
+                      step.data_ptr(), out.data_ptr(),
+                      torch.cuda.current_stream(ref.device).cuda_stream)
     build.check(lib, err, "corr_sweep_volume")
     corr_sweep_volume.launches += 1
     return out
@@ -152,13 +178,37 @@ def fused_sweep_volume(ref, srcs, weights, src_projs, ref_proj, lo, step,
     geom = sweep_geometry(src_projs, ref_proj)
     wn = normalize_weights(weights).contiguous()
     out = torch.empty((num_depth, B, C, h, w), dtype=ref.dtype, device=ref.device)
-    lib, _, fn = _entries()
-    err = fn(_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
-             ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(), step.data_ptr(),
-             wn.data_ptr(), out.data_ptr(), torch.cuda.current_stream(ref.device).cuda_stream)
+    lib, fns = _entries()
+    err = fns["fused"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
+                       ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
+                       step.data_ptr(), wn.data_ptr(), out.data_ptr(),
+                       torch.cuda.current_stream(ref.device).cuda_stream)
     build.check(lib, err, "fused_sweep_volume")
     fused_sweep_volume.launches += 1
     return out
 
 
 fused_sweep_volume.launches = 0
+
+
+def var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int) -> torch.Tensor:
+    """K4: [D,B,C,h,w] variance volume in the feature dtype (see
+    ``var_volume_ref``)."""
+    if ref.device.type == "cpu":
+        return var_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth)
+    Vs, B, H, W, C, h, w = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
+    if Vs > _MAX_VIEWS:
+        raise ValueError(f"var_sweep_volume takes at most {_MAX_VIEWS} source views, got {Vs}")
+    geom = sweep_geometry(src_projs, ref_proj)
+    out = torch.empty((num_depth, B, C, h, w), dtype=ref.dtype, device=ref.device)
+    lib, fns = _entries()
+    err = fns["var"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
+                     ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
+                     step.data_ptr(), out.data_ptr(),
+                     torch.cuda.current_stream(ref.device).cuda_stream)
+    build.check(lib, err, "var_sweep_volume")
+    var_sweep_volume.launches += 1
+    return out
+
+
+var_sweep_volume.launches = 0

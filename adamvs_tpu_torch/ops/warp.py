@@ -77,16 +77,16 @@ def bilinear_sample(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     return out.reshape((B,) + tuple(out_shape) + (C,))
 
 
-def plane_sweep_warp(
+def sweep_coords(
     src_feat: torch.Tensor,  # [B,Hs,Ws,C]
     src_proj: torch.Tensor,  # [B,4,4]
     ref_proj: torch.Tensor,  # [B,4,4]
     depth: torch.Tensor,  # [B,D] or [B,D,H,W]
     grid_hw: tuple[int, int] | None = None,
-) -> torch.Tensor:
-    """Warp source features to the reference frustum. Returns [B,D,H,W,C];
-    the reference grid (H, W) comes from a per-pixel ``depth``, else from
-    ``grid_hw``, else from the source shape."""
+):
+    """(u, v) [B,D,H,W], detached: where each reference pixel lands in the
+    source at each depth. The reference grid (H, W) comes from a per-pixel
+    ``depth``, else from ``grid_hw``, else from the source shape."""
     if depth.ndim == 4:
         H, W = depth.shape[2:4]
     elif grid_hw is not None:
@@ -95,4 +95,10 @@ def plane_sweep_warp(
         H, W = src_feat.shape[1:3]
     rot, trans = warp_transform(src_proj, ref_proj)
     u, v = _source_coords(rot, trans, depth.float(), H, W)
-    return bilinear_sample(src_feat, u.detach(), v.detach())
+    return u.detach(), v.detach()
+
+
+def plane_sweep_warp(src_feat, src_proj, ref_proj, depth, grid_hw=None) -> torch.Tensor:
+    """Warp source features to the reference frustum. Returns [B,D,H,W,C]
+    (see ``sweep_coords`` for the grid)."""
+    return bilinear_sample(src_feat, *sweep_coords(src_feat, src_proj, ref_proj, depth, grid_hw))

@@ -26,7 +26,9 @@ def _pad_to_multiple(imgs: np.ndarray, base: int = 32) -> tuple[np.ndarray, int,
 
 class PredictEngine:
     """Streaming predictor over a fixed model, on ``device`` (CUDA unless
-    given; raises when no CUDA device is present and none was given)."""
+    given; raises when no CUDA device is present and none was given). Any
+    model of ``models.build_model`` serves (AdaMVS or MS-REDNet): the engine
+    reads only the outputs ``depth`` and ``photometric_confidence``."""
 
     def __init__(self, model, num_depth: int = 192, device=None):
         self.device = resolve_device(device)

@@ -1,15 +1,19 @@
 """JAX variables -> port state_dict.
 
-Inverts the JAX package's reference-checkpoint importer
-(adamvs_tpu/train/torch_import.py:52-108): its tables map the reference
+Inverts the JAX package's reference-checkpoint importers
+(adamvs_tpu/train/torch_import.py:52-158): their tables map the reference
 PyTorch names, which the port's modules use, onto the flax tree. This module
-keeps its own copy of those tables and runs them backwards:
+keeps its own copy of those tables, for AdaMVS and for MS-REDNet, and runs
+them backwards:
 
 - conv kernel, flax HWIO -> PyTorch OIHW;
 - transposed-conv kernel, flax HWIO (spatially flipped, since flax
-  correlates) -> PyTorch IOHW, un-flipped;
+  correlates) -> PyTorch IOHW, un-flipped; MS-REDNet's stride-1 head
+  ``upconv2d`` is a transposed conv in the reference and a plain conv in
+  flax, and takes this path too;
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/
-  running_var.
+  running_var;
+- GroupNorm scale/bias -> weight/bias.
 
 Inputs are nested mappings of numpy-convertible arrays (a flax
 ``{"params", "batch_stats"}`` tree); no JAX import is needed.
@@ -79,6 +83,52 @@ def _reg_fuse_plan(up: bool) -> list[tuple[str, str, str]]:
     ]
 
 
+def _red_feature_plan() -> list[tuple[str, str, str]]:
+    """MS-REDNet feature net (``arch_mode="unet"``): (PyTorch prefix, flax
+    path under 'feature', kind)."""
+    plan = []
+    trunk = [
+        ("conv0.0", "ConvBlock_0"), ("conv0.1", "ConvBlock_1"),
+        ("conv1.0", "ConvBlock_2"), ("conv1.1", "ConvBlock_3"), ("conv1.2", "ConvBlock_4"),
+        ("conv2.0", "ConvBlock_5"), ("conv2.1", "ConvBlock_6"), ("conv2.2", "ConvBlock_7"),
+    ]
+    for t, f in trunk:
+        plan.append((f"{t}.conv", f"{f}/FastConv_0", "conv"))
+        plan.append((f"{t}.bn", f"{f}/BatchNorm_0", "bn"))
+    for t, f in [("deconv1", "DeConvFuse_0"), ("deconv2", "DeConvFuse_1")]:
+        plan.append((f"{t}.deconv.conv", f"{f}/DeconvBlock_0/FastConvTranspose_0", "convt"))
+        plan.append((f"{t}.deconv.bn", f"{f}/DeconvBlock_0/BatchNorm_0", "bn"))
+        plan.append((f"{t}.conv.conv", f"{f}/ConvBlock_0/FastConv_0", "conv"))
+        plan.append((f"{t}.conv.bn", f"{f}/ConvBlock_0/BatchNorm_0", "bn"))
+    for i in range(3):
+        plan.append((f"out{i + 1}", f"FastConv_{i}", "conv"))
+    return plan
+
+
+def _red_reg_plan() -> list[tuple[str, str, str]]:
+    """MS-REDNet ``RedCell`` under a stage's 'reg{i}' tree. The flax cell
+    creates its GRUs deepest first, so conv_gru4 is GNConvGRUCell_0."""
+    plan = [
+        ("conv1.conv", "cell/ConvReLU_0/FastConv_0", "conv"),
+        ("conv2.conv", "cell/ConvReLU_1/FastConv_0", "conv"),
+        ("conv3.conv", "cell/ConvReLU_2/FastConv_0", "conv"),
+        ("upconv3.conv", "cell/ConvTransReLU_0/FastConvTranspose_0", "convt"),
+        ("upconv2.conv", "cell/ConvTransReLU_1/FastConvTranspose_0", "convt"),
+        ("upconv1.conv", "cell/ConvTransReLU_2/FastConvTranspose_0", "convt"),
+        ("upconv2d", "cell/FastConv_0", "convt"),
+    ]
+    for gru, cellname in [("conv_gru4", "GNConvGRUCell_0"), ("conv_gru3", "GNConvGRUCell_1"),
+                          ("conv_gru2", "GNConvGRUCell_2"), ("conv_gru1", "GNConvGRUCell_3")]:
+        plan += [
+            (f"{gru}.gate_conv", f"cell/{cellname}/FastConv_0", "conv"),
+            (f"{gru}.reset_gate_norm", f"cell/{cellname}/GroupNorm_0", "gn"),
+            (f"{gru}.update_gate_norm", f"cell/{cellname}/GroupNorm_1", "gn"),
+            (f"{gru}.output_conv", f"cell/{cellname}/FastConv_1", "conv"),
+            (f"{gru}.output_norm", f"cell/{cellname}/GroupNorm_2", "gn"),
+        ]
+    return plan
+
+
 def _get(tree: Mapping, path: str):
     node = tree
     for part in path.split("/"):
@@ -98,6 +148,10 @@ def _apply_plan(params: Mapping, stats: Mapping, prefix: str, plan, sd: dict) ->
         if node is None:  # a level the model does not have (fewer stages)
             continue
         full = f"{prefix}{tname}"
+        if kind == "gn":
+            sd[f"{full}.weight"] = _t(node["scale"])
+            sd[f"{full}.bias"] = _t(node["bias"])
+            continue
         if kind == "bn":
             st = _get(stats, fpath)
             sd[f"{full}.weight"] = _t(node["scale"])
@@ -127,5 +181,18 @@ def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.
     while f"reg_fuse{i + 1}" in params:
         _apply_plan(params[f"reg_fuse{i + 1}"], {}, f"DepthNet.{i}.reg_fuse.",
                     _reg_fuse_plan(up=i < 2), sd)
+        i += 1
+    return sd
+
+
+def from_jax_msrednet_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """The port ``MSREDNet`` state_dict holding the weights of a JAX
+    ``MSREDNet`` ``{"params", "batch_stats"}`` tree."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict = OrderedDict()
+    _apply_plan(params["feature"], stats.get("feature", {}), "feature.", _red_feature_plan(), sd)
+    i = 0
+    while f"reg{i + 1}" in params:
+        _apply_plan(params[f"reg{i + 1}"], {}, f"cost_regularization.{i}.", _red_reg_plan(), sd)
         i += 1
     return sd

@@ -9,18 +9,25 @@ Phases, in order; any failure exits nonzero:
 
 1. device: the card's name and power limit;
 2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source;
-3. kernels: K1 (corr sweep), K2 (fused sweep) and K3 (red-scan recurrence)
-   against their plain PyTorch versions at every stage shape of the main
-   path (2752x1856 frames, V=5, ndepths 48/32/8, base 8), in float32 with
-   TF32 off and in bfloat16, with their times (CUDA events, median); then
-   again at small ragged shapes (batch 2, rotated views, samples behind the
-   camera), float32;
-4. reference: the whole model on a small frame, kernels on the card against
-   the plain path on the CPU, float32;
-5. main path: PredictEngine on AdaMVS with seeded random weights in bfloat16
-   at full width answers 3 requests (one warm-up, two timed); outputs must be
-   finite with confidence in (0, 1], and the launch counters must show every
-   kernel ran; then the layers outside the kernels are timed alone;
+3. kernels: K1 (corr sweep), K2 (fused sweep), K3 (red-scan recurrence), K4
+   (variance sweep) and K6/K7 (bilinear sampler, one hypothesis slice per
+   source view) against their plain PyTorch versions at every stage shape
+   of the main paths (2752x1856 frames, V=5, ndepths 48/32/8, base 8), in
+   float32 with TF32 off and in bfloat16, with their times (CUDA events,
+   median) and, for K6/K7, F.grid_sample's; then again at small ragged
+   shapes (batch 2, rotated views, samples behind the camera and outside the
+   image), float32;
+4. reference: AdaMVS and MS-REDNet (fused and scan forms) on a small frame,
+   kernels on the card against the plain path on the CPU, float32;
+5. main paths, each with every launch counter set to 0 just before it and
+   read just after: PredictEngine with seeded random weights in bfloat16 at
+   full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map), on
+   MS-REDNet in its fused form (3 requests: K4 3 per map) and in its scan
+   form (2 requests: the sampler 4 x (48+32+8) = 352 per map); the first
+   request of each is a warm-up; outputs must be finite with confidence in
+   (0, 1]; one more request, after the counts are read, is traced with
+   torch.profiler for the card's busy time; then each model's layers are
+   timed alone;
 6. the kernels line (JSON), the card line, and the final JSON line.
 """
 
@@ -59,12 +66,34 @@ TOL = {
     ("K1", torch.float32): 1e-5, ("K1", torch.bfloat16): 1e-5,  # float32 output
     ("K2", torch.float32): 1e-5, ("K2", torch.bfloat16): 8e-3,  # one bf16 rounding of the output
     ("K3", torch.float32): 1e-4, ("K3", torch.bfloat16): 5e-2,  # bf16 stores of every GRU step
+    ("K4", torch.float32): 1e-5, ("K4", torch.bfloat16): 8e-3,  # one bf16 rounding of the output
+    ("K6/7", torch.float32): 1e-5, ("K6/7", torch.bfloat16): 8e-3,  # the same
 }
+KERNELS = ("K1", "K2", "K3", "K4", "K6/7")
 REPLACES = {
     "K1": ("corr_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:611"),
     "K2": ("fused_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:418"),
     "K3": ("red_scan", "adamvs_tpu_torch/csrc/red_scan.cu", "adamvs_tpu/ops/red_scan.py:542"),
+    "K4": ("var_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:515"),
+    "K6/7": ("bilinear_sample", "adamvs_tpu_torch/csrc/bilinear_sample.cu",
+             "adamvs_tpu/ops/warp_pallas2.py:178 (K6), adamvs_tpu/ops/warp_pallas.py:89 (K7)"),
 }
+# (path, model, model options, requests, launches per depth map)
+PATHS = (
+    ("adamvs", "adamvs", {}, 3, {"K1": 1, "K2": 3, "K3": 3}),
+    ("msrednet_fused", "msrednet", {"sweep_impl": "fused"}, 3, {"K4": 3}),
+    ("msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 2, {"K6/7": (V - 1) * sum(NDEPTHS)}),
+)
+
+
+def wrappers() -> dict:
+    """The kernel wrappers by kernel, each with its ``launches`` count."""
+    from adamvs_tpu_torch.ops import red_scan as rs
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.ops import warp_sample as ws
+
+    return {"K1": sf.corr_sweep_volume, "K2": sf.fused_sweep_volume, "K3": rs.red_scan,
+            "K4": sf.var_sweep_volume, "K6/7": ws.sample_bilinear}
 
 
 def fail(msg: str) -> None:
@@ -105,6 +134,20 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_busy_ms(fn) -> float:
+    """Milliseconds the card spends in kernels and copies while ``fn`` runs:
+    the sum of their durations in a torch.profiler trace of the device alone
+    (one stream, so they do not overlap). Unlike CUDA events around ``fn``,
+    this leaves out the gaps in which the card waits for the host."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    if not busy > 0.0:
+        fail("the profiler traced no device time")
+    return busy
 
 
 def phase_device() -> str:
@@ -174,7 +217,10 @@ def sweep_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
     dot products (8C) and their weighted sum over C (8) per sample.
     K2: sum_v w'_v (ref * sum_k w_k s_k) = ref * sum_v sum_k (w'_v w_k) s_k,
     four weight products (4) and four length-C multiply-adds (8C) per sample,
-    then the product with ref (C) per (hypothesis, pixel)."""
+    then the product with ref (C) per (hypothesis, pixel).
+    K4: the sample sum_k w_k s_k (8C) and its additions to s and sq (3C) per
+    sample; per (hypothesis, pixel, channel) ref^2, s/nv, sq/nv, their square
+    and difference (5)."""
     es = torch.tensor([], dtype=dtype).element_size()
     Vs, hw, C, D = V - 1, st.h * st.w, st.C, st.D
     nbytes = (1 + Vs) * hw * C * es + 2 * hw * 4
@@ -182,10 +228,23 @@ def sweep_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
     if kind == "K1":
         nbytes += Vs * D * hw * 4
         flops += Vs * D * hw * (18 + 8 * C + 8)
-    else:
+    elif kind == "K2":
         nbytes += Vs * hw * 4 + D * hw * C * es
         flops += Vs * D * hw * (18 + 4 + 8 * C) + D * hw * C
+    else:
+        nbytes += D * hw * C * es
+        flops += Vs * D * hw * (18 + 11 * C) + D * hw * C * 5
     return _bound(nbytes, flops, F32_FLOPS)
+
+
+def sample_bound(st: StageInputs, dtype) -> tuple[float, str]:
+    """Least work of one K6/K7 call (one source view, one hypothesis slice):
+    the source, u and v read once and the samples written once; per sample
+    the floors (2), fractions and complements (4) and tap weights (4), and
+    four length-C multiply-adds (8C)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    hw, C = st.h * st.w, st.C
+    return _bound(2 * hw * C * es + 2 * hw * 4, hw * (10 + 8 * C), F32_FLOPS)
 
 
 def red_scan_bound(st: StageInputs, dtype) -> tuple[float, str]:
@@ -218,19 +277,33 @@ def _compare(tag: str, key, got: torch.Tensor, want: torch.Tensor) -> tuple[floa
     return err, rel
 
 
+def _grid(u: torch.Tensor, v: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Pixel coordinates [B,1,h,w] -> F.grid_sample's align_corners=True grid
+    [B,h,w,2] over an H x W source."""
+    return torch.stack([u[:, 0] / ((W - 1) / 2) - 1, v[:, 0] / ((H - 1) / 2) - 1], dim=-1)
+
+
 def phase_kernels(reps: int = 3) -> dict:
     from adamvs_tpu_torch.nn.blocks import init_parameters
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
     from adamvs_tpu_torch.ops import red_scan as rs
     from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.ops import warp_sample as ws
+    from adamvs_tpu_torch.ops.warp import sweep_coords
 
     gen = torch.Generator(device=DEV).manual_seed(0)
-    res = {k: {"err": {}, "stages": []} for k in ("K1", "K2", "K3")}
+    res = {k: {"err": {}, "stages": []} for k in KERNELS}
+
+    def record(k, tn, e):
+        old = res[k]["err"].get(tn, (0.0, 0.0))
+        res[k]["err"][tn] = (max(old[0], e[0]), max(old[1], e[1]))
+
     for si in range(3):
         st = StageInputs(si, gen)
         cell32 = AdaRedCell(st.C, BASE, st.up)
         init_parameters(cell32, torch.Generator().manual_seed(10 + si))
         cell32 = cell32.to(DEV).eval()
+        calls = (V - 1) * st.D  # sampler calls of one depth map at this stage
         for dtype in (torch.float32, torch.bfloat16):
             tn = "f32" if dtype == torch.float32 else "bf16"
             ref, srcs = st.feats(dtype)
@@ -240,29 +313,75 @@ def phase_kernels(reps: int = 3) -> dict:
                 if si == 0:
                     k1 = lambda: sf.corr_sweep_volume(ref, srcs, *geo)
                     p1 = lambda: sf.corr_volume_ref(ref, srcs, *geo)
-                    res["K1"]["err"][tn] = _compare(f"K1 stage1 {tn}", ("K1", dtype), k1(), p1())
+                    record("K1", tn, _compare(f"K1 stage1 {tn}", ("K1", dtype), k1(), p1()))
                     if dtype == torch.bfloat16:
                         timing["K1"] = (time_ms(k1, reps), time_ms(p1, 1), sweep_bound("K1", st, dtype))
                 k2 = lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo)
                 p2 = lambda: sf.fused_volume_ref(ref, srcs, st.weights, *geo)
                 vol = k2()
-                e2 = _compare(f"K2 stage{si + 1} {tn}", ("K2", dtype), vol, p2())
+                record("K2", tn, _compare(f"K2 stage{si + 1} {tn}", ("K2", dtype), vol, p2()))
                 cell = copy.deepcopy(cell32).to(dtype)
                 k3 = lambda: rs.red_scan(cell, vol)
                 p3 = lambda: rs.red_scan_ref(cell, vol)
-                e3 = _compare(f"K3 stage{si + 1} {tn}", ("K3", dtype), k3(), p3())
-                for k, e in (("K2", e2), ("K3", e3)):
-                    old = res[k]["err"].get(tn, (0.0, 0.0))
-                    res[k]["err"][tn] = (max(old[0], e[0]), max(old[1], e[1]))
+                record("K3", tn, _compare(f"K3 stage{si + 1} {tn}", ("K3", dtype), k3(), p3()))
+                k4 = lambda: sf.var_sweep_volume(ref, srcs, *geo)
+                p4 = lambda: sf.var_volume_ref(ref, srcs, *geo)
+                record("K4", tn, _compare(f"K4 stage{si + 1} {tn}", ("K4", dtype), k4(), p4()))
+                # K6/K7: one hypothesis slice (the middle one) per source view
+                hyp = (st.lo + (st.D // 2) * st.step)[:, None]
+                uv = [sweep_coords(srcs[v], st.src_projs[v], st.ref_proj, hyp) for v in range(V - 1)]
+                record("K6/7", tn, _compare(
+                    f"K6/7 stage{si + 1} {tn} ({V - 1} views)", ("K6/7", dtype),
+                    torch.cat([ws.sample_bilinear(srcs[v], *uv[v]) for v in range(V - 1)]),
+                    torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v]) for v in range(V - 1)])))
                 if dtype == torch.bfloat16:
                     timing["K2"] = (time_ms(k2, reps), time_ms(p2, 1), sweep_bound("K2", st, dtype))
                     timing["K3"] = (time_ms(k3, reps), time_ms(p3, 1), red_scan_bound(st, dtype))
+                    timing["K4"] = (time_ms(k4, reps), time_ms(p4, 1), sweep_bound("K4", st, dtype))
+                    # A stage's sampler calls run back to back, as the scan form issues them.
+                    # A call takes a few tens of microseconds, about what the host needs to
+                    # launch one, so CUDA events around the calls ("wall_ms") time the host
+                    # too; the kernel's time ("ms") is the card's busy time in a trace.
+                    # The library yardstick samples the float32 features: F.grid_sample takes
+                    # its grid in the input's dtype, and a bf16 grid cannot hold pixel positions.
+                    nchw = [srcs[v].float().permute(0, 3, 1, 2).contiguous() for v in range(V - 1)]
+                    grid = [_grid(*uv[v], st.h, st.w) for v in range(V - 1)]
+
+                    def lib(n=calls):
+                        for i in range(n):
+                            out = F.grid_sample(nchw[i % (V - 1)], grid[i % (V - 1)],
+                                                mode="bilinear", padding_mode="zeros",
+                                                align_corners=True)
+                        return out
+
+                    def k6():
+                        for i in range(calls):
+                            ws.sample_bilinear(srcs[i % (V - 1)], *uv[i % (V - 1)])
+
+                    want6 = ws.sample_bilinear_ref(srcs[0].float(), *uv[0])[:, 0]
+                    lib_err = (lib(1).permute(0, 2, 3, 1) - want6).abs().max().item()
+                    p6 = lambda: ws.sample_bilinear_ref(srcs[1], *uv[1])
+                    wall6, wlib6 = time_ms(k6, 3), time_ms(lib, 3)
+                    ms6, lms6 = device_busy_ms(k6), device_busy_ms(lib)
+                    pms6 = time_ms(p6, 1) * calls
+                    bms6, by6 = sample_bound(st, dtype)
+                    res["K6/7"]["stages"].append({
+                        "stage": si + 1, "calls_per_map": calls, "ms_per_call": ms6 / calls,
+                        "ms": ms6, "wall_ms": wall6, "plain_ms": pms6, "bound_ms": bms6 * calls,
+                        "bound_by": by6, "library_ms": lms6, "library_wall_ms": wlib6})
+                    log(f"[kernels] K6/7 stage{si + 1} bf16, {calls} calls back to back: "
+                        f"{ms6:.3f} ms on the card, {ms6 / calls:.4f} ms per call, wall "
+                        f"{wall6:.3f} ms (plain {pms6:.3f} ms, bound {bms6 * calls:.3f} ms by "
+                        f"{by6}; F.grid_sample float32 {lms6:.3f} ms on the card, wall "
+                        f"{wlib6:.3f} ms, its max_abs_err against the plain version "
+                        f"{lib_err:.2e})")
+                    del nchw, grid
             for k, (ms, pms, (bms, by)) in timing.items():
                 res[k]["stages"].append({"stage": si + 1, "ms": ms, "plain_ms": pms,
                                          "bound_ms": bms, "bound_by": by})
                 log(f"[kernels] {k} stage{si + 1} bf16: {ms:.3f} ms (plain {pms:.3f} ms, "
                     f"bound {bms:.3f} ms by {by})")
-            del ref, srcs, vol
+            del ref, srcs, vol, uv
         del st
         torch.cuda.empty_cache()
     return res
@@ -272,11 +391,15 @@ def phase_edges() -> None:
     """The kernels against their plain versions at small ragged shapes, in
     float32: batch 2, sizes that are no multiple of the thread blocks, an odd
     hypothesis count, rotated views, samples behind the camera and out of
-    the image, both regulariser widths and both head kinds."""
+    the image, both regulariser widths and both head kinds; the sampler at
+    every hypothesis of every view at once (N = D) and at random coordinates
+    past every border."""
     from adamvs_tpu_torch.nn.blocks import init_parameters
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
     from adamvs_tpu_torch.ops import red_scan as rs
     from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.ops import warp_sample as ws
+    from adamvs_tpu_torch.ops.warp import sweep_coords
 
     gen = torch.Generator(device=DEV).manual_seed(1)
     B, Vs, h, w, D = 2, 3, 38, 54, 11
@@ -297,6 +420,18 @@ def phase_edges() -> None:
                      sf.corr_volume_ref(ref, srcs, *geo))
             _compare(f"K2 edge C{C}", ("K2", f32), sf.fused_sweep_volume(ref, srcs, wts, *geo),
                      sf.fused_volume_ref(ref, srcs, wts, *geo))
+            _compare(f"K4 edge C{C}", ("K4", f32), sf.var_sweep_volume(ref, srcs, *geo),
+                     sf.var_volume_ref(ref, srcs, *geo))
+            hyp = lo[:, None] + torch.arange(D, device=DEV)[None, :, None, None] * step[:, None]
+            for v in range(Vs):
+                u, vv = sweep_coords(srcs[v], src_projs[v], ref_proj, hyp)  # [B,D,h,w]
+                _compare(f"K6/7 edge C{C} view {v}", ("K6/7", f32),
+                         ws.sample_bilinear(srcs[v], u, vv), ws.sample_bilinear_ref(srcs[v], u, vv))
+            u = -3.0 + (w + 6.0) * torch.rand((B, 2, 17, 23), generator=gen, device=DEV)
+            vv = -3.0 + (h + 6.0) * torch.rand((B, 2, 17, 23), generator=gen, device=DEV)
+            u[:, :, :2] = -1e9
+            _compare(f"K6/7 edge C{C} random coordinates", ("K6/7", f32),
+                     ws.sample_bilinear(srcs[0], u, vv), ws.sample_bilinear_ref(srcs[0], u, vv))
         for base, up in ((4, True), (8, False), (8, True)):
             cell = AdaRedCell(16, base, up)
             init_parameters(cell, torch.Generator().manual_seed(base + up))
@@ -307,74 +442,166 @@ def phase_edges() -> None:
 
 
 def phase_reference() -> None:
-    """The model on a small frame: kernels on the card against the plain path
-    on the CPU, float32."""
+    """Each path's model on a small frame: kernels on the card against the
+    plain path on the CPU, float32."""
     from adamvs_tpu_torch.models import build_model
 
     h, w = 128, 160
-    model = build_model(seed=1, device=DEV, ndepths=NDEPTHS, base=BASE, cr_base=(BASE,) * 3)
-    cpu_model = copy.deepcopy(model).cpu()
     rng = np.random.RandomState(1)
     imgs = torch.from_numpy(rng.randn(1, V, h, w, 3).astype(np.float32))
     projs = {k: torch.from_numpy(p[None]) for k, p in bench_projs(h, w, V, FOCAL * h / H).items()}
     dv = torch.tensor([[DMIN, DMAX]])
-    got = model(imgs.to(DEV), {k: p.to(DEV) for k, p in projs.items()}, dv.to(DEV),
-                num_depth=NUM_DEPTH)
-    want = cpu_model(imgs, projs, dv, num_depth=NUM_DEPTH)
-    for key in ("stage1", "stage2", "stage3"):
-        derr = (got[key]["depth"].cpu() - want[key]["depth"]).abs().max().item() / (DMAX - DMIN)
-        cerr = (got[key]["photometric_confidence"].cpu()
-                - want[key]["photometric_confidence"]).abs().max().item()
-        log(f"[reference] {key}: depth err {derr:.2e} of the range, confidence err {cerr:.2e}")
-        if not (derr < 1e-4 and cerr < 1e-3):
-            fail(f"{key}: kernels on the card disagree with the plain path on the CPU")
+    for path, name, opts, _, _ in PATHS:
+        model = build_model(name, seed=1, device=DEV, ndepths=NDEPTHS, base=BASE,
+                            cr_base=(BASE,) * 3, **opts)
+        cpu_model = copy.deepcopy(model).cpu()
+        got = model(imgs.to(DEV), {k: p.to(DEV) for k, p in projs.items()}, dv.to(DEV),
+                    num_depth=NUM_DEPTH)
+        want = cpu_model(imgs, projs, dv, num_depth=NUM_DEPTH)
+        for key in ("stage1", "stage2", "stage3"):
+            derr = (got[key]["depth"].cpu() - want[key]["depth"]).abs().max().item() / (DMAX - DMIN)
+            cerr = (got[key]["photometric_confidence"].cpu()
+                    - want[key]["photometric_confidence"]).abs().max().item()
+            log(f"[reference] {path} {key}: depth err {derr:.2e} of the range, "
+                f"confidence err {cerr:.2e}")
+            if not (derr < 1e-4 and cerr < 1e-3):
+                fail(f"{path} {key}: kernels on the card disagree with the plain path on the CPU")
 
 
-def phase_main_path() -> tuple[dict, dict]:
+def phase_main_path() -> tuple[dict, list]:
+    """Every path of PATHS through PredictEngine at full width in bf16, each
+    with all launch counters set to 0 just before it and read just after.
+    Returns (launches summed over the paths, per-path statistics)."""
     from adamvs_tpu_torch.models import build_model
-    from adamvs_tpu_torch.ops import red_scan as rs
-    from adamvs_tpu_torch.ops import sweep_fuse as sf
     from adamvs_tpu_torch.predict.engine import PredictEngine
 
-    model = build_model(seed=0, device=DEV, dtype=torch.bfloat16, ndepths=NDEPTHS,
-                        depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3)
-    engine = PredictEngine(model, num_depth=NUM_DEPTH, device=DEV)
     rng = np.random.RandomState(0)
     sample = types.SimpleNamespace(
         imgs=rng.randn(V, H, W, 3).astype(np.float32),
         proj_matrices=bench_projs(H, W, V, FOCAL),
         depth_values=np.array([DMIN, DMAX], np.float32),
     )
-    wrappers = {"K1": sf.corr_sweep_volume, "K2": sf.fused_sweep_volume, "K3": rs.red_scan}
-    per_map = {"K1": 1, "K2": 3, "K3": 3}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
-    times = []
-    for i in range(3):
-        t0 = time.perf_counter()
-        depth, conf = engine.predict_sample(sample)
-        times.append((time.perf_counter() - t0) * 1e3)
-        if depth.shape != (H, W) or conf.shape != (H, W):
-            fail(f"output shapes {depth.shape} {conf.shape}")
-        if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
-            fail("non-finite depth or confidence")
-        if not (conf.min() > 0.0 and conf.max() <= 1.0):
-            fail(f"confidence outside (0, 1]: [{conf.min()}, {conf.max()}]")
-        log(f"[main] request {i}: {times[-1]:.1f} ms, depth [{depth.min():.1f}, {depth.max():.1f}], "
-            f"confidence [{conf.min():.3f}, {conf.max():.3f}]")
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    for k, n in launches.items():
-        if n != 3 * per_map[k]:
-            fail(f"{k}: {n} launches on the main path, expected {3 * per_map[k]}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    main = {"ms_per_map": statistics.mean(times[1:]), "timed_ms": times[1:],
-            "warmup_ms": times[0], "peak_gib": peak, "layers_ms": layer_times(model, sample)}
-    log(f"[main] {H}x{W} V={V} ndepths {NDEPTHS} bf16: {main['ms_per_map']:.1f} ms per depth map "
-        f"(timed {times[1]:.1f}, {times[2]:.1f}; warm-up {times[0]:.1f}), peak {peak:.2f} GiB, "
-        f"launches {launches}")
-    return launches, main
+    counted = wrappers()
+    total = dict.fromkeys(KERNELS, 0)
+    stats = []
+    for path, name, opts, requests, per_map in PATHS:
+        model = build_model(name, seed=0, device=DEV, dtype=torch.bfloat16, ndepths=NDEPTHS,
+                            depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, **opts)
+        engine = PredictEngine(model, num_depth=NUM_DEPTH, device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        times = []
+        for i in range(requests):
+            t0 = time.perf_counter()
+            depth, conf = engine.predict_sample(sample)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if depth.shape != (H, W) or conf.shape != (H, W):
+                fail(f"{path}: output shapes {depth.shape} {conf.shape}")
+            if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
+                fail(f"{path}: non-finite depth or confidence")
+            if not (conf.min() > 0.0 and conf.max() <= 1.0):
+                fail(f"{path}: confidence outside (0, 1]: [{conf.min()}, {conf.max()}]")
+            log(f"[main] {path} request {i}: {times[-1]:.1f} ms, depth [{depth.min():.1f}, "
+                f"{depth.max():.1f}], confidence [{conf.min():.3f}, {conf.max():.3f}]")
+        launches = {k: fn.launches for k, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, n in launches.items():
+            if n != requests * per_map.get(k, 0):
+                fail(f"{path}: {k} launched {n} times over {requests} requests, expected "
+                     f"{requests * per_map.get(k, 0)}")
+            total[k] += n
+        # one more request, traced, after the counts were read: the card's busy time in it
+        busy = device_busy_ms(lambda: engine.predict_sample(sample))
+        layers = layer_times(model, sample) if name == "adamvs" else msrednet_layer_times(model, opts)
+        entry = {"path": path, "ms_per_map": statistics.mean(times[1:]), "timed_ms": times[1:],
+                 "warmup_ms": times[0], "peak_gib": peak, "launches": launches,
+                 "device_busy_ms": busy, "layers_ms": layers}
+        stats.append(entry)
+        log(f"[main] {path} {H}x{W} V={V} ndepths {NDEPTHS} bf16: {entry['ms_per_map']:.1f} ms "
+            f"per depth map (timed {', '.join(f'{t:.1f}' for t in times[1:])}; warm-up "
+            f"{times[0]:.1f}), peak {peak:.2f} GiB, launches {launches}, card busy in a traced "
+            f"request {busy:.1f} ms ({busy / entry['ms_per_map']:.0%} of the mean)")
+        del model, engine
+        torch.cuda.empty_cache()
+    return total, stats
+
+
+def msrednet_layer_times(model, opts: dict) -> dict:
+    """Milliseconds of one MS-REDNet depth map's layers, each timed alone at
+    its full-width shape on seeded random inputs: the feature net on the V
+    views; per stage the variance (K4 in the fused form; in the scan form the
+    per-hypothesis warps through K6/K7 and the float32 sums, and apart from
+    them the stage's 4 x D sampler calls alone), the RedCell recurrence over D
+    from zero states (and the card's busy time in it, from a trace), and the
+    online softmax over D. Beside them, one GroupNorm(1) at the level-1 state's shape, as PyTorch's module computes it
+    and as the port does (``group_norm1``)."""
+    from adamvs_tpu_torch.models.msrednet import variance_slice
+    from adamvs_tpu_torch.nn.blocks import group_norm1
+    from adamvs_tpu_torch.ops.regression import (online_softmax_finalize, online_softmax_init,
+                                                 online_softmax_update)
+    from adamvs_tpu_torch.ops.sweep_fuse import var_sweep_volume
+    from adamvs_tpu_torch.ops.warp import sweep_coords
+    from adamvs_tpu_torch.ops.warp_sample import sample_bilinear
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.randn((V, 3, H, W), generator=gen, device=DEV).to(dt)
+    out = {}
+    with torch.no_grad():
+        out["feature_net"] = time_ms(lambda: model.feature(x), 3)
+        del x
+        for si in range(3):
+            st = StageInputs(si, gen)
+            ref, srcs = st.feats(dt)
+            tag = f"stage{si + 1}"
+            fused = lambda: var_sweep_volume(ref, srcs, st.src_projs, st.ref_proj, st.lo, st.step,
+                                             st.D)
+            if opts["sweep_impl"] == "fused":
+                out[f"variance_{tag}"] = time_ms(fused, 3)
+            else:
+                out[f"variance_{tag}"] = time_ms(lambda: [
+                    variance_slice(ref, srcs, st.src_projs, st.ref_proj, st.lo + float(d) * st.step)
+                    for d in range(st.D)], 2)
+                coords = [(v, sweep_coords(srcs[v], st.src_projs[v], st.ref_proj,
+                                           (st.lo + float(d) * st.step)[:, None]))
+                          for d in range(st.D) for v in range(V - 1)]
+
+                def sampler():
+                    for v, uv in coords:
+                        sample_bilinear(srcs[v], *uv)
+
+                out[f"sampler_{tag}"] = time_ms(sampler, 3)
+                del coords
+            vol = fused()
+            cell = model.cost_regularization[si]
+
+            def recurrence():
+                state = cell.init_state(1, st.h, st.w, dt, DEV)
+                for d in range(st.D):
+                    state, _ = cell(state, vol[d])
+
+            out[f"redcell_{tag}"] = time_ms(recurrence, 5)
+            out[f"redcell_busy_{tag}"] = device_busy_ms(recurrence)
+            gn = cell.conv_gru1.output_norm
+            hx = torch.randn((1, cell.base, st.h, st.w), generator=gen, device=DEV).to(dt)
+            out[f"groupnorm_module_{tag}"] = time_ms(lambda: gn(hx), 3)
+            out[f"groupnorm_port_{tag}"] = time_ms(lambda: group_norm1(hx, gn), 3)
+            cost = torch.randn((st.D, 1, st.h, st.w), generator=gen, device=DEV)
+
+            def softmax():
+                acc = online_softmax_init((1, st.h, st.w), device=DEV)
+                for d in range(st.D):
+                    acc = online_softmax_update(acc, cost[d], st.lo + float(d) * st.step)
+                return online_softmax_finalize(acc)
+
+            out[f"online_softmax_{tag}"] = time_ms(softmax, 3)
+            del st, ref, srcs, vol, cost, hx
+            torch.cuda.empty_cache()
+    log(f"[main] msrednet {opts['sweep_impl']} layers (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
 
 
 def layer_times(model, sample) -> dict:
@@ -409,18 +636,19 @@ def layer_times(model, sample) -> dict:
 
 def kernels_line(res: dict, launches: dict) -> dict:
     out = []
-    for k in ("K1", "K2", "K3"):
+    for k in KERNELS:
         name, source, replaces = REPLACES[k]
         stages = res[k]["stages"]
-        bound_ms = sum(s["bound_ms"] for s in stages)
-        by = max(stages, key=lambda s: s["bound_ms"])["bound_by"]
+        libs = [s["library_ms"] for s in stages if "library_ms" in s]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[k],
             "max_abs_err": res[k]["err"]["bf16"][0],
             "ms": sum(s["ms"] for s in stages),
             "plain_ms": sum(s["plain_ms"] for s in stages),
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "bound_ms": sum(s["bound_ms"] for s in stages),
+            "bound_by": max(stages, key=lambda s: s["bound_ms"])["bound_by"],
+            "library_ms": sum(libs) if libs else None,
             "max_abs_err_f32": res[k]["err"]["f32"][0],
             "max_rel_err": {t: e[1] for t, e in res[k]["err"].items()},
             "stages": stages,

@@ -1,9 +1,11 @@
 """Port ops against the JAX package: the warp, samplers, resize and softmax
-regression, and the plain versions of kernels K1 (corr volume) and K2 (fused
-volume) against the exact forms the Pallas kernels are held to
-(``_xla_corr_volume``, ``_xla_fused_volume``). Also the port's ground rules:
-no JAX import anywhere in the port, CUDA by default, no kernel build on a CPU
-call. Everything here runs on the CPU at float32."""
+regression, the plain versions of kernels K1 (corr volume), K2 (fused volume)
+and K4 (variance volume) against the exact forms the Pallas kernels are held
+to (``_xla_corr_volume``, ``_xla_fused_volume``, ``_xla_var_volume``), and the
+plain K6/K7 bilinear sampler against the JAX gather and both Pallas samplers
+in interpret mode. Also the port's ground rules: no JAX import anywhere in
+the port, CUDA by default, no kernel build on a CPU call. Everything here
+runs on the CPU at float32."""
 
 import ast
 import os
@@ -16,13 +18,16 @@ import torch
 from adamvs_tpu.ops import regression as jreg
 from adamvs_tpu.ops import sampling as jsamp
 from adamvs_tpu.ops import warp as jwarp
-from adamvs_tpu.ops.sweep_fuse import _xla_corr_volume, _xla_fused_volume
+from adamvs_tpu.ops.sweep_fuse import _xla_corr_volume, _xla_fused_volume, _xla_var_volume
+from adamvs_tpu.ops.warp_pallas import banded_bilinear_sample_pallas
+from adamvs_tpu.ops.warp_pallas2 import banded_bilinear_sample_pallas2
 from adamvs_tpu_torch.kernels import build
 from adamvs_tpu_torch.ops import red_scan as tred
 from adamvs_tpu_torch.ops import regression as treg
 from adamvs_tpu_torch.ops import sampling as tsamp
 from adamvs_tpu_torch.ops import sweep_fuse as tsweep
 from adamvs_tpu_torch.ops import warp as twarp
+from adamvs_tpu_torch.ops import warp_sample as tsample
 from tests.test_torch_import_msrednet import _real_cameras
 
 torch.set_num_threads(2)
@@ -154,6 +159,90 @@ def test_fused_volume_ref_matches_xla(C, B, Vs, D, windowed):
     np.testing.assert_allclose(got.permute(0, 1, 3, 4, 2).numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("C,B,Vs,D", [(8, 2, 2, 5), (16, 1, 4, 8), (32, 1, 3, 3)])
+def test_var_volume_ref_matches_xla(C, B, Vs, D):
+    """Plain K4 (and the K4 wrapper on CPU tensors) against the exact JAX
+    form, with a third of the pixels' windows starting behind the camera and
+    taps leaving the image."""
+    ref, srcs, src_projs, ref_proj, _, lo, step = _sweep_case(C + B + Vs, B, Vs, 10, 18, C, True)
+    lo[:, :, :6] -= 24.0
+    want = np.asarray(_xla_var_volume(
+        jnp.asarray(ref), jnp.asarray(srcs), jnp.asarray(src_projs), jnp.asarray(ref_proj),
+        jnp.asarray(lo), jnp.asarray(step), D))  # [D,B,h,w,C]
+    got = tsweep.var_sweep_volume(_t(ref), _t(srcs), _t(src_projs), _t(ref_proj), _t(lo),
+                                  _t(step), D)  # [D,B,C,h,w]
+    assert got.dtype == torch.float32 and got.shape == (D, B, C, 10, 18)
+    u, _ = twarp.sweep_coords(_t(srcs[0]), _t(src_projs[-1]), _t(ref_proj),
+                              tsweep._hyp(_t(lo), _t(step), 0, D))
+    assert (u.numpy() == -1e9).any() and (u.numpy() > 18).any()  # both edge cases occur
+    np.testing.assert_allclose(got.permute(0, 1, 3, 4, 2).numpy(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        got, tsweep.var_volume_ref(_t(ref), _t(srcs), _t(src_projs), _t(ref_proj), _t(lo),
+                                   _t(step), D, block=3), rtol=0, atol=0)
+
+
+# --- plain K6/K7 against the JAX samplers ----------------------------------------
+
+def _sample_case(seed, B, N, H, W, C, h, w, lo=-4.0):
+    """Features and sample coordinates over and past every border, some at
+    -1e9 (behind the camera)."""
+    rng = np.random.RandomState(seed)
+    feat = rng.randn(B, H, W, C).astype(np.float32)
+    u = rng.uniform(lo, W + 3, (B, N, h, w)).astype(np.float32)
+    v = rng.uniform(lo, H + 3, (B, N, h, w)).astype(np.float32)
+    u[:, :, 0, :3] = v[:, :, 0, :3] = -1e9
+    return feat, u, v
+
+
+@pytest.mark.parametrize("C,B,N", [(8, 2, 3), (16, 1, 1), (32, 2, 1)])
+def test_sample_bilinear_matches_jax_gather(C, B, N):
+    feat, u, v = _sample_case(C + N, B, N, 13, 21, C, 9, 11)
+    want = np.asarray(jwarp.bilinear_sample(jnp.asarray(feat), jnp.asarray(u), jnp.asarray(v)))
+    got = tsample.sample_bilinear(_t(feat), _t(u), _t(v))
+    assert got.dtype == torch.float32 and got.shape == (B, N, 9, 11, C)
+    assert (want == 0).all(axis=-1).any() and (want != 0).any()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # bf16 features: sampled from their bf16 values in float32, one rounding
+    bf = _t(feat).bfloat16()
+    got16 = tsample.sample_bilinear(bf, _t(u), _t(v))
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16, twarp.bilinear_sample(bf.float(), _t(u), _t(v)).bfloat16(),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["pallas2", "pallas"])
+def test_sample_bilinear_matches_pallas_interpret(kernel):
+    """K6 (merged-lane) and K7 (v1) in interpret mode, with bands that cover
+    every sample (their band truncation is a TPU artefact the port does not
+    copy)."""
+    feat, u, v = _sample_case(7, 2, 2, 32, 64, 8, 16, 32, lo=-2.0)
+    args = (jnp.asarray(feat), jnp.asarray(u), jnp.asarray(v))
+    if kernel == "pallas2":
+        want = banded_bilinear_sample_pallas2(*args, tile_h=8, tile_w=16, row_band=40,
+                                              col_band=120, interpret=True)
+    else:
+        want = banded_bilinear_sample_pallas(*args, tile_h=8, tile_w=16, row_band=32,
+                                             col_band=64, interpret=True)
+    got = tsample.sample_bilinear(_t(feat), _t(u), _t(v)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_plane_sweep_warp_sampled_matches_jax_warp():
+    """The scan form's warp: coordinates in plain PyTorch, sampling through
+    the K6/K7 wrapper, per-pixel depth with planes behind the camera."""
+    rng = np.random.RandomState(8)
+    B, H, W, C = 2, 12, 16, 8
+    feat = rng.randn(B, H, W, C).astype(np.float32)
+    proj = _real_cameras(B, 2, H, W, f=20.0, baseline=3.0)
+    depth = (np.linspace(-4.0, 30.0, 3, dtype=np.float32)[None, :, None, None]
+             + rng.rand(B, 3, H, W).astype(np.float32))
+    want = np.asarray(jwarp.plane_sweep_warp(
+        jnp.asarray(feat), jnp.asarray(proj[:, 1]), jnp.asarray(proj[:, 0]), jnp.asarray(depth)))
+    got = tsample.plane_sweep_warp_sampled(_t(feat), _t(proj[:, 1]), _t(proj[:, 0]), _t(depth))
+    assert np.all(want[:, 0] == 0.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_sweep_geometry_is_the_warp_transform():
     _, _, src_projs, ref_proj, _, _, _ = _sweep_case(0, 2, 3, 8, 8, 8, False)
     geom = tsweep.sweep_geometry(_t(src_projs), _t(ref_proj)).numpy().reshape(3, 2, 12)
@@ -216,18 +305,22 @@ def test_cpu_calls_take_the_plain_path_without_a_build(monkeypatch):
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
 
     ref, srcs, src_projs, ref_proj, weights, lo, step = _sweep_case(5, 1, 2, 8, 8, 8, True)
-    before = (tsweep.corr_sweep_volume.launches, tsweep.fused_sweep_volume.launches,
-              tred.red_scan.launches)
+    wrappers = (tsweep.corr_sweep_volume, tsweep.fused_sweep_volume, tsweep.var_sweep_volume,
+                tred.red_scan, tsample.sample_bilinear)
+    before = [fn.launches for fn in wrappers]
     corr = tsweep.corr_sweep_volume(_t(ref), _t(srcs), _t(src_projs), _t(ref_proj), _t(lo),
                                     _t(step), 4)
     fused = tsweep.fused_sweep_volume(_t(ref), _t(srcs), _t(weights).permute(0, 3, 1, 2),
                                       _t(src_projs), _t(ref_proj), _t(lo), _t(step), 4)
+    var = tsweep.var_sweep_volume(_t(ref), _t(srcs), _t(src_projs), _t(ref_proj), _t(lo),
+                                  _t(step), 4)
     cost = tred.red_scan(AdaRedCell(8, 4, up=True), fused)
-    assert corr.shape == (2, 1, 4, 8, 8) and fused.shape == (4, 1, 8, 8, 8)
-    assert cost.shape == (4, 1, 16, 16)
-    assert (tsweep.corr_sweep_volume.launches, tsweep.fused_sweep_volume.launches,
-            tred.red_scan.launches) == before
-    assert build.sources() == ["red_scan", "sweep_fuse"]
+    warped = tsample.plane_sweep_warp_sampled(_t(srcs[0]), _t(src_projs[0]), _t(ref_proj),
+                                              _t(lo)[:, None])
+    assert corr.shape == (2, 1, 4, 8, 8) and fused.shape == var.shape == (4, 1, 8, 8, 8)
+    assert cost.shape == (4, 1, 16, 16) and warped.shape == (1, 1, 8, 8, 8)
+    assert [fn.launches for fn in wrappers] == before
+    assert build.sources() == ["bilinear_sample", "red_scan", "sweep_fuse"]
 
 
 def test_wrappers_reject_non_cuda_devices():
@@ -236,6 +329,11 @@ def test_wrappers_reject_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tsweep.corr_sweep_volume(meta, meta[None], torch.eye(4)[None, None],
                                  torch.eye(4)[None], lo, lo, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep.var_sweep_volume(meta, meta[None], torch.eye(4)[None, None],
+                                torch.eye(4)[None], lo, lo, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsample.sample_bilinear(meta, lo[:, None], lo[:, None])
 
 
 def test_build_runs_nvcc_per_source_and_raises_on_failure(tmp_path, monkeypatch):
@@ -259,12 +357,13 @@ def test_build_runs_nvcc_per_source_and_raises_on_failure(tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="boom"):
         build.build_all()
     assert os.path.exists(build._lib_path("sweep_fuse"))
+    assert os.path.exists(build._lib_path("bilinear_sample"))
     assert not os.path.exists(build._lib_path("red_scan"))
     (cuda / "bin" / "fixed").write_text("")
     reports = build.build_all()
     assert list(reports) == ["red_scan"] and "Used 1 registers" in reports["red_scan"]
     calls = (cuda / "bin" / "calls").read_text().split()
-    assert sorted(os.path.basename(c) for c in calls) == ["red_scan.cu", "red_scan.cu",
-                                                          "sweep_fuse.cu"]
+    assert sorted(os.path.basename(c) for c in calls) == [
+        "bilinear_sample.cu", "red_scan.cu", "red_scan.cu", "sweep_fuse.cu"]
     assert sorted(os.listdir(tmp_path / "_build")) == sorted(
-        os.path.basename(build._lib_path(n)) for n in ("red_scan", "sweep_fuse"))
+        os.path.basename(build._lib_path(n)) for n in ("bilinear_sample", "red_scan", "sweep_fuse"))
