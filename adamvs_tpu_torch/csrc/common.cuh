@@ -86,33 +86,91 @@ struct Row<__nv_bfloat16, C> {
   }
 };
 
-// Bilinear sample (zeros padding) of src [H,W,C] at pixel coordinates (u, v),
-// in float32, into out. A tap counts only when 0 <= xi <= W-1 and
-// 0 <= yi <= H-1, so a sample at -1e9 (behind the camera) gives zero. The
-// weights and the sum over taps follow ops/warp.py::bilinear_sample's order.
-template <typename T, int C>
-__device__ __forceinline__ void bilinear_taps(const T* __restrict__ src, int H, int W, float u,
-                                              float v, float* out) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) out[c] = 0.f;
+// The four bilinear taps of pixel coordinates (u, v) over an H x W source,
+// in the order (u0,v0), (u0+1,v0), (u0,v0+1), (u0+1,v0+1): each tap's pixel
+// index yi*W + xi, or -1 when it lies outside the image, and its weight. A
+// tap counts only when 0 <= xi <= W-1 and 0 <= yi <= H-1, so a sample at
+// -1e9 (behind the camera) has no tap. The weights follow
+// ops/warp.py::bilinear_sample's order of operations. The gathers read, and
+// the sweep backward (sweep_bwd.cu) scatters to, exactly these taps.
+struct Taps {
+  int idx[4];
+  float w[4];
+};
+
+__device__ __forceinline__ Taps bilinear_tap_set(int H, int W, float u, float v) {
+  Taps t;
   const float u0 = floorf(u), v0 = floorf(v);
   const float du = __fsub_rn(u, u0), dv = __fsub_rn(v, v0);
   const float eu = __fsub_rn(1.f, du), ev = __fsub_rn(1.f, dv);
   const float u1 = __fadd_rn(u0, 1.f), v1 = __fadd_rn(v0, 1.f);
   const float xs[4] = {u0, u1, u0, u1};
   const float ys[4] = {v0, v0, v1, v1};
-  const float ws[4] = {__fmul_rn(eu, ev), __fmul_rn(du, ev), __fmul_rn(eu, dv), __fmul_rn(du, dv)};
+  t.w[0] = __fmul_rn(eu, ev);
+  t.w[1] = __fmul_rn(du, ev);
+  t.w[2] = __fmul_rn(eu, dv);
+  t.w[3] = __fmul_rn(du, dv);
   const float xmax = static_cast<float>(W - 1), ymax = static_cast<float>(H - 1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    t.idx[k] = (xs[k] >= 0.f && xs[k] <= xmax && ys[k] >= 0.f && ys[k] <= ymax)
+                   ? static_cast<int>(ys[k]) * W + static_cast<int>(xs[k])
+                   : -1;
+  return t;
+}
+
+// The taps of a sample behind the camera: none.
+__device__ __forceinline__ Taps no_taps() {
+  Taps t;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    t.idx[k] = -1;
+    t.w[k] = 0.f;
+  }
+  return t;
+}
+
+// Bilinear sample (zeros padding) of src [H,W,C] at the taps t, in float32,
+// into out: the valid taps summed in order.
+template <typename T, int C>
+__device__ __forceinline__ void gather_taps(const T* __restrict__ src, const Taps& t, float* out) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c] = 0.f;
   float vals[C];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if (xs[k] >= 0.f && xs[k] <= xmax && ys[k] >= 0.f && ys[k] <= ymax) {
-      const int xi = static_cast<int>(xs[k]), yi = static_cast<int>(ys[k]);
-      Row<T, C>::load(src + (static_cast<size_t>(yi) * W + xi) * C, vals);
+    if (t.idx[k] >= 0) {
+      Row<T, C>::load(src + static_cast<size_t>(t.idx[k]) * C, vals);
 #pragma unroll
-      for (int c = 0; c < C; ++c) out[c] = __fadd_rn(out[c], __fmul_rn(vals[c], ws[k]));
+      for (int c = 0; c < C; ++c) out[c] = __fadd_rn(out[c], __fmul_rn(vals[c], t.w[k]));
     }
   }
+}
+
+// Bilinear sample (zeros padding) of src [H,W,C] at pixel coordinates (u, v),
+// in float32, into out.
+template <typename T, int C>
+__device__ __forceinline__ void bilinear_taps(const T* __restrict__ src, int H, int W, float u,
+                                              float v, float* out) {
+  gather_taps<T, C>(src, bilinear_tap_set(H, W, u, v), out);
+}
+
+// The taps in an H x W source of reference pixel (x, y) at depth hyp, under
+// the ref->src transform g = rot (row-major, 9) then trans (3):
+// p = rot.[x,y,1].hyp + trans, (u, v) = (p.x/p.z, p.y/p.z), none when
+// p.z <= 1e-6 (behind the camera). The order of operations is the plain
+// version's (ops/warp.py::_source_coords), so both sample the same positions.
+__device__ __forceinline__ Taps sweep_taps(const float* g, float x, float y, float hyp, int H,
+                                           int W) {
+  float p[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float rxyz =
+        __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], x), __fmul_rn(g[3 * i + 1], y)), g[3 * i + 2]);
+    p[i] = __fadd_rn(__fmul_rn(rxyz, hyp), g[9 + i]);
+  }
+  if (!(p[2] > 1e-6f)) return no_taps();
+  return bilinear_tap_set(H, W, __fdiv_rn(p[0], p[2]), __fdiv_rn(p[1], p[2]));
 }
 
 }  // namespace adamvs

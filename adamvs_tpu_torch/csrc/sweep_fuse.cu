@@ -54,24 +54,12 @@ constexpr int kDChunk = 8;
 constexpr int kMaxViews = 16;
 
 // Bilinear sample (zeros padding) of src [H,W,C] at the source position of
-// reference pixel (x, y) at depth hyp. g = rot (9) then trans (3).
+// reference pixel (x, y) at depth hyp (common.cuh::sweep_taps).
 template <typename T, int C>
 __device__ __forceinline__ void warp_sample(const T* __restrict__ src, int H, int W,
                                             const float* g, float x, float y, float hyp,
                                             float* out) {
-  float p[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float rxyz =
-        __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], x), __fmul_rn(g[3 * i + 1], y)), g[3 * i + 2]);
-    p[i] = __fadd_rn(__fmul_rn(rxyz, hyp), g[9 + i]);
-  }
-  if (!(p[2] > 1e-6f)) {  // behind the camera: every tap is out of image
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = 0.f;
-    return;
-  }
-  adamvs::bilinear_taps<T, C>(src, H, W, __fdiv_rn(p[0], p[2]), __fdiv_rn(p[1], p[2]), out);
+  adamvs::gather_taps<T, C>(src, adamvs::sweep_taps(g, x, y, hyp, H, W), out);
 }
 
 template <typename T, int C>

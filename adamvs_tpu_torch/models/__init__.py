@@ -1,4 +1,4 @@
-"""Model factory of the port."""
+"""Model factory and losses of the port."""
 
 from __future__ import annotations
 
@@ -7,9 +7,11 @@ import torch
 from ..device import resolve_device
 from ..nn.blocks import init_parameters
 from .adamvs import AdaMVS
+from .losses import cas_mvs_vis_loss, cas_rednet_loss
 from .msrednet import MSREDNet
 
 MODELS = {"adamvs": AdaMVS, "msrednet": MSREDNet}
+LOSSES = {"adamvs": cas_mvs_vis_loss, "msrednet": cas_rednet_loss}
 
 
 def build_model(name: str = "adamvs", seed: int = 0, device=None,
@@ -23,4 +25,12 @@ def build_model(name: str = "adamvs", seed: int = 0, device=None,
     return model.to(device=resolve_device(device), dtype=dtype).eval()
 
 
-__all__ = ["AdaMVS", "MSREDNet", "build_model"]
+def model_loss(name: str):
+    """The training loss of the model ``name``."""
+    if name not in LOSSES:
+        raise ValueError(f"unknown model {name!r} (choose one of {sorted(LOSSES)})")
+    return LOSSES[name]
+
+
+__all__ = ["AdaMVS", "MSREDNet", "build_model", "cas_mvs_vis_loss", "cas_rednet_loss",
+           "model_loss"]

@@ -1,7 +1,6 @@
-"""MS-REDNet streaming inference (counterpart of adamvs_tpu/models/msrednet.py).
+"""MS-REDNet (counterpart of adamvs_tpu/models/msrednet.py).
 
-Computes what the JAX ``MSREDNet.__call__`` computes with ``train=False``
-(msrednet.py:281-466):
+Computes what the JAX ``MSREDNet.__call__`` computes (msrednet.py:281-466):
 
 1. ``RedFeatureNet`` runs on all B·V views;
 2. per stage, the hypotheses are ``lo + d·step`` per pixel: uniform over
@@ -22,10 +21,18 @@ Two forms build the variance:
   float32. The JAX scan form accumulates them in the model dtype: in float32
   the two agree; in bf16 this form is the more exact.
 
+Training (``train=True``, the JAX ``use_fused_t`` branch) runs the fused form
+under autograd with BatchNorm in train mode (the caller's ``model.train()``):
+the differentiable ``var_sweep_volume_t`` (K4 forward, K5 backward), then
+``RedCell`` stepped over D into the online softmax. The gradient reaches the
+previous stage's depth through the hypotheses. The scan form is
+inference-only here.
+
 Module names follow the reference ``CascadeREDNet`` (``feature``,
 ``cost_regularization.{i}``), so a reference state_dict loads with
-``load_state_dict``. ``share_cr`` (rejected by the JAX model too) and the
-training-time [B,3] ``depth_values`` are not ported.
+``load_state_dict``. ``share_cr`` is rejected by the JAX model too and is
+not ported. ``depth_values`` is [B,3] = [min,max,interval] or [B,2] =
+[min,max] with ``num_depth``.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from ..ops.regression import (
     resize_bilinear,
 )
 from ..ops.sampling import window_min_and_interval
-from ..ops.sweep_fuse import var_sweep_volume
+from ..ops.sweep_fuse import var_sweep_volume, var_sweep_volume_t
 from ..ops.warp_sample import plane_sweep_warp_sampled
 from .adamvs import parse_depth_values
 
@@ -66,7 +73,7 @@ def variance_slice(ref, srcs, src_projs, ref_proj, hyp) -> torch.Tensor:
 
 
 class MSREDNet(nn.Module):
-    """MS-REDNet cascade, inference. The working dtype is the parameters'
+    """MS-REDNet cascade, inference and training. The working dtype is the parameters'
     dtype (``model.to(torch.bfloat16)`` runs the model in bf16)."""
 
     def __init__(self, ndepths=(48, 32, 8), depth_intervals_ratio=(4.0, 2.0, 1.0),
@@ -82,16 +89,30 @@ class MSREDNet(nn.Module):
         chans = (4 * base, 2 * base, base)
         self.cost_regularization = nn.ModuleList(RedCell(chans[i], cr_base[i]) for i in range(n))
 
-    @torch.no_grad()
-    def forward(self, imgs, proj_matrices, depth_values, num_depth: int) -> dict:
+    def forward(self, imgs, proj_matrices, depth_values, num_depth: int | None = None,
+                train: bool = False) -> dict:
         """``imgs`` [B,V,H,W,3], ``proj_matrices`` {"stageK": [B,V,4,4]},
-        ``depth_values`` [B,2] = [min,max], split into ``num_depth``
-        intervals. Returns per stage ``depth`` and ``photometric_confidence``
-        [B,h,w], the last stage's also at the top level."""
+        ``depth_values`` [B,3] = [min,max,interval] or [B,2] = [min,max]
+        split into ``num_depth`` intervals. Returns per stage ``depth`` and
+        ``photometric_confidence`` [B,h,w], the last stage's also at the top
+        level. ``train=True`` runs the training form under autograd and needs
+        the module in train mode; otherwise the inference form runs without
+        gradients."""
+        if not train:
+            with torch.no_grad():
+                return self._cascade(imgs, proj_matrices, depth_values, num_depth, False)
+        if not self.training:
+            raise ValueError("train=True needs the module in train mode (model.train())")
+        if self.sweep_impl != "fused":
+            raise ValueError(f"training runs the fused form; sweep_impl is {self.sweep_impl!r}")
+        return self._cascade(imgs, proj_matrices, depth_values, num_depth, True)
+
+    def _cascade(self, imgs, proj_matrices, depth_values, num_depth, train: bool) -> dict:
         dtype = self.feature.out1.weight.dtype
         dmin, dmax, interval = parse_depth_values(depth_values.float(), num_depth)
         B, V, H, W = imgs.shape[:4]
         feats = self.feature(imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
+        var_fn = var_sweep_volume_t if train else var_sweep_volume
 
         outputs: dict = {}
         prev_depth = None
@@ -118,7 +139,7 @@ class MSREDNet(nn.Module):
             cell = self.cost_regularization[si]
             state = cell.init_state(B, h, w, dtype, imgs.device)
             acc = online_softmax_init((B, h, w), device=imgs.device)
-            vol = (var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, D)
+            vol = (var_fn(ref, srcs, src_projs, ref_proj, lo, step, D)
                    if self.sweep_impl == "fused" else None)  # [D,B,C,h,w]
             for d in range(D):
                 hyp = lo + float(d) * step

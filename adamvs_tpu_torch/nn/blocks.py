@@ -3,6 +3,8 @@
 Submodule names follow the reference PyTorch model, so a reference
 state_dict loads as it is:
 
+- ``BatchNorm2d``: ``nn.BatchNorm2d`` with the JAX package's running
+  statistics in train mode (see the class);
 - ``ConvBlock``: conv without bias + BatchNorm + ReLU;
 - ``DeconvBlock``: stride-2 transposed conv + BatchNorm + ReLU, exactly 2x;
 - ``ConvReLU``: conv without bias + ReLU;
@@ -31,13 +33,32 @@ BN_EPS = 1e-5
 GN_EPS = 1e-5
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm as the JAX package keeps it (flax ``BatchNorm``, momentum 0.9
+    there, 0.1 here). In train mode it normalises with the batch mean and
+    biased variance, as ``nn.BatchNorm2d`` does, and moves the running
+    variance toward that same biased variance, where ``nn.BatchNorm2d`` takes
+    the unbiased one (n/(n-1), n the pixels per channel in the batch). In
+    eval mode it is ``nn.BatchNorm2d``. The state_dict names are its."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+
+
 class ConvBlock(nn.Module):
     """conv (no bias) + BatchNorm + ReLU."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding=(kernel - 1) // 2, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -50,7 +71,7 @@ class DeconvBlock(nn.Module):
         super().__init__()
         self.conv = nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
                                        bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))

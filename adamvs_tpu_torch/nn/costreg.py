@@ -17,13 +17,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import BN_EPS, ConvBlock, ConvGRUCell, ConvReLU, ConvTransReLU, GNConvGRUCell
+from .blocks import (BN_EPS, BatchNorm2d, ConvBlock, ConvGRUCell, ConvReLU, ConvTransReLU,
+                     GNConvGRUCell)
 
 
 def _up(c: int) -> nn.Sequential:
     return nn.Sequential(
         nn.ConvTranspose2d(c, c, 3, stride=2, padding=1, output_padding=1, bias=False),
-        nn.BatchNorm2d(c, eps=BN_EPS),
+        BatchNorm2d(c, eps=BN_EPS),
         nn.ReLU(),
     )
 

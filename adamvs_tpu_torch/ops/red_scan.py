@@ -27,15 +27,15 @@ _SMEM_LIMIT = 48 * 1024
 
 def red_scan_ref(cell: AdaRedCell, vol: torch.Tensor) -> torch.Tensor:
     """Plain K3: ``cell`` stepped over ``vol`` [D,B,cin,h,w] from zero states;
-    returns the cost [D,B,oh,ow] in the volume's dtype."""
+    returns the cost [D,B,oh,ow] in the volume's dtype. It runs under
+    autograd too: the training path steps the cell with it."""
     D, B, _, h, w = vol.shape
-    oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
     state = cell.init_state(B, h, w, vol.dtype, vol.device)
-    out = torch.empty((D, B, oh, ow), dtype=vol.dtype, device=vol.device)
+    costs = []
     for d in range(D):
         state, cost = cell(state, vol[d])
-        out[d] = cost[:, 0]
-    return out
+        costs.append(cost[:, 0])
+    return torch.stack(costs)
 
 
 def _conv_w(conv) -> torch.Tensor:

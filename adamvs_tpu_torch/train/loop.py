@@ -1,0 +1,163 @@
+"""Train and eval steps and the epoch-level Trainer (counterpart of
+adamvs_tpu/train/loop.py).
+
+A batch is a dict of numpy arrays in the JAX package's layout: ``imgs``
+[B,V,H,W,3], ``proj_matrices`` {"stageK": [B,V,4,4]}, ``depth_values`` [B,3]
+= [min,max,interval], ``depth`` and ``mask`` {"stageK": [B,h,w]} and
+``depth_interval`` [B]. The Trainer moves it to its device.
+
+The train step runs the model's training form (``train=True``, BatchNorm in
+train mode), the loss and its backward, then the RMSprop update unless the
+loss is non-finite (``apply_updates_if_finite``); BatchNorm statistics take
+the step's values either way. The eval step runs the inference form (the
+model's kernels on the card), resizes the final depth to the final GT and
+computes the metrics.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops.regression import resize_bilinear
+from .checkpoint import latest_checkpoint, next_epoch_after, restore_checkpoint, save_checkpoint
+from .metrics import eval_metrics
+from .state import TrainState, apply_updates_if_finite
+
+
+def make_train_step(loss_fn: Callable, dlossw) -> Callable:
+    """``train_step(state, batch) -> (state, metrics, depth_est)`` on a
+    batch of tensors; updates ``state`` in place."""
+    def train_step(state: TrainState, batch):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"], train=True)
+        loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
+        loss.backward()
+        apply_updates_if_finite(state, loss)
+        metrics = {"loss": loss.detach(), "depth_loss": depth_loss.detach()}
+        return state, metrics, out["depth"].detach()
+
+    return train_step
+
+
+def make_eval_step(loss_fn: Callable, dlossw, num_stages: int) -> Callable:
+    """``eval_step(state, batch) -> (metrics, depth, confidence)`` on a
+    batch of tensors."""
+    final = f"stage{num_stages}"
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch):
+        model = state.model.eval()
+        out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+        loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
+        metrics = {"loss": loss, "depth_loss": depth_loss}
+        gt = batch["depth"][final]
+        # an up-sampling last stage can emit depth above the final GT's resolution
+        depth_est = resize_bilinear(out["depth"], gt.shape[-2], gt.shape[-1])
+        metrics.update(eval_metrics(depth_est, gt, batch["mask"][final], batch["depth_interval"]))
+        return metrics, out["depth"], out["photometric_confidence"]
+
+    return eval_step
+
+
+def to_device(batch, device: torch.device):
+    """A batch of numpy arrays (nested dicts) as float32 tensors on ``device``."""
+    if isinstance(batch, dict):
+        return {k: to_device(v, device) for k, v in batch.items()}
+    return torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(device)
+
+
+class AverageMeter:
+    """Running mean of dicts of scalars."""
+
+    def __init__(self):
+        self.data: dict[str, float] = {}
+        self.count = 0
+
+    def update(self, scalars: dict[str, Any]):
+        self.count += 1
+        for k, v in scalars.items():
+            self.data[k] = self.data.get(k, 0.0) + float(v)
+
+    def mean(self) -> dict[str, float]:
+        return {k: v / max(self.count, 1) for k, v in self.data.items()}
+
+
+class Trainer:
+    """Epochs of train and eval steps of ``state.model`` on ``device`` (CUDA
+    unless given; raises when no CUDA device is present and none was given),
+    with ``metrics.jsonl`` (train records every ``summary_freq`` steps, every
+    eval), ``train_record.txt`` (one line per eval) and checkpoints every
+    ``ckpt_step_freq`` steps and every ``save_freq`` epochs in ``logdir``."""
+
+    def __init__(self, state: TrainState, loss_fn, logdir: str, dlossw=(0.5, 1.0, 2.0),
+                 num_stages: int = 3, summary_freq: int = 50, save_freq: int = 1,
+                 ckpt_step_freq: int = 3000, log_fn: Callable[[str], None] = print, device=None):
+        self.device = resolve_device(device)
+        state.model.to(self.device)
+        self.state = state
+        self.logdir = logdir
+        self.summary_freq = summary_freq
+        self.save_freq = save_freq
+        self.ckpt_step_freq = ckpt_step_freq
+        self.log = log_fn
+        self.train_step = make_train_step(loss_fn, dlossw)
+        self.eval_step = make_eval_step(loss_fn, dlossw, num_stages)
+        os.makedirs(logdir, exist_ok=True)
+        self._jsonl = os.path.join(logdir, "metrics.jsonl")
+
+    def resume(self) -> int:
+        """Restore the latest checkpoint; returns the epoch to run next."""
+        path = latest_checkpoint(self.logdir)
+        if path is None:
+            return 0
+        self.log(f"resuming from {path}")
+        restore_checkpoint(path, self.state)
+        return next_epoch_after(path)
+
+    def load(self, path: str):
+        self.log(f"loading checkpoint {path}")
+        restore_checkpoint(path, self.state)
+
+    def _record(self, kind: str, step: int, scalars: dict[str, float]):
+        with open(self._jsonl, "a") as f:
+            f.write(json.dumps({"kind": kind, "step": step, **scalars}) + "\n")
+
+    def train_epoch(self, epoch: int, batches) -> dict[str, float]:
+        meter = AverageMeter()
+        for i, batch in enumerate(batches):
+            t0 = time.time()
+            _, metrics, _ = self.train_step(self.state, to_device(batch, self.device))
+            step = self.state.step
+            scalars = {k: float(v) for k, v in metrics.items()}
+            meter.update(scalars)
+            if step % self.summary_freq == 0:
+                self._record("train", step, scalars)
+            self.log(f"Epoch {epoch}, iter {i}, loss={scalars['loss']:.4f}, "
+                     f"time={time.time() - t0:.3f}s")
+            if self.ckpt_step_freq and step % self.ckpt_step_freq == 0:
+                save_checkpoint(self.logdir, self.state, epoch, tag=f"step{step}")
+        return meter.mean()
+
+    def eval_epoch(self, epoch: int, batches) -> dict[str, float]:
+        meter = AverageMeter()
+        for batch in batches:
+            metrics, _, _ = self.eval_step(self.state, to_device(batch, self.device))
+            meter.update({k: float(v) for k, v in metrics.items()})
+        means = meter.mean()
+        self._record("val", self.state.step, means)
+        with open(os.path.join(self.logdir, "train_record.txt"), "a") as f:
+            f.write(f"{epoch} {means}\n")
+        return means
+
+    def end_epoch(self, epoch: int, val_metrics: dict[str, float] | None):
+        if (epoch + 1) % self.save_freq == 0:
+            metric = val_metrics.get("abs_depth_error") if val_metrics else None
+            save_checkpoint(self.logdir, self.state, epoch, metric=metric)

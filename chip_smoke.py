@@ -12,13 +12,18 @@ Phases, in order; any failure exits nonzero:
 3. kernels: K1 (corr sweep), K2 (fused sweep), K3 (red-scan recurrence), K4
    (variance sweep) and K6/K7 (bilinear sampler, one hypothesis slice per
    source view) against their plain PyTorch versions at every stage shape
-   of the main paths (2752x1856 frames, V=5, ndepths 48/32/8, base 8), in
-   float32 with TF32 off and in bfloat16, with their times (CUDA events,
-   median) and, for K6/K7, F.grid_sample's; then again at small ragged
+   of the inference paths (2752x1856 frames, V=5, ndepths 48/32/8, base 8),
+   in float32 with TF32 off and in bfloat16, with their times (CUDA events,
+   median) and, for K6/K7, F.grid_sample's; then K5, the backward of the
+   sweeps in its three modes (corr, fused, var), against the autograd VJP of
+   the plain volumes at the training stage shapes (384x768 crop), float32
+   and bfloat16, timed in float32; then all of them again at small ragged
    shapes (batch 2, rotated views, samples behind the camera and outside the
    image), float32;
 4. reference: AdaMVS and MS-REDNet (fused and scan forms) on a small frame,
-   kernels on the card against the plain path on the CPU, float32;
+   kernels on the card against the plain path on the CPU, float32; then one
+   train step of each model on that frame, card against CPU (loss, gradient,
+   BatchNorm statistics);
 5. main paths, each with every launch counter set to 0 just before it and
    read just after: PredictEngine with seeded random weights in bfloat16 at
    full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map), on
@@ -27,7 +32,13 @@ Phases, in order; any failure exits nonzero:
    request of each is a warm-up; outputs must be finite with confidence in
    (0, 1]; one more request, after the counts are read, is traced with
    torch.profiler for the card's busy time; then each model's layers are
-   timed alone;
+   timed alone. Then the Trainer on the bench's training batch (384x768,
+   V=5, float32) for AdaMVS (per train step K1 1, K2 3, K5-corr 1, K5-fused
+   3) and MS-REDNet (K4 3, K5-var 3): a warm-up and 5 timed steps with
+   finite losses and no skipped update, parameters and BatchNorm statistics
+   moved, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3; MS-REDNet: K4 3), and one
+   more traced step for the card's busy time and its top kernels; then one
+   step timed by phase (upload, forward, backward, update);
 6. the kernels line (JSON), the card line, and the final JSON line.
 """
 
@@ -35,7 +46,9 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -54,6 +67,10 @@ BASE = 8
 DMIN, DMAX = 300.0, 500.0
 FOCAL = 2200.0
 DEV = "cuda"
+# training crop of bench.py --mode train (bench.py:191-212, 447-464), float32
+TRAIN_H, TRAIN_W = 384, 768
+DLOSSW = (0.5, 1.0, 2.0)
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, float32 outside the tensor cores,
 # dense bf16 tensor cores
@@ -68,8 +85,15 @@ TOL = {
     ("K3", torch.float32): 1e-4, ("K3", torch.bfloat16): 5e-2,  # bf16 stores of every GRU step
     ("K4", torch.float32): 1e-5, ("K4", torch.bfloat16): 8e-3,  # one bf16 rounding of the output
     ("K6/7", torch.float32): 1e-5, ("K6/7", torch.bfloat16): 8e-3,  # the same
+    # K5: float32 sums, atomics in varying order; bf16: one rounding of the gradient
+    ("K5-corr", torch.float32): 1e-5, ("K5-corr", torch.bfloat16): 8e-3,
+    ("K5-fused", torch.float32): 1e-5, ("K5-fused", torch.bfloat16): 8e-3,
+    ("K5-var", torch.float32): 1e-5, ("K5-var", torch.bfloat16): 8e-3,
 }
-KERNELS = ("K1", "K2", "K3", "K4", "K6/7")
+K5 = ("K5-corr", "K5-fused", "K5-var")
+KERNELS = ("K1", "K2", "K3", "K4", "K6/7") + K5
+# the dtype of the path a kernel serves, whose times and errors the kernels line reports
+MAIN_DTYPE = {"K5-corr": "f32", "K5-fused": "f32", "K5-var": "f32"}
 REPLACES = {
     "K1": ("corr_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:611"),
     "K2": ("fused_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:418"),
@@ -77,6 +101,12 @@ REPLACES = {
     "K4": ("var_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:515"),
     "K6/7": ("bilinear_sample", "adamvs_tpu_torch/csrc/bilinear_sample.cu",
              "adamvs_tpu/ops/warp_pallas2.py:178 (K6), adamvs_tpu/ops/warp_pallas.py:89 (K7)"),
+    "K5-corr": ("corr_sweep_bwd", "adamvs_tpu_torch/csrc/sweep_bwd.cu",
+                "adamvs_tpu/ops/sweep_fuse.py:874"),
+    "K5-fused": ("fused_sweep_bwd", "adamvs_tpu_torch/csrc/sweep_bwd.cu",
+                 "adamvs_tpu/ops/sweep_fuse.py:786"),
+    "K5-var": ("var_sweep_bwd", "adamvs_tpu_torch/csrc/sweep_bwd.cu",
+               "adamvs_tpu/ops/sweep_fuse.py:832"),
 }
 # (path, model, model options, requests, launches per depth map)
 PATHS = (
@@ -84,6 +114,13 @@ PATHS = (
     ("msrednet_fused", "msrednet", {"sweep_impl": "fused"}, 3, {"K4": 3}),
     ("msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 2, {"K6/7": (V - 1) * sum(NDEPTHS)}),
 )
+# (training path, model, train steps, launches per train step); each path ends
+# with one eval_epoch on the batch, whose launches are EVAL_LAUNCHES
+TRAIN_PATHS = (
+    ("train_adamvs", "adamvs", 6, {"K1": 1, "K2": 3, "K5-corr": 1, "K5-fused": 3}),
+    ("train_msrednet", "msrednet", 6, {"K4": 3, "K5-var": 3}),
+)
+EVAL_LAUNCHES = {"adamvs": {"K1": 1, "K2": 3, "K3": 3}, "msrednet": {"K4": 3}}
 
 
 def wrappers() -> dict:
@@ -93,7 +130,9 @@ def wrappers() -> dict:
     from adamvs_tpu_torch.ops import warp_sample as ws
 
     return {"K1": sf.corr_sweep_volume, "K2": sf.fused_sweep_volume, "K3": rs.red_scan,
-            "K4": sf.var_sweep_volume, "K6/7": ws.sample_bilinear}
+            "K4": sf.var_sweep_volume, "K6/7": ws.sample_bilinear,
+            "K5-corr": sf.corr_sweep_volume_bwd, "K5-fused": sf.fused_sweep_volume_bwd,
+            "K5-var": sf.var_sweep_volume_bwd}
 
 
 def fail(msg: str) -> None:
@@ -141,13 +180,21 @@ def device_busy_ms(fn) -> float:
     the sum of their durations in a torch.profiler trace of the device alone
     (one stream, so they do not overlap). Unlike CUDA events around ``fn``,
     this leaves out the gaps in which the card waits for the host."""
+    return device_profile(fn)[0]
+
+
+def device_profile(fn, top: int = 0) -> tuple[float, list]:
+    """(``device_busy_ms`` of ``fn``, the ``top`` kernel names by their
+    summed device time as [name, ms, launches])."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
     if not busy > 0.0:
         fail("the profiler traced no device time")
-    return busy
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return busy, [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in events[:top]]
 
 
 def phase_device() -> str:
@@ -174,15 +221,17 @@ def phase_build() -> None:
 
 
 class StageInputs:
-    """Seeded inputs of one stage at the main path's shapes."""
+    """Seeded inputs of one stage at the main path's shapes: of a 2752x1856
+    frame by default, of the training crop with ``height``/``width``."""
 
-    def __init__(self, si: int, gen: torch.Generator):
+    def __init__(self, si: int, gen: torch.Generator, height: int = H, width: int = W):
         dev = torch.device(DEV)
         s = 2 ** (2 - si)
-        self.si, self.h, self.w, self.C, self.D = si, H // s, W // s, (4, 2, 1)[si] * BASE, NDEPTHS[si]
+        self.si, self.h, self.w = si, height // s, width // s
+        self.C, self.D = (4, 2, 1)[si] * BASE, NDEPTHS[si]
         self.up = si < 2
         h, w, C = self.h, self.w, self.C
-        projs = torch.from_numpy(bench_projs(H, W, V, FOCAL)[f"stage{si + 1}"]).to(dev)
+        projs = torch.from_numpy(bench_projs(height, width, V, FOCAL)[f"stage{si + 1}"]).to(dev)
         self.ref_proj, self.src_projs = projs[None, 0], projs[1:, None]  # [1,4,4], [Vs,1,4,4]
         self.ref = torch.randn((1, h, w, C), generator=gen, device=dev)
         self.srcs = torch.randn((V - 1, 1, h, w, C), generator=gen, device=dev)
@@ -206,8 +255,9 @@ def _bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def sweep_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
-    """Least float32 work of a sweep volume, counting a multiply-add as 2.
+def _sweep_work(kind: str, st: StageInputs, dtype) -> tuple[float, float]:
+    """(bytes, float32 operations) of the least work of a sweep volume,
+    counting a multiply-add as 2.
 
     Coordinates: R.[x,y,1] per (view, pixel), 12; hyp = lo + d.step per
     (hypothesis, pixel), 2; per (view, hypothesis, pixel) p = R.[x,y,1].hyp + t
@@ -234,7 +284,30 @@ def sweep_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
     else:
         nbytes += D * hw * C * es
         flops += Vs * D * hw * (18 + 11 * C) + D * hw * C * 5
-    return _bound(nbytes, flops, F32_FLOPS)
+    return nbytes, flops
+
+
+def sweep_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
+    """The least time of a sweep volume (``_sweep_work``)."""
+    return _bound(*_sweep_work(kind, st, dtype), F32_FLOPS)
+
+
+def sweep_bwd_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
+    """Least work of one K5 call, the backward of the sweep ``kind`` (K1, K2
+    or K4). Bytes: the cotangent g, ref, the sources, lo, step (and the
+    weights) read once; d ref (and d weights) and d srcs written once, in
+    their primals' dtypes. Operations: the forward's tap arithmetic
+    (``_sweep_work``), which the backward needs again for the samples it
+    multiplies with g, plus one multiply-add per tap, channel and source view
+    for the scatter into d srcs (8C per sample)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    Vs, hw, C, D = V - 1, st.h * st.w, st.C, st.D
+    _, flops = _sweep_work(kind, st, dtype)
+    g_bytes = Vs * D * hw * 4 if kind == "K1" else D * hw * C * es
+    nbytes = g_bytes + 2 * (1 + Vs) * hw * C * es + 2 * hw * 4
+    if kind == "K2":
+        nbytes += 2 * Vs * hw * 4
+    return _bound(nbytes, flops + Vs * D * hw * 8 * C, F32_FLOPS)
 
 
 def sample_bound(st: StageInputs, dtype) -> tuple[float, str]:
@@ -393,7 +466,7 @@ def phase_edges() -> None:
     hypothesis count, rotated views, samples behind the camera and out of
     the image, both regulariser widths and both head kinds; the sampler at
     every hypothesis of every view at once (N = D) and at random coordinates
-    past every border."""
+    past every border; K5 in its three modes on the sweeps' inputs."""
     from adamvs_tpu_torch.nn.blocks import init_parameters
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
     from adamvs_tpu_torch.ops import red_scan as rs
@@ -422,6 +495,13 @@ def phase_edges() -> None:
                      sf.fused_volume_ref(ref, srcs, wts, *geo))
             _compare(f"K4 edge C{C}", ("K4", f32), sf.var_sweep_volume(ref, srcs, *geo),
                      sf.var_volume_ref(ref, srcs, *geo))
+            # the plain K5 recomputes its volume under autograd of its own
+            wn = sf.normalize_weights(wts)
+            for mode in ("corr", "fused", "var"):
+                g = (torch.randn((Vs, B, D, h, w), generator=gen, device=DEV) if mode == "corr"
+                     else torch.randn((D, B, C, h, w), generator=gen, device=DEV))
+                kern, plain = _k5_calls(mode, g, ref, srcs, wn, geo[:4])
+                _compare_grads(f"K5-{mode} edge C{C}", (f"K5-{mode}", f32), kern(), plain())
             hyp = lo[:, None] + torch.arange(D, device=DEV)[None, :, None, None] * step[:, None]
             for v in range(Vs):
                 u, vv = sweep_coords(srcs[v], src_projs[v], ref_proj, hyp)  # [B,D,h,w]
@@ -439,6 +519,75 @@ def phase_edges() -> None:
             vol = torch.randn((5, B, 16, h, w), generator=gen, device=DEV)
             _compare(f"K3 edge base {base} up {up}", ("K3", f32), rs.red_scan(cell, vol),
                      rs.red_scan_ref(cell, vol))
+
+
+def _k5_calls(mode: str, g, ref, srcs, wn, geo):
+    """(kernel, plain) callables of the K5 backward of ``mode`` ("corr",
+    "fused" or "var"); each returns its gradients as a tuple."""
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    if mode == "corr":
+        return (lambda: sf.corr_sweep_volume_bwd(g, ref, srcs, *geo),
+                lambda: sf.corr_volume_vjp(g, ref, srcs, *geo))
+    if mode == "fused":
+        return (lambda: sf.fused_sweep_volume_bwd(g, ref, srcs, wn, *geo),
+                lambda: sf.fused_volume_vjp(g, ref, srcs, wn, *geo))
+    return (lambda: sf.var_sweep_volume_bwd(g, ref, srcs, *geo),
+            lambda: sf.var_volume_vjp(g, ref, srcs, *geo))
+
+
+def _compare_grads(tag: str, key, got: tuple, want: tuple) -> tuple[float, float]:
+    """Each gradient of a K5 call against its plain version; the largest
+    (max_abs_err, relative error)."""
+    errs = [_compare(f"{tag} d{n}", key, a, b)
+            for n, a, b in zip(("ref", "srcs", "weights"), got, want)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _cotangent(mode: str, st, dtype, gen):
+    """A seeded cotangent of the volume of ``mode`` in its layout and dtype:
+    corr [Vs,B,D,h,w] float32, fused and var [D,B,C,h,w] in ``dtype``."""
+    if mode == "corr":
+        return torch.randn((V - 1, 1, st.D, st.h, st.w), generator=gen, device=DEV)
+    return torch.randn((st.D, 1, st.C, st.h, st.w), generator=gen, device=DEV).to(dtype)
+
+
+def phase_k5(res: dict, reps: int = 3) -> None:
+    """K5, each backward mode against its plain version (the autograd VJP of
+    the plain volume) at the training stage shapes (384x768 crop, V=5,
+    ndepths 48/32/8, base 8: 96x192 C32 D48, 192x384 C16 D32, 384x768 C8
+    D8; corr at stage 1 only, as the training path runs it), in float32 with
+    TF32 off and in bfloat16, with its float32 times (the training path's
+    dtype), the plain version's and the bound."""
+    from adamvs_tpu_torch.ops.sweep_fuse import normalize_weights
+
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    for si in range(3):
+        st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
+        geo = (st.src_projs, st.ref_proj, st.lo, st.step)
+        wn = normalize_weights(st.weights)
+        for mode, fwd in (("corr", "K1"), ("fused", "K2"), ("var", "K4")):
+            if mode == "corr" and si > 0:
+                continue
+            k = f"K5-{mode}"
+            for dtype in (torch.float32, torch.bfloat16):
+                tn = "f32" if dtype == torch.float32 else "bf16"
+                ref, srcs = st.feats(dtype)
+                g = _cotangent(mode, st, dtype, gen)
+                kern, plain = _k5_calls(mode, g, ref, srcs, wn, geo)
+                err = _compare_grads(f"{k} stage{si + 1} {tn}", (k, dtype), kern(), plain())
+                old = res[k]["err"].get(tn, (0.0, 0.0))
+                res[k]["err"][tn] = (max(old[0], err[0]), max(old[1], err[1]))
+                if dtype == torch.float32:
+                    ms, pms = time_ms(kern, reps), time_ms(plain, 1)
+                    bms, by = sweep_bwd_bound(fwd, st, dtype)
+                    res[k]["stages"].append({"stage": si + 1, "ms": ms, "plain_ms": pms,
+                                             "bound_ms": bms, "bound_by": by})
+                    log(f"[kernels] {k} stage{si + 1} f32: {ms:.3f} ms (plain {pms:.3f} ms, "
+                        f"bound {bms:.3f} ms by {by})")
+                del ref, srcs, g
+        del st, geo, wn
+        torch.cuda.empty_cache()
 
 
 def phase_reference() -> None:
@@ -526,6 +675,229 @@ def phase_main_path() -> tuple[dict, list]:
         del model, engine
         torch.cuda.empty_cache()
     return total, stats
+
+
+def train_batch(height: int, width: int, batch: int = 1) -> dict:
+    """The bench's training batch (bench.py:191-212) as numpy arrays:
+    seeded images, the bench geometry, depth values [B,3] = [300, 500,
+    200/192], a uniform random GT pyramid at 1/4, 1/2 and 1/1 of the frame
+    and all-ones masks."""
+    rng = np.random.RandomState(0)
+    interval = (DMAX - DMIN) / NUM_DEPTH
+    gt = np.random.RandomState(3).uniform(320, 480, (batch, height, width)).astype(np.float32)
+    depth = {"stage1": gt[:, ::4, ::4], "stage2": gt[:, ::2, ::2], "stage3": gt}
+    return {
+        "imgs": rng.randn(batch, V, height, width, 3).astype(np.float32),
+        "proj_matrices": {k: np.repeat(p[None], batch, 0)
+                          for k, p in bench_projs(height, width, V, FOCAL).items()},
+        "depth_values": np.array([[DMIN, DMAX, interval]] * batch, np.float32),
+        "depth": depth,
+        "mask": {k: np.ones_like(v) for k, v in depth.items()},
+        "depth_interval": np.full((batch,), interval, np.float32),
+    }
+
+
+def _train_model(name: str, seed: int, device):
+    from adamvs_tpu_torch.models import build_model
+
+    opts = {"sweep_impl": "fused"} if name == "msrednet" else {}
+    return build_model(name, seed=seed, device=device, ndepths=NDEPTHS,
+                       depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, **opts)
+
+
+class ReluReplay(torch.overrides.TorchFunctionMode):
+    """While active, watches every ``F.relu`` call. Recording (the card's
+    run), it lets the real ``F.relu`` run and keeps its decisions (x > 0) in
+    call order; replaying (the CPU's run), it computes each call as
+    ``where(mask, x, 0)`` with the recorded mask.
+
+    A ReLU whose input lies within float32 rounding of 0 can fall on opposite
+    sides on the card (cuDNN) and on the CPU. The loss barely moves, but the
+    gradient jumps: at a 128x160 frame a few such flips, some in layers of a
+    few dozen pixels, move the whole gradient by ~1e-2. Replaying the card's
+    decisions on the CPU puts both runs on the same piecewise-linear branch,
+    so the gradients compare to float32 rounding. ``flips`` counts the
+    decisions the CPU would have taken otherwise: rounding flips a few per
+    million, so more than ``MAX_FLIPS`` of them means the two forwards
+    differ beyond rounding."""
+
+    MAX_FLIPS = 1e-5  # of the decisions
+
+    def __init__(self, masks=None):
+        super().__init__()
+        self.replay = masks is not None
+        self.masks, self.flips, self.calls = masks if self.replay else [], 0, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not F.relu:
+            return func(*args, **kwargs)
+        x = args[0]
+        if not self.replay:
+            self.masks.append((x > 0).cpu())
+            self.calls += 1
+            return func(*args, **kwargs)
+        if self.calls >= len(self.masks):
+            fail(f"the CPU made more ReLU calls than the {len(self.masks)} recorded on the card")
+        mask = self.masks[self.calls].to(x.device)
+        self.calls += 1
+        self.flips += int((mask != (x > 0)).sum())
+        return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def phase_train_reference() -> None:
+    """One train step of each model on a 128x160 frame: the card (K1/K2/K4
+    forward, K5 backward) against the plain path on the CPU, float32, TF32
+    off, the CPU replaying the card's ReLU decisions (``ReluReplay``).
+    Limits: loss within 1e-4 relative, the whole gradient within 1e-3
+    relative L2, BatchNorm statistics within 1e-4 (relative, absolute below
+    1), the CPU's own decisions differing from the card's in at most
+    ``ReluReplay.MAX_FLIPS`` of them."""
+    from adamvs_tpu_torch.models import model_loss
+    from adamvs_tpu_torch.train.loop import to_device
+
+    batch = train_batch(128, 160)
+    for name in ("adamvs", "msrednet"):
+        cpu = _train_model(name, 1, "cpu")
+        results = []
+        record = ReluReplay()
+        replay = ReluReplay(record.masks)
+        for model, dev, mode in ((copy.deepcopy(cpu).to(DEV), torch.device(DEV), record),
+                                 (cpu, torch.device("cpu"), replay)):
+            model.train()
+            b = to_device(batch, dev)
+            with mode:
+                out = model(b["imgs"], b["proj_matrices"], b["depth_values"], train=True)
+                loss, _ = model_loss(name)(out, b["depth"], b["mask"], DLOSSW)
+            loss.backward()
+            grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()])
+            stats = torch.cat([t.flatten().cpu() for n, t in model.named_buffers()
+                               if n.endswith(("running_mean", "running_var"))])
+            results.append((float(loss.detach()), grads, stats))
+        (lg, gg, sg), (lc, gc, sc) = results
+        lerr = abs(lg - lc) / abs(lc)
+        gerr = float((gg - gc).norm() / gc.norm())
+        serr = float(((sg - sc).abs() / sc.abs().clamp(min=1.0)).max())
+        decisions = sum(m.numel() for m in record.masks)
+        flip_share = replay.flips / max(decisions, 1)
+        log(f"[reference] train {name} 128x160: loss {lg:.6f} card vs {lc:.6f} cpu, rel err "
+            f"{lerr:.2e} (limit 1e-4); gradient rel L2 {gerr:.2e} (limit 1e-3); BatchNorm "
+            f"statistics err {serr:.2e} (limit 1e-4); the CPU took {replay.flips} of "
+            f"{decisions} ReLU decisions from the card, {flip_share:.1e} (limit "
+            f"{ReluReplay.MAX_FLIPS:.0e})")
+        if replay.calls != record.calls or not decisions:
+            fail(f"train {name}: {record.calls} ReLU calls on the card, {replay.calls} on the CPU")
+        if not (lerr < 1e-4 and gerr < 1e-3 and serr < 1e-4
+                and flip_share <= ReluReplay.MAX_FLIPS):
+            fail(f"train {name}: the card's train step disagrees with the plain path on the CPU")
+
+
+def phase_train_paths() -> tuple[dict, list]:
+    """Every path of TRAIN_PATHS through the Trainer on the bench's training
+    batch (384x768, V=5, ndepths 48/32/8, base 8, float32, batch 1, RMSprop
+    lr 1e-3): a warm-up step and the timed steps, then one eval_epoch on the
+    batch (K1-K3 or K4 in float32), with all launch counters set to 0 just
+    before and read just after; then one more, traced, train step for the
+    card's busy time and its top kernels, and one more timed by phase.
+    Returns (launches summed over the paths, per-path statistics)."""
+    from adamvs_tpu_torch.models import model_loss
+    from adamvs_tpu_torch.train.loop import Trainer
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
+
+    batch = train_batch(TRAIN_H, TRAIN_W)
+    counted = wrappers()
+    total = dict.fromkeys(KERNELS, 0)
+    stats = []
+    # the Trainer's records go to the port's build directory, which git ignores
+    logroot = os.path.join(REPO, "adamvs_tpu_torch", "_build", "chip_smoke_train")
+    shutil.rmtree(logroot, ignore_errors=True)
+    for path, name, steps, per_step in TRAIN_PATHS:
+        model = _train_model(name, 0, DEV)
+        state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+        trainer = Trainer(state, model_loss(name), os.path.join(logroot, path), dlossw=DLOSSW,
+                          num_stages=3, ckpt_step_freq=0, log_fn=lambda m: None, device=DEV)
+        before = {k: t.detach().clone() for k, t in model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        times = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss = trainer.train_epoch(0, [batch])["loss"]  # ends on the loss's copy to the host
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(loss):
+                fail(f"{path}: non-finite loss {loss} at step {i}")
+            log(f"[main] {path} step {i}: {times[-1]:.1f} ms, loss {loss:.4f}")
+        if state.nan_steps != 0 or state.step != steps:
+            fail(f"{path}: {state.nan_steps} skipped of {state.step} steps")
+        val = trainer.eval_epoch(0, [batch])
+        if not all(np.isfinite(x) for x in val.values()):
+            fail(f"{path}: non-finite eval metrics {val}")
+        launches = {k: fn.launches for k, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, n in launches.items():
+            want = steps * per_step.get(k, 0) + EVAL_LAUNCHES[name].get(k, 0)
+            if n != want:
+                fail(f"{path}: {k} launched {n} times over {steps} train steps and one eval, "
+                     f"expected {want}")
+            total[k] += n
+        after = model.state_dict()
+        params = [k for k, _ in model.named_parameters()]
+        bn = [k for k in after if k.endswith(("running_mean", "running_var"))]
+        moved = sum(not torch.equal(before[k], after[k]) for k in params)
+        if moved < 0.9 * len(params) or not all(not torch.equal(before[k], after[k]) for k in bn):
+            fail(f"{path}: {moved} of {len(params)} parameters moved, BatchNorm statistics "
+                 f"{'moved' if bn else 'absent'}")
+        busy, top = device_profile(lambda: trainer.train_epoch(0, [batch]), top=10)
+        entry = {"path": path, "ms_per_step": statistics.mean(times[1:]),
+                 "median_ms": statistics.median(times[1:]), "timed_ms": times[1:],
+                 "warmup_ms": times[0], "peak_gib": peak, "launches": launches,
+                 "device_busy_ms": busy, "top_kernels": top, "params_moved": moved,
+                 "params": len(params), "eval": val,
+                 "phases_ms": train_phase_times(state, model_loss(name), batch)}
+        stats.append(entry)
+        log(f"[main] {path} {TRAIN_H}x{TRAIN_W} V={V} ndepths {NDEPTHS} f32: "
+            f"{entry['ms_per_step']:.1f} ms per train step (median {entry['median_ms']:.1f}; timed "
+            f"{', '.join(f'{t:.1f}' for t in times[1:])}; warm-up {times[0]:.1f}), peak "
+            f"{peak:.2f} GiB, {moved} of {len(params)} parameters and all {len(bn)} BatchNorm "
+            f"statistics moved, launches {launches}, card busy in a traced step {busy:.1f} ms "
+            f"({busy / entry['ms_per_step']:.0%} of the mean); eval abs_depth_error "
+            f"{val['abs_depth_error']:.3f}, loss {val['loss']:.4f}")
+        log(f"[main] {path} one step by phase (ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in entry["phases_ms"].items()))
+        log(f"[main] {path} top kernels of the traced step (ms on the card, launches): "
+            + "; ".join(f"{n} {ms:.2f} x{c}" for n, ms, c in top))
+        del model, state, trainer
+        torch.cuda.empty_cache()
+    return total, stats
+
+
+def train_phase_times(state, loss_fn, batch) -> dict:
+    """Milliseconds of one more train step's phases, host clock with a
+    synchronise after each: the upload of the batch, the forward with the
+    loss, the backward, and the RMSprop update."""
+    from adamvs_tpu_torch.train.loop import to_device
+
+    out = {}
+    t0 = time.perf_counter()
+    b = to_device(batch, torch.device(DEV))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state.optimizer.zero_grad(set_to_none=True)
+    pred = state.model.train()(b["imgs"], b["proj_matrices"], b["depth_values"], train=True)
+    loss, _ = loss_fn(pred, b["depth"], b["mask"], DLOSSW)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    state.optimizer.step()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    out["upload"], out["forward"] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    out["backward"], out["update"] = (t3 - t2) * 1e3, (t4 - t3) * 1e3
+    return out
 
 
 def msrednet_layer_times(model, opts: dict) -> dict:
@@ -643,7 +1015,7 @@ def kernels_line(res: dict, launches: dict) -> dict:
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[k],
-            "max_abs_err": res[k]["err"]["bf16"][0],
+            "max_abs_err": res[k]["err"][MAIN_DTYPE.get(k, "bf16")][0],
             "ms": sum(s["ms"] for s in stages),
             "plain_ms": sum(s["plain_ms"] for s in stages),
             "bound_ms": sum(s["bound_ms"] for s in stages),
@@ -670,11 +1042,14 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     res = phase_kernels()
+    phase_k5(res)
     phase_edges()
     phase_reference()
+    phase_train_reference()
     launches, main_stats = phase_main_path()
-    line = kernels_line(res, launches)
-    line["main_path"] = main_stats
+    train_launches, train_stats = phase_train_paths()
+    line = kernels_line(res, {k: n + train_launches[k] for k, n in launches.items()})
+    line["main_path"] = main_stats + train_stats
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -282,9 +282,11 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
-    from adamvs_tpu_torch.models import AdaMVS, build_model
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from adamvs_tpu_torch.models import AdaMVS, build_model, model_loss
     from adamvs_tpu_torch.predict.engine import PredictEngine
+    from adamvs_tpu_torch.train.loop import Trainer
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = AdaMVS(ndepths=(8, 4, 4), base=4, cr_base=(4, 4, 4))
@@ -292,7 +294,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         PredictEngine(model, num_depth=32, device=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(ndepths=(8, 4, 4), base=4, cr_base=(4, 4, 4))
+    state = create_train_state(model, make_optimizer(model.parameters()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(state, model_loss("adamvs"), str(tmp_path / "logs"))
     assert PredictEngine(model, num_depth=32, device="cpu").device.type == "cpu"
+    assert Trainer(state, model_loss("adamvs"), str(tmp_path / "logs"),
+                   device="cpu").device.type == "cpu"
 
 
 def test_cpu_calls_take_the_plain_path_without_a_build(monkeypatch):
@@ -306,10 +313,17 @@ def test_cpu_calls_take_the_plain_path_without_a_build(monkeypatch):
 
     ref, srcs, src_projs, ref_proj, weights, lo, step = _sweep_case(5, 1, 2, 8, 8, 8, True)
     wrappers = (tsweep.corr_sweep_volume, tsweep.fused_sweep_volume, tsweep.var_sweep_volume,
-                tred.red_scan, tsample.sample_bilinear)
+                tred.red_scan, tsample.sample_bilinear, tsweep.corr_sweep_volume_bwd,
+                tsweep.fused_sweep_volume_bwd, tsweep.var_sweep_volume_bwd)
     before = [fn.launches for fn in wrappers]
     corr = tsweep.corr_sweep_volume(_t(ref), _t(srcs), _t(src_projs), _t(ref_proj), _t(lo),
                                     _t(step), 4)
+    tref = _t(ref).requires_grad_()
+    geo = (_t(src_projs), _t(ref_proj), _t(lo), _t(step), 4)
+    (tsweep.corr_sweep_volume_t(tref, _t(srcs), *geo).sum()
+     + tsweep.fused_sweep_volume_t(tref, _t(srcs), _t(weights).permute(0, 3, 1, 2), *geo).sum()
+     + tsweep.var_sweep_volume_t(tref, _t(srcs), *geo).sum()).backward()
+    assert tref.grad.shape == tref.shape
     fused = tsweep.fused_sweep_volume(_t(ref), _t(srcs), _t(weights).permute(0, 3, 1, 2),
                                       _t(src_projs), _t(ref_proj), _t(lo), _t(step), 4)
     var = tsweep.var_sweep_volume(_t(ref), _t(srcs), _t(src_projs), _t(ref_proj), _t(lo),
@@ -320,7 +334,7 @@ def test_cpu_calls_take_the_plain_path_without_a_build(monkeypatch):
     assert corr.shape == (2, 1, 4, 8, 8) and fused.shape == var.shape == (4, 1, 8, 8, 8)
     assert cost.shape == (4, 1, 16, 16) and warped.shape == (1, 1, 8, 8, 8)
     assert [fn.launches for fn in wrappers] == before
-    assert build.sources() == ["bilinear_sample", "red_scan", "sweep_fuse"]
+    assert build.sources() == ["bilinear_sample", "red_scan", "sweep_bwd", "sweep_fuse"]
 
 
 def test_wrappers_reject_non_cuda_devices():
@@ -334,6 +348,10 @@ def test_wrappers_reject_non_cuda_devices():
                                 torch.eye(4)[None], lo, lo, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tsample.sample_bilinear(meta, lo[:, None], lo[:, None])
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep.var_sweep_volume_bwd(torch.empty((4, 1, 8, 8, 8), device="meta"), meta,
+                                    meta[None], torch.eye(4)[None, None], torch.eye(4)[None],
+                                    lo, lo)
 
 
 def test_build_runs_nvcc_per_source_and_raises_on_failure(tmp_path, monkeypatch):
@@ -356,14 +374,14 @@ def test_build_runs_nvcc_per_source_and_raises_on_failure(tmp_path, monkeypatch)
 
     with pytest.raises(RuntimeError, match="boom"):
         build.build_all()
-    assert os.path.exists(build._lib_path("sweep_fuse"))
-    assert os.path.exists(build._lib_path("bilinear_sample"))
+    for name in ("sweep_fuse", "sweep_bwd", "bilinear_sample"):
+        assert os.path.exists(build._lib_path(name))
     assert not os.path.exists(build._lib_path("red_scan"))
     (cuda / "bin" / "fixed").write_text("")
     reports = build.build_all()
     assert list(reports) == ["red_scan"] and "Used 1 registers" in reports["red_scan"]
     calls = (cuda / "bin" / "calls").read_text().split()
     assert sorted(os.path.basename(c) for c in calls) == [
-        "bilinear_sample.cu", "red_scan.cu", "red_scan.cu", "sweep_fuse.cu"]
+        "bilinear_sample.cu", "red_scan.cu", "red_scan.cu", "sweep_bwd.cu", "sweep_fuse.cu"]
     assert sorted(os.listdir(tmp_path / "_build")) == sorted(
-        os.path.basename(build._lib_path(n)) for n in ("bilinear_sample", "red_scan", "sweep_fuse"))
+        os.path.basename(build._lib_path(n)) for n in build.sources())
