@@ -12,36 +12,94 @@
 // where GRU(h, x): r, u = sigmoid(conv([x, h]) + b_g); c = tanh(conv([x, r*h])
 // + b_c); h' = u*h + (1-u)*c. Convolutions use PyTorch padding 1; the
 // transposed convolutions follow ConvTranspose2d(k=3, stride=2, padding=1,
-// output_padding=1), so the output is exactly 2x.
+// output_padding=1): output pixel oy reads input iy = (oy + 1 - ky) / 2 where
+// that is whole, so the output is exactly 2x.
 //
 // What bounds it on an H100: operations. The step's convolutions do about
 // 8.7k multiply-adds per pixel of the h x w level at base 8, against a few
-// bytes per pixel of input and output; this simple kernel runs them as
-// float32 FMAs on the CUDA cores (67 TFLOP/s), not on the tensor cores.
+// bytes per pixel of input and output: 1.7e12 flops per AdaMVS depth map,
+// 1.7 ms on the bf16 tensor cores but 25 ms as float32 FMAs.
 //
-// Design: the host loops over d on one stream, with no synchronisation; each
-// step launches eight direct-convolution kernels, each with its pointwise
-// epilogue fused (ReLU, the GRU gates with r*h, the GRU update, the skip add).
-// A launch boundary is the grid-wide barrier that keeps the recurrence exact
-// across tile borders, which the TPU kernel got from its HBM carry ping-pong.
-// One thread computes every output channel of one output pixel; the layer's
-// weights sit in shared memory as [(ci, ky, kx)][co] float32. The GRU states
-// h1 and h2 live in the scratch buffer and are updated in place: the kernel
-// that writes a state reads it only at its own pixel, and every kernel that
-// reads neighbouring state pixels runs in a launch before or after it.
-// Loads and stores are float32 or bfloat16; all arithmetic is float32. The TPU
-// kernel's lane-sparse half-resolution layout, panel loop and matrix packing
-// are Mosaic workarounds and are not copied.
+// bfloat16 (the inference path): three launches per depth step, each tiled
+// over the image and fused, every 3x3 and stride-2 convolution an implicit
+// GEMM on the tensor cores (mma.sync m16n8k16 and m16n8k8, bf16 operands,
+// float32 sums); blocks of 8 warps, two or more blocks per SM:
+//   phase A, full resolution, 16x16 tiles (16x32 at 8 input channels): x_d on the tile
+//     plus 3 pixels and h1 on the tile plus 2 go to shared memory; c1 on the
+//     tile plus 2, the gates on the tile plus 1 (r*h1 kept beside c1, u on
+//     the tile), the candidate on the tile; h1' is written.
+//   phase B, half resolution, 16x16 tiles: h1' on the tile's full-resolution
+//     footprint plus 5 (and 4) pixels, h2 on the tile plus 2; the stride-2 c2,
+//     GRU2 as in phase A; h2' is written.
+//   phase C, full resolution, 16x32 tiles (32x32 under the 3x3 head): h2'
+//     and h1' around the tile; u1 on the tile plus 1 as the four output phases
+//     of the transposed convolution (1, 2, 2 and 4 taps); the head on the CUDA
+//     cores (N = 1, 72 multiply-adds per pixel; the 2x head one 2x2 output
+//     quad per thread); the cost slice is written.
+// Each launch reads only the carries and the volume slice and writes only the
+// carries and the cost; every tile recomputes its own halo ring. A launch
+// boundary is the grid-wide barrier between phases. The GEMM: M = a region's
+// pixels in 16-row tiles, each warp taking all of its tiles at once; N =
+// output channels in tiles of 8; K = taps x channels ordered (ky, kx, ci), in
+// slices of 8 channels of one tap, so that one pixel's 8 channels are one
+// 16-byte row of an ldmatrix; a row's pixel and tap give its shared-memory
+// address, which makes the stride and the transposed convolutions mere
+// addressing. The host packs the weights once per call into the mma
+// B-fragment order (ops/red_scan.py::pack_red_fragments); warps read them
+// through L1. Sigmoid, tanh (tanh.approx), the GRU update, ReLU and the skip
+// run in float32 registers in the GEMM's epilogue. Operands round to bf16
+// where they enter a GEMM, as the TPU kernel casts them at its MXU inputs;
+// the carries and the cost are stored in bf16. The GRU states arrive by
+// cp.async while the first GEMM of the phase runs.
 //
-// Layouts: vol [D,B,cin,h,w], cost [D,B,oh,ow], GRU states NCHW. h and w must
-// be even. Scratch holds 5 [B,b,h,w] and 4 [B,2b,h/2,w/2] planes.
+// Why the carries ping-pong: the phases read neighbouring tiles' states, so a
+// step cannot update h1 or h2 in place; step d reads parity d&1 and writes
+// parity 1-(d&1), as the TPU kernel does with its two HBM buffers. Step 0
+// reads zero states without touching the buffers. Carries are NHWC bf16 in
+// the kernel's own scratch: 2 x (B h w b + B h/2 w/2 2b) values.
+//
+// Traps, and what the code does about them:
+//   - conv zero padding: every intermediate in a halo ring outside the image
+//     (c1, c2, u1) is zeroed before the next convolution reads it, since a
+//     ReLU, a bias or even a bias-free conv whose taps reach into the image
+//     is nonzero there; r*h is zero there because h is loaded as zero.
+//   - the transposed-convolution index map oy = 2 iy - 1 + ky: an even output
+//     row reads tap ky=1 at iy = oy/2, an odd one ky=2 at (oy-1)/2 and ky=0 at
+//     (oy+1)/2 (DeconvTaps; the packing follows the same tap order).
+//   - shared memory above 48 KB: cudaFuncSetAttribute before the launches.
+//   - ldmatrix rows must be 16-byte aligned: pixel rows are a whole number of
+//     16-byte units, padded to an odd number (pitch()) so that the 8 rows of
+//     one 8x8 matrix, 8 neighbouring pixels, fall in distinct banks.
+//   - h and w need not be multiples of a tile: loads zero-fill outside the
+//     image and stores skip it. h and w must be even (the half level).
+//   - base 4: 4-channel tensors are zero-padded to one 8-channel slice. The
+//     volume's cin channels likewise go to shared memory as CP = 8, 16, 32 or
+//     64 channels, the next of them, loaded as zero past cin; conv1's packed
+//     weights have zero rows there (ops/red_scan.py::tc_width).
+//   - registers: weight loads do not depend on the M tiles, so with a loop
+//     over tiles the compiler hoists them all out of it (144 registers for
+//     GRU2's gates, and spills); hence no loop: a warp's tiles are unrolled.
+//
+// float32 (the trainer's eval step and the float32 checks) keeps the direct
+// kernels of the first port: the host loops over d, eight direct-convolution
+// kernels per step with their epilogues fused, float32 FMAs on the CUDA cores,
+// states NCHW and updated in place (every kernel that reads neighbouring
+// state pixels runs in a launch before or after the one that writes them).
+// TF32 tensor cores would break that path's 1e-4 agreement. Scratch holds
+// 5 [B,b,h,w] and 4 [B,2b,h/2,w/2] planes.
+//
+// The TPU kernel's band layout, lane-sparse half-resolution level and panel
+// loop are Mosaic workarounds and are not copied.
+//
+// Layouts at the interface: vol [D,B,cin,h,w], cost [D,B,oh,ow].
 
 #include "common.cuh"
 
 namespace {
 
-using adamvs::store;
-using adamvs::to_f32;
+// ---------------------------------------------------------------- float32 --
+
+namespace f32 {
 
 enum Epilogue { kRelu = 0, kGates = 1, kCand = 2, kSkipRelu = 3, kBias = 4 };
 enum Kind { kConv = 0, kConvStride2 = 1, kDeconvStride2 = 2 };
@@ -50,23 +108,23 @@ constexpr int kBX = 32;
 constexpr int kBY = 8;
 
 struct ConvArgs {
-  const void* in0;  // first input, c0 channels
+  const float* in0;  // first input, c0 channels
   int c0;
-  const void* in1;  // second input (channel concat after in0), c1 channels
+  const float* in1;  // second input (channel concat after in0), c1 channels
   int c1;
   int Hi, Wi;
   const float* w;     // [(c0 + c1) * 9][CO], taps ordered (ci, ky, kx)
   const float* bias;  // [CO], or null for kRelu
-  void* out0;         // kRelu/kSkipRelu/kBias: output; kGates: r*h
-  void* out1;         // kGates: update gate u
-  void* h;            // kGates: GRU state read; kCand: GRU state updated in place
-  const void* aux;    // kCand: update gate u; kSkipRelu: skip input
+  float* out0;        // kRelu/kSkipRelu/kBias: output; kGates: r*h
+  float* out1;        // kGates: update gate u
+  float* h;           // kGates: GRU state read; kCand: GRU state updated in place
+  const float* aux;   // kCand: update gate u; kSkipRelu: skip input
   int Ho, Wo;
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-template <typename T, int CO, int EPI, int KIND>
+template <int CO, int EPI, int KIND>
 __global__ void __launch_bounds__(kBX * kBY) cell_conv(ConvArgs a) {
   extern __shared__ float ws[];
   const int nci = a.c0 + a.c1;
@@ -82,10 +140,10 @@ __global__ void __launch_bounds__(kBX * kBY) cell_conv(ConvArgs a) {
 #pragma unroll
   for (int co = 0; co < CO; ++co) acc[co] = 0.f;
   const size_t plane = static_cast<size_t>(a.Hi) * a.Wi;
-  const T* in0 = static_cast<const T*>(a.in0) + static_cast<size_t>(b) * a.c0 * plane;
-  const T* in1 = static_cast<const T*>(a.in1) + static_cast<size_t>(b) * a.c1 * plane;
+  const float* in0 = a.in0 + static_cast<size_t>(b) * a.c0 * plane;
+  const float* in1 = a.in1 + static_cast<size_t>(b) * a.c1 * plane;
   for (int ci = 0; ci < nci; ++ci) {
-    const T* p = ci < a.c0 ? in0 + ci * plane : in1 + (ci - a.c0) * plane;
+    const float* p = ci < a.c0 ? in0 + ci * plane : in1 + (ci - a.c0) * plane;
 #pragma unroll
     for (int ky = 0; ky < 3; ++ky) {
       int iy;
@@ -108,7 +166,7 @@ __global__ void __launch_bounds__(kBX * kBY) cell_conv(ConvArgs a) {
           ix = ox * (KIND == kConvStride2 ? 2 : 1) - 1 + kx;
         }
         if (ix < 0 || ix >= a.Wi) continue;
-        const float xv = to_f32(p[static_cast<size_t>(iy) * a.Wi + ix]);
+        const float xv = p[static_cast<size_t>(iy) * a.Wi + ix];
         const float* wr = ws + (ci * 9 + ky * 3 + kx) * CO;
 #pragma unroll
         for (int co = 0; co < CO; ++co) acc[co] = fmaf(wr[co], xv, acc[co]);
@@ -119,96 +177,95 @@ __global__ void __launch_bounds__(kBX * kBY) cell_conv(ConvArgs a) {
   const size_t po = static_cast<size_t>(a.Ho) * a.Wo;
   const size_t pix = static_cast<size_t>(oy) * a.Wo + ox;
   if constexpr (EPI == kRelu) {
-    T* o = static_cast<T*>(a.out0) + static_cast<size_t>(b) * CO * po + pix;
+    float* o = a.out0 + static_cast<size_t>(b) * CO * po + pix;
 #pragma unroll
-    for (int co = 0; co < CO; ++co) store(o + co * po, fmaxf(acc[co], 0.f));
+    for (int co = 0; co < CO; ++co) o[co * po] = fmaxf(acc[co], 0.f);
   } else if constexpr (EPI == kGates) {
     constexpr int HID = CO / 2;
     const size_t off = static_cast<size_t>(b) * HID * po + pix;
-    const T* h = static_cast<const T*>(a.h) + off;
-    T* rh = static_cast<T*>(a.out0) + off;
-    T* ug = static_cast<T*>(a.out1) + off;
+    const float* h = a.h + off;
+    float* rh = a.out0 + off;
+    float* ug = a.out1 + off;
 #pragma unroll
     for (int k = 0; k < HID; ++k) {
       const float r = sigmoid(acc[k] + a.bias[k]);
       const float u = sigmoid(acc[HID + k] + a.bias[HID + k]);
-      store(rh + k * po, r * to_f32(h[k * po]));
-      store(ug + k * po, u);
+      rh[k * po] = r * h[k * po];
+      ug[k * po] = u;
     }
   } else if constexpr (EPI == kCand) {
     const size_t off = static_cast<size_t>(b) * CO * po + pix;
-    T* h = static_cast<T*>(a.h) + off;
-    const T* ug = static_cast<const T*>(a.aux) + off;
+    float* h = a.h + off;
+    const float* ug = a.aux + off;
 #pragma unroll
     for (int k = 0; k < CO; ++k) {
       const float c = tanhf(acc[k] + a.bias[k]);
-      const float u = to_f32(ug[k * po]);
-      store(h + k * po, u * to_f32(h[k * po]) + (1.f - u) * c);
+      const float u = ug[k * po];
+      h[k * po] = u * h[k * po] + (1.f - u) * c;
     }
   } else if constexpr (EPI == kSkipRelu) {
     const size_t off = static_cast<size_t>(b) * CO * po + pix;
-    const T* skip = static_cast<const T*>(a.aux) + off;
-    T* o = static_cast<T*>(a.out0) + off;
+    const float* skip = a.aux + off;
+    float* o = a.out0 + off;
 #pragma unroll
-    for (int co = 0; co < CO; ++co)
-      store(o + co * po, fmaxf(acc[co] + a.bias[co] + to_f32(skip[co * po]), 0.f));
+    for (int co = 0; co < CO; ++co) o[co * po] = fmaxf(acc[co] + a.bias[co] + skip[co * po], 0.f);
   } else {
-    T* o = static_cast<T*>(a.out0) + static_cast<size_t>(b) * CO * po + pix;
+    float* o = a.out0 + static_cast<size_t>(b) * CO * po + pix;
 #pragma unroll
-    for (int co = 0; co < CO; ++co) store(o + co * po, acc[co] + a.bias[co]);
+    for (int co = 0; co < CO; ++co) o[co * po] = acc[co] + a.bias[co];
   }
 }
 
-template <typename T, int CO, int EPI, int KIND>
+template <int CO, int EPI, int KIND>
 void launch(const ConvArgs& a, int B, cudaStream_t s) {
   const dim3 block(kBX, kBY);
   const dim3 grid((a.Wo + kBX - 1) / kBX, (a.Ho + kBY - 1) / kBY, B);
   const size_t smem = static_cast<size_t>(a.c0 + a.c1) * 9 * CO * sizeof(float);
-  cell_conv<T, CO, EPI, KIND><<<grid, block, smem, s>>>(a);
+  cell_conv<CO, EPI, KIND><<<grid, block, smem, s>>>(a);
 }
 
 // weights: wc1, wg1, bg1, wn1, bn1, wc2, wg2, bg2, wn2, bn2, wu1, bu1, wh, bh
-template <typename T, int BASE>
-int run(int cin, int up, int D, int B, int h, int w, const T* vol, const float* const* wt, T* cost,
-        T* scratch, cudaStream_t s) {
+template <int BASE>
+int run(int cin, int up, int D, int B, int h, int w, const float* vol, const float* const* wt,
+        float* cost, float* scratch, cudaStream_t s) {
   constexpr int b = BASE;
   const int hh = h / 2, wh = w / 2;
   const size_t n1 = static_cast<size_t>(B) * b * h * w;
   const size_t n2 = static_cast<size_t>(B) * 2 * b * hh * wh;
-  T* h1 = scratch;
-  T* h2 = h1 + n1;
-  T* c1 = h2 + n2;
-  T* rh1 = c1 + n1;
-  T* ug1 = rh1 + n1;
-  T* u1 = ug1 + n1;
-  T* c2 = u1 + n1;
-  T* rh2 = c2 + n2;
-  T* ug2 = rh2 + n2;
-  cudaError_t e = cudaMemsetAsync(h1, 0, (n1 + n2) * sizeof(T), s);  // zero GRU states
+  float* h1 = scratch;
+  float* h2 = h1 + n1;
+  float* c1 = h2 + n2;
+  float* rh1 = c1 + n1;
+  float* ug1 = rh1 + n1;
+  float* u1 = ug1 + n1;
+  float* c2 = u1 + n1;
+  float* rh2 = c2 + n2;
+  float* ug2 = rh2 + n2;
+  cudaError_t e = cudaMemsetAsync(h1, 0, (n1 + n2) * sizeof(float), s);  // zero GRU states
   if (e != cudaSuccess) return static_cast<int>(e);
   const int oh = up ? 2 * h : h, ow = up ? 2 * w : w;
   for (int d = 0; d < D; ++d) {
-    const T* x = vol + static_cast<size_t>(d) * B * cin * h * w;
-    T* out = cost + static_cast<size_t>(d) * B * oh * ow;
-    launch<T, b, kRelu, kConv>(
+    const float* x = vol + static_cast<size_t>(d) * B * cin * h * w;
+    float* out = cost + static_cast<size_t>(d) * B * oh * ow;
+    launch<b, kRelu, kConv>(
         ConvArgs{x, cin, nullptr, 0, h, w, wt[0], nullptr, c1, nullptr, nullptr, nullptr, h, w}, B, s);
-    launch<T, 2 * b, kGates, kConv>(
+    launch<2 * b, kGates, kConv>(
         ConvArgs{c1, b, h1, b, h, w, wt[1], wt[2], rh1, ug1, h1, nullptr, h, w}, B, s);
-    launch<T, b, kCand, kConv>(
+    launch<b, kCand, kConv>(
         ConvArgs{c1, b, rh1, b, h, w, wt[3], wt[4], nullptr, nullptr, h1, ug1, h, w}, B, s);
-    launch<T, 2 * b, kRelu, kConvStride2>(
+    launch<2 * b, kRelu, kConvStride2>(
         ConvArgs{h1, b, nullptr, 0, h, w, wt[5], nullptr, c2, nullptr, nullptr, nullptr, hh, wh}, B, s);
-    launch<T, 4 * b, kGates, kConv>(
+    launch<4 * b, kGates, kConv>(
         ConvArgs{c2, 2 * b, h2, 2 * b, hh, wh, wt[6], wt[7], rh2, ug2, h2, nullptr, hh, wh}, B, s);
-    launch<T, 2 * b, kCand, kConv>(
+    launch<2 * b, kCand, kConv>(
         ConvArgs{c2, 2 * b, rh2, 2 * b, hh, wh, wt[8], wt[9], nullptr, nullptr, h2, ug2, hh, wh}, B, s);
-    launch<T, b, kSkipRelu, kDeconvStride2>(
+    launch<b, kSkipRelu, kDeconvStride2>(
         ConvArgs{h2, 2 * b, nullptr, 0, hh, wh, wt[10], wt[11], u1, nullptr, nullptr, h1, h, w}, B, s);
     if (up)
-      launch<T, 1, kBias, kDeconvStride2>(
+      launch<1, kBias, kDeconvStride2>(
           ConvArgs{u1, b, nullptr, 0, h, w, wt[12], wt[13], out, nullptr, nullptr, nullptr, oh, ow}, B, s);
     else
-      launch<T, 1, kBias, kConv>(
+      launch<1, kBias, kConv>(
           ConvArgs{u1, b, nullptr, 0, h, w, wt[12], wt[13], out, nullptr, nullptr, nullptr, oh, ow}, B, s);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -216,28 +273,630 @@ int run(int cin, int up, int D, int B, int h, int w, const T* vol, const float* 
   return 0;
 }
 
-template <typename T>
-int run_base(int base, int cin, int up, int D, int B, int h, int w, const void* vol,
-             const float* const* wt, void* cost, void* scratch, cudaStream_t s) {
-  const T* v = static_cast<const T*>(vol);
-  T* c = static_cast<T*>(cost);
-  T* sc = static_cast<T*>(scratch);
-  switch (base) {
-    case 4: return run<T, 4>(cin, up, D, B, h, w, v, wt, c, sc, s);
-    case 8: return run<T, 8>(cin, up, D, B, h, w, v, wt, c, sc, s);
-    default: return adamvs::kBadBase;
+}  // namespace f32
+
+// ------------------------------------------------- bfloat16, tensor cores --
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Elements per shared-memory pixel row of cp channels (cp % 8 == 0): an odd
+// number of 16-byte units, so 8 neighbouring pixels hit 8 distinct bank groups.
+__host__ __device__ constexpr int pitch(int cp) { return (cp / 8) % 2 ? cp : cp + 8; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A tap set: n taps; tap t reads the input pixel (base_y + dy(t), base_x + dx(t)).
+struct Conv3Taps {
+  static constexpr int n = 9;
+  __host__ __device__ static constexpr int dy(int t) { return t / 3; }
+  __host__ __device__ static constexpr int dx(int t) { return t % 3; }
+};
+
+// Output phase (A, C) of the stride-2 transposed convolution, A and C the
+// parities of the output row and column: an even output row 2i reads tap ky=1
+// at input row i; an odd one 2i+1 reads ky=2 at row i and ky=0 at row i+1.
+// Offsets here are relative to input row i-1 (phase C's region origin), so
+// they are 1, and 0 then 1.
+template <int A, int C>
+struct DeconvTaps {
+  static constexpr int nx = C ? 2 : 1;
+  static constexpr int n = (A ? 2 : 1) * nx;
+  __host__ __device__ static constexpr int dy(int t) { return A ? t / nx : 1; }
+  __host__ __device__ static constexpr int dx(int t) { return C ? t % nx : 1; }
+};
+
+// tanh on the special-function unit (relative error below 2^-10.9, under a
+// bf16 rounding), and the sigmoid through it.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return fmaf(0.5f, tanh_approx(0.5f * x), 0.5f); }
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack2(const bf16* p) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store2(bf16* p, uint32_t v) { *reinterpret_cast<uint32_t*>(p) = v; }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&a)[2], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(a[0]), "=r"(a[1])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ void mma_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// Asynchronous copy (cp.async) of BYTES (8 or 16) to shared memory, zeros when
+// !valid (src is then not read); cp_commit(), cp_wait() and a barrier before
+// reading.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 8 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N committed groups of this thread's copies are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 32-bit words of one GEMM's B fragments: per tap, a k8 step (G == 1, one
+// word per lane) or G/2 k16 steps (two words per lane), each with NT n-tiles.
+template <int G>
+__host__ __device__ constexpr int frag_words(int taps, int nt) {
+  return taps * (G == 1 ? 1 : G) * nt * 32;
+}
+
+// One warp's M tiles of an implicit GEMM over M rows: tile i of the warp
+// starts at row 16 (warp + kWarps i), and only the first `live` of them lie in
+// [0, M). Row m (clamped to M-1, whose result is dropped) is output pixel
+// (m / OW, m % OW), whose base input position is (S (m / OW), S (m % OW)) in an
+// input region IW pixels wide with G 8-channel slices per pixel at pitch P;
+// tap t reads the pixel (dy(t), dx(t)) further. K runs over (tap, slice):
+// with G == 1 one tap per m16n8k8 step (ldmatrix.x2); otherwise two slices of
+// one tap per m16n8k16 step (ldmatrix.x4, lanes 16-31 addressing the second
+// slice, 8 channels on), so every address offset is a constant. wf: B
+// fragments in global memory (frag_words), read through L1 once per warp and
+// step and used by all its tiles; A fragments are loaded a step ahead of the
+// mma that use them. acc: MT x NT m16n8 accumulators, independent chains.
+template <typename Taps, int G, int P, int IW, int OW, int S, int NT, int MT>
+__device__ __forceinline__ void mma_tiles(const bf16* in, int M, int live,
+                                          const uint32_t* __restrict__ wf, float (&acc)[MT][NT][4]) {
+  constexpr int SPT = G == 1 ? 1 : G / 2;  // mma steps per tap
+  constexpr int NS = Taps::n * SPT, AW = G == 1 ? 2 : 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* base[MT];
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+    const int m = min(16 * (warp + kWarps * t) + (lane & 7) + (lane & 8), M - 1);  // ldmatrix row
+    base[t] = in + ((m / OW) * S * IW + (m % OW) * S) * P + (G > 1 && lane >= 16 ? 8 : 0);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][nt][i] = 0.f;
+  }
+  // A fragments of step s into a[s & 1], one step ahead of the mma that use them
+  uint32_t a[2][MT][AW];
+  auto load_a = [&](int s) {
+    const int tap = s / SPT;
+    const int off = (Taps::dy(tap) * IW + Taps::dx(tap)) * P + 16 * (s % SPT);
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      if (t >= live) continue;
+      if constexpr (G == 1)
+        ldmatrix_x2(*reinterpret_cast<uint32_t(*)[2]>(a[s & 1][t]), base[t] + off);
+      else
+        ldmatrix_x4(*reinterpret_cast<uint32_t(*)[4]>(a[s & 1][t]), base[t] + off);
+    }
+  };
+  load_a(0);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (s + 1 < NS) load_a(s + 1);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if constexpr (G == 1) {
+        const uint32_t b = __ldg(wf + (s * NT + nt) * 32 + lane);
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+          if (t < live) mma_k8(acc[t][nt], *reinterpret_cast<uint32_t(*)[2]>(a[s & 1][t]), b);
+      } else {
+        const uint2 b = __ldg(reinterpret_cast<const uint2*>(wf) + (s * NT + nt) * 32 + lane);
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+          if (t < live) mma_k16(acc[t][nt], *reinterpret_cast<uint32_t(*)[4]>(a[s & 1][t]), b);
+      }
+    }
   }
 }
 
+// A whole GEMM over M rows (M a constant): each warp takes its M tiles at
+// once. Its NB real output channels (the n-tiles may pad) get bias[n] (none
+// when bias is null) and go to epi(m, n, v0, v1) in pairs: row m, channels n
+// and n+1.
+template <typename Taps, int G, int P, int IW, int OW, int S, int NT, int NB, int M, typename Epi>
+__device__ __forceinline__ void gemm(const bf16* in, const uint32_t* wf, const float* bias, Epi epi) {
+  constexpr int MT = cdiv(cdiv(M, 16), kWarps);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int live = (cdiv(M, 16) - warp + kWarps - 1) / kWarps;  // this warp's tiles in [0, M)
+  float acc[MT][NT][4];
+  mma_tiles<Taps, G, P, IW, OW, S, NT, MT>(in, M, live, wf, acc);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = nt * 8 + (lane & 3) * 2;
+    if (n >= NB) continue;
+    const float2 bv = bias ? make_float2(__ldg(bias + n), __ldg(bias + n + 1)) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = 16 * (warp + kWarps * t) + (lane >> 2) + 8 * r;
+        if (m < M) epi(m, n, acc[t][nt][2 * r] + bv.x, acc[t][nt][2 * r + 1] + bv.y);
+      }
+  }
+}
+
+// NHWC bf16 src [H][W][C] on the RH x RW region whose origin is image pixel
+// (y0, x0) -> shared pixel rows of pitch P from channel C0: CF channels per
+// pixel, C of them loaded and the rest zero; zero outside the image, and
+// everywhere when `zero`. Async, in 16-byte pieces where the channel counts
+// allow and 8-byte ones otherwise.
+template <int C, int CF, int C0, int P, int RH, int RW>
+__device__ __forceinline__ void load_nhwc(bf16* dst, const bf16* src, int H, int W, int y0, int x0,
+                                          bool zero) {
+  constexpr int E = C % 8 == 0 && CF % 8 == 0 && C0 % 8 == 0 ? 8 : 4;  // elements per piece
+  constexpr int V = CF / E;
+  for (int i = threadIdx.x; i < RH * RW * V; i += kThreads) {
+    const int p = i / V, v = i % V;
+    const int y = y0 + p / RW, x = x0 + p % RW;
+    const bool valid = v < C / E && !zero && y >= 0 && y < H && x >= 0 && x < W;
+    const bf16* s = valid ? src + (static_cast<size_t>(y) * W + x) * C + E * v : src;
+    cp_async<2 * E>(dst + p * P + C0 + E * v, s, valid);
+  }
+}
+
+// NCHW bf16 src [cin][H][W] on the RH x RW region at image pixel (y0, x0), x0
+// odd -> shared NHWC pixel rows of C channels (cin <= C) at pitch P. An item
+// is two channels of two pixels (two 4-byte loads from the even column
+// x0 - 1 + 2j, W even), up to nine items' loads in flight per thread; zero
+// outside the image and past cin.
+template <int C, int P, int RH, int RW>
+__device__ __forceinline__ void load_nchw(bf16* dst, const bf16* src, int cin, int H, int W, int y0,
+                                          int x0) {
+  constexpr int NJ = (RW + 2) / 2, NI = RH * NJ, N = NI * (C / 2);
+  constexpr int U = cdiv(N, kThreads) < 9 ? cdiv(N, kThreads) : 9;
+  const size_t plane = static_cast<size_t>(H) * W;
+  for (int i0 = threadIdx.x; i0 < N; i0 += U * kThreads) {
+    uint32_t a[U], b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      const int q = i % NI, c = 2 * (i / NI);
+      const int y = y0 + q / NJ, x = x0 - 1 + 2 * (q % NJ);
+      a[u] = b[u] = 0u;
+      if (i < N && c < cin && y >= 0 && y < H && x >= 0 && x < W) {
+        const uint32_t* p =
+            reinterpret_cast<const uint32_t*>(src + c * plane + static_cast<size_t>(y) * W + x);
+        a[u] = __ldg(p);                            // channel c, pixels x and x+1
+        if (c + 1 < cin) b[u] = __ldg(p + plane / 2);  // channel c+1
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i >= N) continue;
+      const int q = i % NI, c = 2 * (i / NI);
+      const int r = q / NJ, col = 2 * (q % NJ) - 1;
+      if (col >= 0) store2(dst + (r * RW + col) * P + c, __byte_perm(a[u], b[u], 0x5410));
+      if (col + 1 < RW) store2(dst + (r * RW + col + 1) * P + c, __byte_perm(a[u], b[u], 0x7632));
+    }
+  }
+}
+
+// One depth step's tensors; a phase reads the states of parity d&1 (h1, h2)
+// and writes those of the other (h1n, h2n).
+struct Step {
+  const bf16* x;  // volume slice [B][cin][h][w]
+  const bf16* h1;  // [B][h][w][b]
+  const bf16* h2;  // [B][h/2][w/2][2b]
+  bf16* h1n;
+  bf16* h2n;
+  bf16* cost;  // cost slice [B][oh][ow]
+  int cin, h, w;
+  int first;  // d == 0: h1 and h2 read as zero
+};
+
+struct Weights {
+  const uint32_t *c1, *g1, *n1, *c2, *g2, *n2, *u1;  // B fragments; u1: its four phases in turn
+  const float *bg1, *bn1, *bg2, *bn2, *bu1;       // biases, float32
+  const float *wh, *bh;                           // head [(ci, ky, kx)] and its bias, float32
+};
+
+// ---- phase A: c1, GRU1 at full resolution ----
+
+// CP: the volume's channels in shared memory (tc_width)
+template <int BASE, int CP>
+struct LayoutA {
+  // 16x32 where shared memory still holds two blocks per SM, else 16x16
+  static constexpr int TY = 16, TX = CP == 8 ? 32 : 16;
+  static constexpr int C2 = 2 * BASE;  // [c1 | h1] channels
+  static constexpr int XH = TY + 6, XW = TX + 6, PX = pitch(CP);
+  static constexpr int GH = TY + 4, GW = TX + 4, PG = pitch(C2);
+  static constexpr int NH = TY + 2, NW = TX + 2;
+  static constexpr int NT1 = (BASE + 7) / 8, NTG = C2 / 8;
+  static constexpr int XS = XH * XW * PX, GS = GH * GW * PG, NS = NH * NW * PG;
+  static constexpr size_t bytes = (XS + GS + NS) * sizeof(bf16) + TY * TX * BASE * sizeof(float);
+};
+
+template <int BASE, int CP>
+__global__ void __launch_bounds__(kThreads, 2) phase_a(Step st, Weights wt) {
+  using L = LayoutA<BASE, CP>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);          // x on the tile + 3
+  bf16* gs = xs + L::XS;                             // [c1 | h1] on the tile + 2
+  bf16* ns = gs + L::GS;                             // [c1 | r*h1] on the tile + 1
+  float* us = reinterpret_cast<float*>(ns + L::NS);  // u on the tile
+  const int bi = blockIdx.z, Y0 = blockIdx.y * L::TY, X0 = blockIdx.x * L::TX;
+  const int h = st.h, w = st.w;
+  const size_t hw = static_cast<size_t>(h) * w;
+
+  load_nhwc<BASE, BASE, BASE, L::PG, L::GH, L::GW>(gs, st.h1 + bi * hw * BASE, h, w, Y0 - 2, X0 - 2,
+                                                  st.first);
+  cp_commit();
+  load_nchw<CP, L::PX, L::XH, L::XW>(xs, st.x + bi * st.cin * hw, st.cin, h, w, Y0 - 3, X0 - 3);
+  __syncthreads();
+
+  // c1 = relu(conv1(x)) on the tile + 2, zero outside the image
+  gemm<Conv3Taps, CP / 8, L::PX, L::XW, L::GW, 1, L::NT1, BASE, L::GH * L::GW>(
+      xs, wt.c1, nullptr, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::GW, px = m % L::GW;
+        const int y = Y0 - 2 + py, x = X0 - 2 + px;
+        const bool in = y >= 0 && y < h && x >= 0 && x < w;
+        const uint32_t v = in ? pack2(fmaxf(v0, 0.f), fmaxf(v1, 0.f)) : 0u;
+        store2(gs + m * L::PG + n, v);
+        if (py >= 1 && py <= L::NH && px >= 1 && px <= L::NW)
+          store2(ns + ((py - 1) * L::NW + px - 1) * L::PG + n, v);
+      });
+  cp_wait<0>();  // h1
+  __syncthreads();
+
+  // gates on the tile + 1: r*h1 beside c1, u on the tile
+  gemm<Conv3Taps, L::C2 / 8, L::PG, L::GW, L::NW, 1, L::NTG, 2 * BASE, L::NH * L::NW>(
+      gs, wt.g1, wt.bg1, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::NW, px = m % L::NW;
+        if (n < BASE) {
+          const float2 hv = unpack2(gs + ((py + 1) * L::GW + px + 1) * L::PG + BASE + n);
+          store2(ns + m * L::PG + BASE + n, pack2(sigmoid(v0) * hv.x, sigmoid(v1) * hv.y));
+        } else if (py >= 1 && py <= L::TY && px >= 1 && px <= L::TX) {
+          *reinterpret_cast<float2*>(us + ((py - 1) * L::TX + px - 1) * BASE + n - BASE) =
+              make_float2(sigmoid(v0), sigmoid(v1));
+        }
+      });
+  __syncthreads();
+
+  // candidate on the tile; h1' = u h1 + (1 - u) c
+  bf16* h1n = st.h1n + bi * hw * BASE;
+  gemm<Conv3Taps, L::C2 / 8, L::PG, L::NW, L::TX, 1, L::NT1, BASE, L::TY * L::TX>(
+      ns, wt.n1, wt.bn1, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::TX, px = m % L::TX;
+        const int y = Y0 + py, x = X0 + px;
+        if (y >= h || x >= w) return;
+        const float2 hv = unpack2(gs + ((py + 2) * L::GW + px + 2) * L::PG + BASE + n);
+        const float2 u = *reinterpret_cast<const float2*>(us + m * BASE + n);
+        const float c0 = tanh_approx(v0), c1 = tanh_approx(v1);
+        store2(h1n + (static_cast<size_t>(y) * w + x) * BASE + n,
+               pack2(u.x * hv.x + (1.f - u.x) * c0, u.y * hv.y + (1.f - u.y) * c1));
+      });
+}
+
+// ---- phase B: c2, GRU2 at half resolution ----
+
+template <int BASE>
+struct LayoutB {
+  static constexpr int TY = 16, TX = 16;  // half-resolution tile
+  static constexpr int C2 = 2 * BASE, C4 = 4 * BASE;
+  static constexpr int RH = 2 * TY + 9, RW = 2 * TX + 9, P1 = pitch(8);  // h1' footprint
+  static constexpr int GH = TY + 4, GW = TX + 4, PG = pitch(C4);          // [c2 | h2]
+  static constexpr int NH = TY + 2, NW = TX + 2;                          // [c2 | r*h2]
+  static constexpr int NTC = C2 / 8, NTG = C4 / 8;
+  static constexpr int RS = RH * RW * P1, GS = GH * GW * PG, NS = NH * NW * PG;
+  static constexpr size_t bytes = (RS + GS + NS) * sizeof(bf16) + TY * TX * C2 * sizeof(float);
+};
+
+template <int BASE>
+__global__ void __launch_bounds__(kThreads, 2) phase_b(Step st, Weights wt) {
+  using L = LayoutB<BASE>;
+  constexpr int C2 = L::C2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* rs = reinterpret_cast<bf16*>(smem);  // h1' on the tile's footprint
+  bf16* gs = rs + L::RS;                     // [c2 | h2] on the tile + 2
+  bf16* ns = gs + L::GS;                     // [c2 | r*h2] on the tile + 1
+  float* us = reinterpret_cast<float*>(ns + L::NS);
+  const int bi = blockIdx.z, Y0 = blockIdx.y * L::TY, X0 = blockIdx.x * L::TX;
+  const int h = st.h, w = st.w, hh = h / 2, wh = w / 2;
+  const size_t hw = static_cast<size_t>(h) * w, qw = static_cast<size_t>(hh) * wh;
+
+  // half pixel Y reads full rows 2Y-1 .. 2Y+1; for Y in [Y0-2, Y0+TY+2) that is
+  // rows 2Y0-5 .. 2Y0+2TY+3
+  load_nhwc<BASE, 8, 0, L::P1, L::RH, L::RW>(rs, st.h1n + bi * hw * BASE, h, w, 2 * Y0 - 5,
+                                            2 * X0 - 5, false);
+  cp_commit();
+  load_nhwc<C2, C2, C2, L::PG, L::GH, L::GW>(gs, st.h2 + bi * qw * C2, hh, wh, Y0 - 2, X0 - 2,
+                                            st.first);
+  cp_commit();
+  cp_wait<1>();  // h1'
+  __syncthreads();
+
+  // c2 = relu(conv2 stride 2(h1')) on the tile + 2, zero outside the half image
+  gemm<Conv3Taps, 1, L::P1, L::RW, L::GW, 2, L::NTC, C2, L::GH * L::GW>(
+      rs, wt.c2, nullptr, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::GW, px = m % L::GW;
+        const int y = Y0 - 2 + py, x = X0 - 2 + px;
+        const bool in = y >= 0 && y < hh && x >= 0 && x < wh;
+        const uint32_t v = in ? pack2(fmaxf(v0, 0.f), fmaxf(v1, 0.f)) : 0u;
+        store2(gs + m * L::PG + n, v);
+        if (py >= 1 && py <= L::NH && px >= 1 && px <= L::NW)
+          store2(ns + ((py - 1) * L::NW + px - 1) * L::PG + n, v);
+      });
+  cp_wait<0>();  // h2
+  __syncthreads();
+
+  gemm<Conv3Taps, L::C4 / 8, L::PG, L::GW, L::NW, 1, L::NTG, L::C4, L::NH * L::NW>(
+      gs, wt.g2, wt.bg2, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::NW, px = m % L::NW;
+        if (n < C2) {
+          const float2 hv = unpack2(gs + ((py + 1) * L::GW + px + 1) * L::PG + C2 + n);
+          store2(ns + m * L::PG + C2 + n, pack2(sigmoid(v0) * hv.x, sigmoid(v1) * hv.y));
+        } else if (py >= 1 && py <= L::TY && px >= 1 && px <= L::TX) {
+          *reinterpret_cast<float2*>(us + ((py - 1) * L::TX + px - 1) * C2 + n - C2) =
+              make_float2(sigmoid(v0), sigmoid(v1));
+        }
+      });
+  __syncthreads();
+
+  bf16* h2n = st.h2n + bi * qw * C2;
+  gemm<Conv3Taps, L::C4 / 8, L::PG, L::NW, L::TX, 1, L::NTC, C2, L::TY * L::TX>(
+      ns, wt.n2, wt.bn2, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::TX, px = m % L::TX;
+        const int y = Y0 + py, x = X0 + px;
+        if (y >= hh || x >= wh) return;
+        const float2 hv = unpack2(gs + ((py + 2) * L::GW + px + 2) * L::PG + C2 + n);
+        const float2 u = *reinterpret_cast<const float2*>(us + m * C2 + n);
+        const float c0 = tanh_approx(v0), c1 = tanh_approx(v1);
+        store2(h2n + (static_cast<size_t>(y) * wh + x) * C2 + n,
+               pack2(u.x * hv.x + (1.f - u.x) * c0, u.y * hv.y + (1.f - u.y) * c1));
+      });
+}
+
+// ---- phase C: u1 and the head ----
+
+template <int BASE, int UP>
+struct LayoutC {
+  // even, so the half origin is whole; the 2x head's outputs favour the shorter tile
+  static constexpr int TY = UP ? 16 : 32, TX = 32;
+  static constexpr int C2 = 2 * BASE, G = C2 / 8;
+  static constexpr int UH = TY + 2, UW = TX + 2, PU = 8;                  // u1, h1' on the tile + 1
+  static constexpr int QH = TY / 2 + 2, QW = TX / 2 + 2, PQ = pitch(C2);  // h2'
+  static constexpr int SH = TY / 2 + 1, SW = TX / 2 + 1;  // pixels of one output phase
+  // fragment words of the four output phases' GEMMs, which follow each other
+  static constexpr int F00 = frag_words<G>(1, 1), F01 = frag_words<G>(2, 1);
+  static constexpr int F10 = frag_words<G>(2, 1);
+  static constexpr int US = UH * UW * PU, QS = QH * QW * PQ;
+  static constexpr size_t bytes = (2 * US + QS) * sizeof(bf16) + 9 * BASE * sizeof(float);
+};
+
+// u1 = relu(deconv(h2') + b + h1') at the region pixels of output phase (A, C)
+template <int BASE, int UP, int A, int C>
+__device__ __forceinline__ void u1_phase(const bf16* qs, const bf16* hs, bf16* us, const uint32_t* wf,
+                                         const float* bias, int Y0, int X0, int h, int w) {
+  using L = LayoutC<BASE, UP>;
+  gemm<DeconvTaps<A, C>, L::G, L::PQ, L::QW, L::SW, 1, 1, BASE, L::SH * L::SW>(
+      qs, wf, bias, [&](int m, int n, float v0, float v1) {
+        const int py = 2 * (m / L::SW) + 1 - A, px = 2 * (m % L::SW) + 1 - C;
+        const int y = Y0 - 1 + py, x = X0 - 1 + px;
+        const int o = (py * L::UW + px) * L::PU + n;
+        uint32_t v = 0u;
+        if (y >= 0 && y < h && x >= 0 && x < w) {
+          const float2 sk = unpack2(hs + o);
+          v = pack2(fmaxf(v0 + sk.x, 0.f), fmaxf(v1 + sk.y, 0.f));
+        }
+        store2(us + o, v);
+      });
+}
+
+template <int BASE, int UP>
+__global__ void __launch_bounds__(kThreads, 2) phase_c(Step st, Weights wt) {
+  using L = LayoutC<BASE, UP>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* hs = reinterpret_cast<bf16*>(smem);  // h1' on the tile + 1
+  bf16* us = hs + L::US;                     // u1 on the tile + 1
+  bf16* qs = us + L::US;                     // h2' around the tile
+  float* whs = reinterpret_cast<float*>(qs + L::QS);
+  const int bi = blockIdx.z, Y0 = blockIdx.y * L::TY, X0 = blockIdx.x * L::TX;
+  const int h = st.h, w = st.w, hh = h / 2, wh = w / 2;
+  const size_t hw = static_cast<size_t>(h) * w, qw = static_cast<size_t>(hh) * wh;
+
+  for (int i = threadIdx.x; i < 9 * BASE / 4; i += kThreads) cp_async<16>(whs + 4 * i, wt.wh + 4 * i, true);
+  load_nhwc<L::C2, L::C2, 0, L::PQ, L::QH, L::QW>(qs, st.h2n + bi * qw * L::C2, hh, wh, Y0 / 2 - 1,
+                                                  X0 / 2 - 1, false);
+  load_nhwc<BASE, BASE, 0, L::PU, L::UH, L::UW>(hs, st.h1n + bi * hw * BASE, h, w, Y0 - 1, X0 - 1,
+                                                false);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  u1_phase<BASE, UP, 0, 0>(qs, hs, us, wt.u1, wt.bu1, Y0, X0, h, w);
+  u1_phase<BASE, UP, 0, 1>(qs, hs, us, wt.u1 + L::F00, wt.bu1, Y0, X0, h, w);
+  u1_phase<BASE, UP, 1, 0>(qs, hs, us, wt.u1 + L::F00 + L::F01, wt.bu1, Y0, X0, h, w);
+  u1_phase<BASE, UP, 1, 1>(qs, hs, us, wt.u1 + L::F00 + L::F01 + L::F10, wt.bu1, Y0, X0, h, w);
+  __syncthreads();
+
+  // the head on the CUDA cores; whs[(ci * 3 + ky) * 3 + kx], u1 at region (py + 1, px + 1)
+  const float bh = __ldg(wt.bh);
+  auto u1_at = [&](int py, int px, float (&v)[8]) {  // u1's channels at region pixel (py, px)
+    const uint4 q = *reinterpret_cast<const uint4*>(us + (py * L::UW + px) * L::PU);
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(words[j] << 16);
+      v[2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
+    }
+  };
+  auto dot = [&](const float (&v)[8], int ky, int kx, float s) {
+#pragma unroll
+    for (int n = 0; n < BASE; ++n) s = fmaf(v[n], whs[(n * 3 + ky) * 3 + kx], s);
+    return s;
+  };
+  for (int i = threadIdx.x; i < L::TY * L::TX; i += kThreads) {
+    const int py = i / L::TX, px = i % L::TX;
+    const int y = Y0 + py, x = X0 + px;
+    if (y >= h || x >= w) continue;
+    float v[8];
+    if constexpr (UP) {
+      // the 2x2 outputs (2y + a, 2x + c): an even output row reads ky=1 at row y, an odd one
+      // ky=2 at y and ky=0 at y+1 (oy = 2 iy - 1 + ky); columns alike
+      float o00 = bh, o01 = bh, o10 = bh, o11 = bh;
+      u1_at(py + 1, px + 1, v);
+      o00 = dot(v, 1, 1, o00), o01 = dot(v, 1, 2, o01), o10 = dot(v, 2, 1, o10), o11 = dot(v, 2, 2, o11);
+      u1_at(py + 1, px + 2, v);
+      o01 = dot(v, 1, 0, o01), o11 = dot(v, 2, 0, o11);
+      u1_at(py + 2, px + 1, v);
+      o10 = dot(v, 0, 1, o10), o11 = dot(v, 0, 2, o11);
+      u1_at(py + 2, px + 2, v);
+      o11 = dot(v, 0, 0, o11);
+      bf16* out = st.cost + static_cast<size_t>(bi) * 4 * hw + (2 * static_cast<size_t>(y)) * 2 * w + 2 * x;
+      store2(out, pack2(o00, o01));
+      store2(out + 2 * w, pack2(o10, o11));
+    } else {
+      float o = bh;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          u1_at(py + ky, px + kx, v);
+          o = dot(v, ky, kx, o);
+        }
+      st.cost[bi * hw + static_cast<size_t>(y) * w + x] = __float2bfloat16_rn(o);
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int BASE, int CP, int UP>
+int run(int cin, int D, int B, int h, int w, const bf16* vol, const Weights& wt, bf16* cost,
+        bf16* scratch, cudaStream_t s) {
+  using LA = LayoutA<BASE, CP>;
+  using LB = LayoutB<BASE>;
+  using LC = LayoutC<BASE, UP>;
+  cudaError_t e;
+  if ((e = allow_smem(phase_a<BASE, CP>, LA::bytes)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = allow_smem(phase_b<BASE>, LB::bytes)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = allow_smem(phase_c<BASE, UP>, LC::bytes)) != cudaSuccess) return static_cast<int>(e);
+  const int hh = h / 2, wh = w / 2;
+  const size_t n1 = static_cast<size_t>(B) * h * w * BASE;
+  const size_t n2 = static_cast<size_t>(B) * hh * wh * 2 * BASE;
+  bf16* h1[2] = {scratch, scratch + n1};
+  bf16* h2[2] = {scratch + 2 * n1, scratch + 2 * n1 + n2};
+  const dim3 ga(cdiv(w, LA::TX), cdiv(h, LA::TY), B);
+  const dim3 gb(cdiv(wh, LB::TX), cdiv(hh, LB::TY), B);
+  const dim3 gc(cdiv(w, LC::TX), cdiv(h, LC::TY), B);
+  const size_t out = static_cast<size_t>(B) * h * w * (UP ? 4 : 1);
+  for (int d = 0; d < D; ++d) {
+    const int p = d & 1;
+    const Step st{vol + static_cast<size_t>(d) * B * cin * h * w, h1[p], h2[p], h1[1 - p], h2[1 - p],
+                  cost + d * out, cin, h, w, d == 0};
+    phase_a<BASE, CP><<<ga, kThreads, LA::bytes, s>>>(st, wt);
+    phase_b<BASE><<<gb, kThreads, LB::bytes, s>>>(st, wt);
+    phase_c<BASE, UP><<<gc, kThreads, LC::bytes, s>>>(st, wt);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+template <int BASE, int CP>
+int run_up(int cin, int up, int D, int B, int h, int w, const bf16* vol, const Weights& wt,
+           bf16* cost, bf16* scratch, cudaStream_t s) {
+  return up ? run<BASE, CP, 1>(cin, D, B, h, w, vol, wt, cost, scratch, s)
+            : run<BASE, CP, 0>(cin, D, B, h, w, vol, wt, cost, scratch, s);
+}
+
+template <int BASE>
+int run_cin(int cin, int up, int D, int B, int h, int w, const bf16* vol, const Weights& wt,
+            bf16* cost, bf16* scratch, cudaStream_t s) {
+  if (cin < 1) return adamvs::kBadChannels;
+  if (cin <= 8) return run_up<BASE, 8>(cin, up, D, B, h, w, vol, wt, cost, scratch, s);
+  if (cin <= 16) return run_up<BASE, 16>(cin, up, D, B, h, w, vol, wt, cost, scratch, s);
+  if (cin <= 32) return run_up<BASE, 32>(cin, up, D, B, h, w, vol, wt, cost, scratch, s);
+  if (cin <= 64) return run_up<BASE, 64>(cin, up, D, B, h, w, vol, wt, cost, scratch, s);
+  return adamvs::kBadChannels;
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// K3: the whole recurrence of one stage. Returns 0 or the first launch error.
-extern "C" int adamvs_red_scan(int dtype, int base, int cin, int up, int D, int B, int h, int w,
-                               const void* vol, const void* wc1, const void* wg1, const void* bg1,
-                               const void* wn1, const void* bn1, const void* wc2, const void* wg2,
-                               const void* bg2, const void* wn2, const void* bn2, const void* wu1,
-                               const void* bu1, const void* wh, const void* bh, void* cost,
-                               void* scratch, void* stream) {
+// K3 in float32: the whole recurrence of one stage. weights: wc1, wg1, bg1,
+// wn1, bn1, wc2, wg2, bg2, wn2, bn2, wu1, bu1, wh, bh (ops/red_scan.py::
+// pack_red_weights). Returns 0 or the first launch error.
+extern "C" int adamvs_red_scan_f32(int base, int cin, int up, int D, int B, int h, int w,
+                                   const void* vol, const void* wc1, const void* wg1,
+                                   const void* bg1, const void* wn1, const void* bn1,
+                                   const void* wc2, const void* wg2, const void* bg2,
+                                   const void* wn2, const void* bn2, const void* wu1,
+                                   const void* bu1, const void* wh, const void* bh, void* cost,
+                                   void* scratch, void* stream) {
   const float* wt[14] = {
       static_cast<const float*>(wc1), static_cast<const float*>(wg1),
       static_cast<const float*>(bg1), static_cast<const float*>(wn1),
@@ -246,9 +905,44 @@ extern "C" int adamvs_red_scan(int dtype, int base, int cin, int up, int D, int 
       static_cast<const float*>(wn2), static_cast<const float*>(bn2),
       static_cast<const float*>(wu1), static_cast<const float*>(bu1),
       static_cast<const float*>(wh), static_cast<const float*>(bh)};
+  const float* v = static_cast<const float*>(vol);
+  float* c = static_cast<float*>(cost);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == adamvs::kFloat32) return run_base<float>(base, cin, up, D, B, h, w, vol, wt, cost, scratch, s);
-  if (dtype == adamvs::kBFloat16)
-    return run_base<__nv_bfloat16>(base, cin, up, D, B, h, w, vol, wt, cost, scratch, s);
-  return adamvs::kBadDtype;
+  switch (base) {
+    case 4: return f32::run<4>(cin, up, D, B, h, w, v, wt, c, sc, s);
+    case 8: return f32::run<8>(cin, up, D, B, h, w, v, wt, c, sc, s);
+    default: return adamvs::kBadBase;
+  }
+}
+
+// K3 in bfloat16 on the tensor cores: the whole recurrence of one stage, three
+// launches per depth step. Fragments wc1, wg1, wn1, wc2, wg2, wn2, wu1 and
+// float32 bg1, bn1, bg2, bn2, bu1, wh, bh (ops/red_scan.py::
+// pack_red_fragments). Returns 0 or the first launch error.
+extern "C" int adamvs_red_scan_bf16(int base, int cin, int up, int D, int B, int h, int w,
+                                    const void* vol, const void* wc1, const void* wg1,
+                                    const void* wn1, const void* wc2, const void* wg2,
+                                    const void* wn2, const void* wu1, const void* bg1,
+                                    const void* bn1, const void* bg2, const void* bn2,
+                                    const void* bu1, const void* wh, const void* bh, void* cost,
+                                    void* scratch, void* stream) {
+  using tc::bf16;
+  const tc::Weights wt{
+      static_cast<const uint32_t*>(wc1), static_cast<const uint32_t*>(wg1),
+      static_cast<const uint32_t*>(wn1), static_cast<const uint32_t*>(wc2),
+      static_cast<const uint32_t*>(wg2), static_cast<const uint32_t*>(wn2),
+      static_cast<const uint32_t*>(wu1), static_cast<const float*>(bg1),
+      static_cast<const float*>(bn1), static_cast<const float*>(bg2),
+      static_cast<const float*>(bn2), static_cast<const float*>(bu1),
+      static_cast<const float*>(wh), static_cast<const float*>(bh)};
+  const bf16* v = static_cast<const bf16*>(vol);
+  bf16* c = static_cast<bf16*>(cost);
+  bf16* sc = static_cast<bf16*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (base) {
+    case 4: return tc::run_cin<4>(cin, up, D, B, h, w, v, wt, c, sc, s);
+    case 8: return tc::run_cin<8>(cin, up, D, B, h, w, v, wt, c, sc, s);
+    default: return adamvs::kBadBase;
+  }
 }

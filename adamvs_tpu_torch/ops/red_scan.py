@@ -3,9 +3,22 @@
 Counterpart of ``adamvs_tpu/ops/red_scan.py::ada_red_scan``: the recurrent
 regulariser of one stage run over all D slices of the fused volume, giving
 the regularised cost volume [D,B,oh,ow] (oh = 2h when the cell's ``up``).
-The CUDA kernel is ``csrc/red_scan.cu`` (a host loop over depth of direct
-convolution kernels, see the note there); the plain version steps the
-port's ``AdaRedCell`` module over D.
+The plain version steps the port's ``AdaRedCell`` module over D.
+
+The CUDA kernel is ``csrc/red_scan.cu`` (see the note there). It is bound by
+its convolutions' operations, so its bfloat16 form, the inference path, runs
+them on the tensor cores: three fused launches per depth step, one for each
+level of the cell (phase A: c1 and GRU1 at full resolution; phase B: the
+stride-2 c2 and GRU2 at half resolution; phase C: the transposed convolution
+with the skip, and the head). Every tile recomputes its halo, so a phase
+reads its neighbours' GRU states, and the states ping-pong between two
+buffers by depth parity instead of being updated in place. Each convolution
+is an implicit GEMM whose weights ``pack_red_fragments`` lays out in the
+order of the ``mma`` B fragments, once for as long as the weights do not
+change (``_packed_weights``). Its float32 form, which only
+the trainer's eval step and the float32 checks run, keeps the first port's
+direct convolutions in float32 (``pack_red_weights``): TF32 tensor cores
+would break its 1e-4 agreement. The wrapper dispatches on the dtype.
 
 A wrapper takes the plain version for CPU tensors. For CUDA tensors it
 launches the kernel or raises.
@@ -14,15 +27,20 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import torch
 
 from ..kernels import build
 from ..nn.costreg import AdaRedCell
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BASES = (4, 8)
-_SMEM_LIMIT = 48 * 1024
+_TC_WIDTHS = (8, 16, 32, 64)  # input widths of the tensor-core form's instances
+_SMEM_LIMIT = 48 * 1024  # shared memory of the float32 form's weights
+# taps of a stride-2 transposed convolution's output phase by its parity: an
+# even output row 2i reads ky=1 at input row i, an odd one ky=2 at row i and
+# ky=0 at row i+1 (oy = 2 iy - 1 + ky)
+DECONV_TAPS = {0: (1,), 1: (2, 0)}
 
 
 def red_scan_ref(cell: AdaRedCell, vol: torch.Tensor) -> torch.Tensor:
@@ -53,9 +71,9 @@ def _bias(conv) -> torch.Tensor:
 
 
 def pack_red_weights(cell: AdaRedCell) -> list[torch.Tensor]:
-    """The cell's weights in the order and layout the kernel reads: wc1, wg1,
-    bg1, wn1, bn1, wc2, wg2, bg2, wn2, bn2, wu1, bu1, wh, bh; each conv as
-    float32 [(ci, ky, kx), co]."""
+    """The cell's weights in the order and layout the float32 kernel reads:
+    wc1, wg1, bg1, wn1, bn1, wc2, wg2, bg2, wn2, bn2, wu1, bu1, wh, bh; each
+    conv as float32 [(ci, ky, kx), co]."""
     g1, c1 = cell.conv_gru1.conv_gates[0], cell.conv_gru1.convc[0]
     g2, c2 = cell.conv_gru2.conv_gates[0], cell.conv_gru2.convc[0]
     head = cell.upconv2d
@@ -69,10 +87,112 @@ def pack_red_weights(cell: AdaRedCell) -> list[torch.Tensor]:
     ]
 
 
+def _groups(channels: int) -> int:
+    """8-channel K slices of a GEMM input of ``channels`` channels."""
+    return -(-channels // 8)
+
+
+def tc_width(cin: int) -> int | None:
+    """The channels the tensor-core form holds a volume of ``cin`` channels
+    in: the next of ``_TC_WIDTHS``, zero past ``cin``; None above them all."""
+    return next((c for c in _TC_WIDTHS if c >= cin), None)
+
+
+def conv_gemm_weights(weight: torch.Tensor, groups: int | None = None) -> torch.Tensor:
+    """A 3x3 Conv2d weight [co, ci, 3, 3] as the dense GEMM operand B
+    [9 * 8G, co]: row ((ky * 3 + kx) * G + g) * 8 + j holds input channel
+    8g + j of tap (ky, kx), zero past ci (G = ``groups``, by default
+    ceil(ci / 8))."""
+    co, ci = weight.shape[:2]
+    dense = weight.new_zeros((3, 3, 8 * (groups or _groups(ci)), co))
+    dense[:, :, :ci] = weight.permute(2, 3, 1, 0)
+    return dense.reshape(-1, co)
+
+
+def deconv_gemm_weights(weight: torch.Tensor, a: int, c: int) -> torch.Tensor:
+    """The GEMM operand B of output phase (a, c), the parities of the output
+    row and column, of a stride-2 ConvTranspose2d weight [ci, co, 3, 3]: its
+    taps (``DECONV_TAPS``, rows major) in turn, 8G rows each as in
+    ``conv_gemm_weights``."""
+    ci, co = weight.shape[:2]
+    taps = [(ky, kx) for ky in DECONV_TAPS[a] for kx in DECONV_TAPS[c]]
+    dense = weight.new_zeros((len(taps), 8 * _groups(ci), co))
+    for t, (ky, kx) in enumerate(taps):
+        dense[t, :ci] = weight[:, :, ky, kx]
+    return dense.reshape(-1, co)
+
+
+def mma_fragments(dense: torch.Tensor, groups: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """A dense GEMM operand B [K, N] over taps of ``groups`` 8-channel slices
+    each (``conv_gemm_weights``) in the order of the ``mma`` B fragments, N
+    padded to a multiple of 8 with zeros, in ``dtype``. With one slice per tap
+    the kernel runs one m16n8k8 step per tap: [K/8, N/8, 32 lanes, 2], lane l
+    of step s and n-tile t holding B[8s + 2(l % 4) + e, 8t + l // 4] for
+    e = 0, 1. Otherwise m16n8k16 steps over two slices of a tap: [K/16, N/8,
+    32, 4], those 8 rows and then the 8 after them."""
+    K, N = dense.shape
+    k = 8 if groups == 1 else 16
+    ks, nt = K // k, -(-N // 8)
+    pad = dense.new_zeros((K, 8 * nt))
+    pad[:, :N] = dense
+    if k == 8:  # row 8s + 2q + e, column 8t + g -> [s, t, lane = 4g + q, e]
+        frag = pad.reshape(ks, 4, 2, nt, 8).permute(0, 3, 4, 1, 2)
+    else:  # row 16s + 8r + 2q + e -> [s, t, lane = 4g + q, 2r + e]
+        frag = pad.reshape(ks, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3)
+    return frag.reshape(ks, nt, 32, -1).to(dtype).contiguous()
+
+
+def pack_red_fragments(cell: AdaRedCell, dtype=torch.bfloat16) -> list[torch.Tensor]:
+    """The cell's weights in the order and layout the tensor-core kernel
+    reads: the B fragments (``mma_fragments``, rounded to ``dtype``) of conv1
+    (over ``tc_width`` input channels), the GRU1 gates and candidate, conv2,
+    the GRU2 gates and candidate, and the four output phases of upconv1 concatenated along their steps in the
+    order (0, 0), (0, 1), (1, 0), (1, 1); then float32 bg1, bn1, bg2, bn2, bu1,
+    the head [(ci, ky, kx)] rounded to ``dtype``, and its bias."""
+    g1, c1 = cell.conv_gru1.conv_gates[0], cell.conv_gru1.convc[0]
+    g2, c2 = cell.conv_gru2.conv_gates[0], cell.conv_gru2.convc[0]
+    head = cell.upconv2d
+
+    def conv(m, groups=None):
+        w = m.weight.detach().float()
+        groups = groups or _groups(w.shape[1])
+        return mma_fragments(conv_gemm_weights(w, groups), groups, dtype)
+
+    up1 = cell.upconv1.weight.detach().float()
+    phases = [mma_fragments(deconv_gemm_weights(up1, a, c), _groups(up1.shape[0]), dtype)
+              for a in (0, 1) for c in (0, 1)]
+    wh = (_deconv_w(head) if cell.up else _conv_w(head)).to(dtype).float()
+    return [
+        conv(cell.conv1.conv, tc_width(cell.conv1.conv.weight.shape[1]) // 8),
+        conv(g1), conv(c1), conv(cell.conv2.conv), conv(g2), conv(c2),
+        torch.cat(phases), _bias(g1), _bias(c1), _bias(g2), _bias(c2), _bias(cell.upconv1),
+        wh.contiguous(), _bias(head),
+    ]
+
+
+# the packed weights of each cell the kernel ran with, and the key they were packed under
+_PACKED: "weakref.WeakKeyDictionary[AdaRedCell, tuple]" = weakref.WeakKeyDictionary()
+
+
+def _packed_weights(cell: AdaRedCell, dtype) -> list[torch.Tensor]:
+    """``pack_red_fragments`` (bf16) or ``pack_red_weights`` (float32) of
+    ``cell``, packed again only when a parameter's storage or version counter
+    has changed: packing is about a hundred small tensor operations,
+    milliseconds of host time per call. Optimizer steps and
+    ``load_state_dict`` bump the counters; a write through ``.data`` does not
+    and is not seen."""
+    key = (dtype, *((p.data_ptr(), p._version) for p in cell.parameters()))
+    hit = _PACKED.get(cell)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_red_fragments(cell) if dtype == torch.bfloat16 else pack_red_weights(cell))
+        _PACKED[cell] = hit
+    return hit[1]
+
+
 @functools.cache
-def _entry():
+def _entry(name: str):
     lib = build.load_library("red_scan")
-    return lib, build.bind(lib, "adamvs_red_scan", n_ptr=17, n_int=8)
+    return lib, build.bind(lib, name, n_ptr=17, n_int=7)
 
 
 def red_scan(cell: AdaRedCell, vol: torch.Tensor) -> torch.Tensor:
@@ -82,25 +202,30 @@ def red_scan(cell: AdaRedCell, vol: torch.Tensor) -> torch.Tensor:
         return red_scan_ref(cell, vol)
     if vol.device.type != "cuda":
         raise ValueError(f"red_scan takes CUDA tensors, got {vol.device}")
-    if vol.dtype not in _DTYPE_CODE or vol.ndim != 5 or not vol.is_contiguous():
+    if vol.dtype not in (torch.float32, torch.bfloat16) or vol.ndim != 5 or not vol.is_contiguous():
         raise ValueError(f"vol must be a contiguous float32/bfloat16 [D,B,C,h,w], got "
                          f"{vol.dtype} {tuple(vol.shape)}")
     D, B, cin, h, w = vol.shape
     b = cell.base
-    if b not in _BASES or h % 2 or w % 2 or cin * 9 * b * 4 > _SMEM_LIMIT:
-        raise ValueError(f"unsupported red_scan shape: base {b}, cin {cin}, h {h}, w {w}")
-    weights = pack_red_weights(cell)
+    tc = vol.dtype == torch.bfloat16
+    fits = tc_width(cin) is not None if tc else cin * 9 * b * 4 <= _SMEM_LIMIT
+    if b not in _BASES or h % 2 or w % 2 or not fits:
+        raise ValueError(f"unsupported red_scan shape: base {b}, cin {cin}, h {h}, w {w}, "
+                         f"{vol.dtype}")
+    weights = _packed_weights(cell, vol.dtype)
     if any(t.device != vol.device for t in weights):
         raise ValueError("cell weights and volume must be on one device")
     oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
     cost = torch.empty((D, B, oh, ow), dtype=vol.dtype, device=vol.device)
     n1 = B * b * h * w
     n2 = B * 2 * b * (h // 2) * (w // 2)
-    scratch = torch.empty(5 * n1 + 4 * n2, dtype=vol.dtype, device=vol.device)
-    lib, fn = _entry()
-    err = fn(_DTYPE_CODE[vol.dtype], b, cin, int(cell.up), D, B, h, w,
-             vol.data_ptr(), *(t.data_ptr() for t in weights), cost.data_ptr(),
-             scratch.data_ptr(), torch.cuda.current_stream(vol.device).cuda_stream)
+    # bf16: the two GRU state sets of the ping-pong; float32: the states and
+    # the seven intermediates of the direct kernels
+    scratch = torch.empty(2 * (n1 + n2) if tc else 5 * n1 + 4 * n2, dtype=vol.dtype,
+                          device=vol.device)
+    lib, fn = _entry("adamvs_red_scan_bf16" if tc else "adamvs_red_scan_f32")
+    err = fn(b, cin, int(cell.up), D, B, h, w, vol.data_ptr(), *(t.data_ptr() for t in weights),
+             cost.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(vol.device).cuda_stream)
     build.check(lib, err, "red_scan")
     red_scan.launches += 1
     return cost

@@ -9,17 +9,22 @@ Phases, in order; any failure exits nonzero:
 
 1. device: the card's name and power limit;
 2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source;
+   the count of tensor-core instructions (HMMA, HGMMA) in the red_scan
+   library's SASS, which must not be 0;
 3. kernels: K1 (corr sweep), K2 (fused sweep), K3 (red-scan recurrence), K4
    (variance sweep) and K6/K7 (bilinear sampler, one hypothesis slice per
    source view) against their plain PyTorch versions at every stage shape
    of the inference paths (2752x1856 frames, V=5, ndepths 48/32/8, base 8),
    in float32 with TF32 off and in bfloat16, with their times (CUDA events,
-   median) and, for K6/K7, F.grid_sample's; then K5, the backward of the
-   sweeps in its three modes (corr, fused, var), against the autograd VJP of
-   the plain volumes at the training stage shapes (384x768 crop), float32
-   and bfloat16, timed in float32; then all of them again at small ragged
-   shapes (batch 2, rotated views, samples behind the camera and outside the
-   image), float32;
+   median) and, for K6/K7, F.grid_sample's; for K3 also its TFLOP/s, the
+   bytes its phases move, the card's time in each phase (a trace) and its
+   bf16 error against the float32 plain version (information); then K5, the
+   backward of the sweeps in its three modes (corr, fused, var), against the
+   autograd VJP of the plain volumes at the training stage shapes (384x768
+   crop), float32 and bfloat16, timed in float32; then all of them again at
+   small ragged shapes (batch 2, rotated views, samples behind the camera
+   and outside the image), float32, and K3 at every input width, base, head
+   kind, D 1 and 5, 38x54 and 6x10, float32 and bfloat16;
 4. reference: AdaMVS and MS-REDNet (fused and scan forms) on a small frame,
    kernels on the card against the plain path on the CPU, float32; then one
    train step of each model on that frame, card against CPU (loss, gradient,
@@ -218,6 +223,14 @@ def phase_build() -> None:
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"[build] {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} bytes")
+    # the bf16 K3 must reach the tensor cores: count its matrix instructions in the SASS
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build._lib_path("red_scan")], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
+    log(f"[build] red_scan SASS: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA instructions")
+    if not sum(counts.values()):
+        fail("the red_scan library has no tensor-core instructions")
 
 
 class StageInputs:
@@ -320,7 +333,15 @@ def sample_bound(st: StageInputs, dtype) -> tuple[float, str]:
     return _bound(2 * hw * C * es + 2 * hw * 4, hw * (10 + 8 * C), F32_FLOPS)
 
 
-def red_scan_bound(st: StageInputs, dtype) -> tuple[float, str]:
+def red_scan_work(st: StageInputs, dtype) -> tuple[float, float, float]:
+    """(bytes, operations, a model of the bytes the kernel's design moves) of
+    one K3 call. The least bytes read the volume and write the cost once; the
+    operations count every convolution's multiply-adds as 2. The model adds
+    the carries of the bf16 kernel's three phases per step: phase A reads the
+    volume slice and h1 and writes h1', phase B reads h1' and h2 and writes
+    h2', phase C reads h2' and h1' and writes the cost, so per full-resolution
+    pixel cin + 4b values in and 1.5b + the cost's out (tiles' halos, which L2
+    mostly serves, left out)."""
     es = torch.tensor([], dtype=dtype).element_size()
     b, cin, h, w, D = BASE, st.C, st.h, st.w, st.D
     hw, qw = h * w, (h // 2) * (w // 2)
@@ -330,8 +351,15 @@ def red_scan_bound(st: StageInputs, dtype) -> tuple[float, str]:
                 + hw * b)  # head
     oh, ow = (2 * h, 2 * w) if st.up else (h, w)
     nbytes = D * (cin * hw + oh * ow) * es
-    peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    return _bound(nbytes, 2 * macs * D, peak)
+    moved = nbytes + D * (4 * b * hw + 6 * b * qw) * es
+    return nbytes, 2 * macs * D, moved
+
+
+def red_scan_bound(st: StageInputs, dtype) -> tuple[float, str]:
+    """The least time of one K3 call (``red_scan_work``), its convolutions on
+    the bf16 tensor cores or as float32 FMAs."""
+    nbytes, flops, _ = red_scan_work(st, dtype)
+    return _bound(nbytes, flops, BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
 
 
 def _compare(tag: str, key, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -397,6 +425,13 @@ def phase_kernels(reps: int = 3) -> dict:
                 k3 = lambda: rs.red_scan(cell, vol)
                 p3 = lambda: rs.red_scan_ref(cell, vol)
                 record("K3", tn, _compare(f"K3 stage{si + 1} {tn}", ("K3", dtype), k3(), p3()))
+                if dtype == torch.bfloat16:  # information only: the bf16 kernel against float32
+                    got, want = k3().float(), rs.red_scan_ref(cell32, vol.float())
+                    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+                    log(f"[kernels] K3 stage{si + 1} bf16 kernel against the float32 plain version "
+                        f"on the same volume: max_abs_err {err:.3e} (max|plain| {scale:.3e}, rel "
+                        f"{err / scale:.3e}; information, no limit)")
+                    del got, want
                 k4 = lambda: sf.var_sweep_volume(ref, srcs, *geo)
                 p4 = lambda: sf.var_volume_ref(ref, srcs, *geo)
                 record("K4", tn, _compare(f"K4 stage{si + 1} {tn}", ("K4", dtype), k4(), p4()))
@@ -454,6 +489,19 @@ def phase_kernels(reps: int = 3) -> dict:
                                          "bound_ms": bms, "bound_by": by})
                 log(f"[kernels] {k} stage{si + 1} bf16: {ms:.3f} ms (plain {pms:.3f} ms, "
                     f"bound {bms:.3f} ms by {by})")
+                if k == "K3":
+                    nbytes, flops, moved = red_scan_work(st, torch.bfloat16)
+                    # the card's time in each of the three phase kernels over one call
+                    _, top = device_profile(k3, top=6)
+                    phases = {m.group(0): t for n, t, _ in top
+                              if (m := re.search(r"phase_[abc]", n))}
+                    res[k]["stages"][-1].update(tflops=flops / ms / 1e9, phases_ms=phases)
+                    log(f"[kernels] K3 stage{si + 1} bf16 on the card by phase (ms): "
+                        + ", ".join(f"{n} {t:.3f}" for n, t in sorted(phases.items())))
+                    log(f"[kernels] K3 stage{si + 1} bf16: {flops / ms / 1e9:.2f} TFLOP/s of "
+                        f"{BF16_TC_FLOPS / 1e12:.0f} ({flops / 1e12:.3f} TFLOP); the bound's bytes "
+                        f"{nbytes / 1e9:.3f} GB; the design's traffic by its model, not measured "
+                        f"(the tiles' halos left out): {moved / 1e9:.3f} GB")
             del ref, srcs, vol, uv
         del st
         torch.cuda.empty_cache()
@@ -464,9 +512,12 @@ def phase_edges() -> None:
     """The kernels against their plain versions at small ragged shapes, in
     float32: batch 2, sizes that are no multiple of the thread blocks, an odd
     hypothesis count, rotated views, samples behind the camera and out of
-    the image, both regulariser widths and both head kinds; the sampler at
-    every hypothesis of every view at once (N = D) and at random coordinates
-    past every border; K5 in its three modes on the sweeps' inputs."""
+    the image; the sampler at every hypothesis of every view at once (N = D)
+    and at random coordinates past every border; K5 in its three modes on
+    the sweeps' inputs; K3 at input widths 8, 16 and 32, both regulariser
+    widths and head kinds, D 1 and 5, at 38x54 and at a size below every tile
+    of its bf16 phases, and at the widths 4, 20, 40 and 64 at 38x54 and D 5,
+    in float32 and bfloat16."""
     from adamvs_tpu_torch.nn.blocks import init_parameters
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
     from adamvs_tpu_torch.ops import red_scan as rs
@@ -512,13 +563,25 @@ def phase_edges() -> None:
             u[:, :, :2] = -1e9
             _compare(f"K6/7 edge C{C} random coordinates", ("K6/7", f32),
                      ws.sample_bilinear(srcs[0], u, vv), ws.sample_bilinear_ref(srcs[0], u, vv))
-        for base, up in ((4, True), (8, False), (8, True)):
-            cell = AdaRedCell(16, base, up)
-            init_parameters(cell, torch.Generator().manual_seed(base + up))
-            cell = cell.to(DEV).eval()
-            vol = torch.randn((5, B, 16, h, w), generator=gen, device=DEV)
-            _compare(f"K3 edge base {base} up {up}", ("K3", f32), rs.red_scan(cell, vol),
-                     rs.red_scan_ref(cell, vol))
+        # K3 at every input width of AdaMVS base 8, both regulariser widths and head kinds,
+        # one and five depth steps, at 38x54 (no multiple of any tile) and at 6x10 (smaller
+        # than every tile of the bf16 kernel's phases), in float32 and bf16; then widths the
+        # bf16 kernel pads up to 8, 32 and 64 channels (4 is stage 3's at base 4) and 64
+        for cin in (8, 16, 32, 4, 20, 40, 64):
+            full = cin in (8, 16, 32)
+            for base in (4, 8):
+                for up in (False, True):
+                    cell = AdaRedCell(cin, base, up)
+                    init_parameters(cell, torch.Generator().manual_seed(cin + base + up))
+                    cell = cell.to(DEV).eval()
+                    for eh, ew in ((h, w), (6, 10)) if full else ((h, w),):
+                        for dk in (1, 5) if full else (5,):
+                            vol = torch.randn((dk, B, cin, eh, ew), generator=gen, device=DEV)
+                            for dtype, tn in ((f32, "f32"), (torch.bfloat16, "bf16")):
+                                c, v = copy.deepcopy(cell).to(dtype), vol.to(dtype)
+                                _compare(f"K3 edge cin {cin} base {base} up {up} D {dk} {eh}x{ew} "
+                                         f"{tn}", ("K3", dtype), rs.red_scan(c, v),
+                                         rs.red_scan_ref(c, v))
 
 
 def _k5_calls(mode: str, g, ref, srcs, wn, geo):
