@@ -119,6 +119,39 @@ __device__ __forceinline__ Taps bilinear_tap_set(int H, int W, float u, float v)
   return t;
 }
 
+// The same four taps as integer positions: tap k lies at (x0 + (k & 1),
+// y0 + (k >> 1)) and counts when ok[k]. x0 and y0 are meaningful only where
+// some tap counts (then -1 <= x0 <= W-1, -1 <= y0 <= H-1). The direct
+// gather of the tiled sweeps (sweep_fuse.cu) reads the source with it.
+struct TapGrid {
+  int x0, y0;
+  float w[4];
+  bool ok[4];
+};
+
+__device__ __forceinline__ TapGrid bilinear_tap_grid(int H, int W, float u, float v) {
+  TapGrid t;
+  const float u0 = floorf(u), v0 = floorf(v);
+  const float du = __fsub_rn(u, u0), dv = __fsub_rn(v, v0);
+  const float eu = __fsub_rn(1.f, du), ev = __fsub_rn(1.f, dv);
+  const float u1 = __fadd_rn(u0, 1.f), v1 = __fadd_rn(v0, 1.f);
+  t.w[0] = __fmul_rn(eu, ev);
+  t.w[1] = __fmul_rn(du, ev);
+  t.w[2] = __fmul_rn(eu, dv);
+  t.w[3] = __fmul_rn(du, dv);
+  const float xmax = static_cast<float>(W - 1), ymax = static_cast<float>(H - 1);
+  const bool x0ok = u0 >= 0.f && u0 <= xmax, x1ok = u1 >= 0.f && u1 <= xmax;
+  const bool y0ok = v0 >= 0.f && v0 <= ymax, y1ok = v1 >= 0.f && v1 <= ymax;
+  t.ok[0] = x0ok && y0ok;
+  t.ok[1] = x1ok && y0ok;
+  t.ok[2] = x0ok && y1ok;
+  t.ok[3] = x1ok && y1ok;
+  // clamped so that the conversion is defined for every u, v (NaN included)
+  t.x0 = static_cast<int>(fminf(fmaxf(u0, -1.f), xmax));
+  t.y0 = static_cast<int>(fminf(fmaxf(v0, -1.f), ymax));
+  return t;
+}
+
 // The taps of a sample behind the camera: none.
 __device__ __forceinline__ Taps no_taps() {
   Taps t;

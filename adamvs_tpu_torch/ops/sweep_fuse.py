@@ -3,7 +3,7 @@ training forms with the backward kernel K5, and their plain versions.
 
 Counterpart of ``adamvs_tpu/ops/sweep_fuse.py``. The JAX package builds these
 volumes with one Pallas kernel (``_sweep_kernel``); here they are the CUDA
-kernels of ``csrc/sweep_fuse.cu`` (direct gather, see the note there). The
+kernels of ``csrc/sweep_fuse.cu`` (see the note there). The
 plain versions are built from ``ops/warp.py::plane_sweep_warp`` and compute in
 float32, like the exact forms ``_xla_corr_volume``, ``_xla_fused_volume`` and
 ``_xla_var_volume`` they mirror.
@@ -133,8 +133,8 @@ def _entries():
     lib = build.load_library("sweep_fuse")
     return lib, {
         "corr": build.bind(lib, "adamvs_corr_sweep", n_ptr=6, n_int=9),
-        "fused": build.bind(lib, "adamvs_fused_sweep", n_ptr=7, n_int=9),
-        "var": build.bind(lib, "adamvs_var_sweep", n_ptr=6, n_int=9),
+        "fused": build.bind(lib, "adamvs_fused_sweep", n_ptr=8, n_int=9),
+        "var": build.bind(lib, "adamvs_var_sweep", n_ptr=7, n_int=9),
     }
 
 
@@ -165,6 +165,8 @@ def _check_inputs(ref, srcs, src_projs, ref_proj, lo, step):
     for t in (ref, srcs, lo, step):
         if t.device != ref.device or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous and on one device")
+    if ref.data_ptr() % 16 or srcs.data_ptr() % 16:
+        raise ValueError("features must start on a 16-byte boundary (16-byte vector loads)")
     if src_projs.device != ref.device or ref_proj.device != ref.device:
         raise ValueError("projections must be on the features' device")
     return Vs, B, H, W, C, h, w
@@ -190,12 +192,13 @@ def corr_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int) 
 corr_sweep_volume.launches = 0
 
 
-def fused_sweep_volume(ref, srcs, weights, src_projs, ref_proj, lo, step,
-                       num_depth: int) -> torch.Tensor:
+def fused_sweep_volume(ref, srcs, weights, src_projs, ref_proj, lo, step, num_depth: int,
+                       stats: torch.Tensor | None = None) -> torch.Tensor:
     """K2: [D,B,C,h,w] visibility-weighted volume in the feature dtype (see
-    ``fused_volume_ref``)."""
+    ``fused_volume_ref``). ``stats`` (see ``_stats_ptr``) counts the kernel's
+    source windows."""
     return _fused_sweep(ref, srcs, normalize_weights(weights), src_projs, ref_proj, lo, step,
-                        num_depth)
+                        num_depth, stats)
 
 
 fused_sweep_volume.launches = 0
@@ -209,7 +212,20 @@ def _check_weights(wn, Vs, B, h, w, device):
         raise ValueError(f"normalised weights must be float32, got {wn.dtype}")
 
 
-def _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth: int) -> torch.Tensor:
+def _stats_ptr(stats, device) -> int:
+    """The pointer of an optional int32 [2] CUDA tensor to which a K2 or K4
+    launch adds, per (block, source view), 1 to ``stats[0]`` and, where the
+    view's source window exceeded the block's shared memory and its taps were
+    gathered from device memory, 1 to ``stats[1]``; 0 (none) for None."""
+    if stats is None:
+        return 0
+    if stats.dtype != torch.int32 or tuple(stats.shape) != (2,) or stats.device != device:
+        raise ValueError(f"stats must be int32 [2] on {device}")
+    return stats.data_ptr()
+
+
+def _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth: int,
+                 stats: torch.Tensor | None = None) -> torch.Tensor:
     """K2 on normalised weights ``wn`` [B,Vs,h,w] float32."""
     if ref.device.type == "cpu":
         return fused_volume_wn(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth)
@@ -222,15 +238,17 @@ def _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth: int) -
     err = fns["fused"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
                        ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
                        step.data_ptr(), wn.data_ptr(), out.data_ptr(),
+                       _stats_ptr(stats, ref.device),
                        torch.cuda.current_stream(ref.device).cuda_stream)
     build.check(lib, err, "fused_sweep_volume")
     fused_sweep_volume.launches += 1
     return out
 
 
-def var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int) -> torch.Tensor:
+def var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int,
+                     stats: torch.Tensor | None = None) -> torch.Tensor:
     """K4: [D,B,C,h,w] variance volume in the feature dtype (see
-    ``var_volume_ref``)."""
+    ``var_volume_ref``). ``stats`` as for K2 (``_stats_ptr``)."""
     if ref.device.type == "cpu":
         return var_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth)
     Vs, B, H, W, C, h, w = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
@@ -241,7 +259,7 @@ def var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int) -
     lib, fns = _entries()
     err = fns["var"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
                      ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
-                     step.data_ptr(), out.data_ptr(),
+                     step.data_ptr(), out.data_ptr(), _stats_ptr(stats, ref.device),
                      torch.cuda.current_stream(ref.device).cuda_stream)
     build.check(lib, err, "var_sweep_volume")
     var_sweep_volume.launches += 1

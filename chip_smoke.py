@@ -24,7 +24,12 @@ Phases, in order; any failure exits nonzero:
    crop), float32 and bfloat16, timed in float32; then all of them again at
    small ragged shapes (batch 2, rotated views, samples behind the camera
    and outside the image), float32, and K3 at every input width, base, head
-   kind, D 1 and 5, 38x54 and 6x10, float32 and bfloat16;
+   kind, D 1 and 5, 38x54 and 6x10, float32 and bfloat16; K2 and K4 in
+   float32 and bfloat16 under a blocky hypothesis window and where their
+   source windows exceed shared memory (the direct-gather branch, which the
+   kernels' own counts must show); K2 and K4 are timed over 10 runs, with the
+   share of windows gathered directly and their times under rotated views
+   and a blocky window as information;
 4. reference: AdaMVS and MS-REDNet (fused and scan forms) on a small frame,
    kernels on the card against the plain path on the CPU, float32; then one
    train step of each model on that frame, card against CPU (loss, gradient,
@@ -45,11 +50,15 @@ Phases, in order; any failure exits nonzero:
    more traced step for the card's busy time and its top kernels; then one
    step timed by phase (upload, forward, backward, update);
 6. the kernels line (JSON), the card line, and the final JSON line.
+
+``python3 chip_smoke.py --ablate`` instead times K2 and K4 at the stage
+shapes as built and with parts of their work left out (``ablate``).
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import os
 import re
@@ -96,6 +105,7 @@ TOL = {
     ("K5-var", torch.float32): 1e-5, ("K5-var", torch.bfloat16): 8e-3,
 }
 K5 = ("K5-corr", "K5-fused", "K5-var")
+SWEEP_REPS = 10  # K2 and K4 move by up to 25 % between runs of 3
 KERNELS = ("K1", "K2", "K3", "K4", "K6/7") + K5
 # the dtype of the path a kernel serves, whose times and errors the kernels line reports
 MAIN_DTYPE = {"K5-corr": "f32", "K5-fused": "f32", "K5-var": "f32"}
@@ -223,6 +233,12 @@ def phase_build() -> None:
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"[build] {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} bytes")
+    sweep = sweep_instances(reports.get("sweep_fuse", ""))
+    for label, regs, spill in sweep:
+        log(f"[build] sweep_fuse {label}: {regs} registers, {spill} bytes spill stores")
+    spilled = [label for label, _, spill in sweep if spill and label.startswith(("K2", "K4"))]
+    if spilled or not sweep:
+        fail(f"K2/K4 instances spill registers or were not reported: {spilled}")
     # the bf16 K3 must reach the tensor cores: count its matrix instructions in the SASS
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", build._lib_path("red_scan")], capture_output=True,
@@ -233,18 +249,55 @@ def phase_build() -> None:
         fail("the red_scan library has no tensor-core instructions")
 
 
+def sweep_instances(report: str) -> list[tuple[str, int, int]]:
+    """(label, registers, spill store bytes) of each kernel instance in the
+    ptxas report of csrc/sweep_fuse.cu; labels as "K2 bf16 C16"."""
+    out = []
+    for block in report.split("Compiling entry function")[1:]:
+        m = re.search(r"(corr_kernel|sweep_tile_kernel)I(f|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?",
+                      block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if not (m and regs):
+            continue
+        kind = "K1" if m.group(1) == "corr_kernel" else ("K4" if m.group(5) == "1" else "K2")
+        dtype = "f32" if m.group(2) == "f" else "bf16"
+        out.append((f"{kind} {dtype} C{m.group(3)}", int(regs.group(1)),
+                    int(spill.group(1)) if spill else 0))
+    return sorted(out)
+
+
+def rotation(ax: float, ay: float, az: float) -> np.ndarray:
+    """The rotation by az, then ay, then ax radians about z, y and x."""
+    cx, sx, cy, sy, cz, sz = np.cos(ax), np.sin(ax), np.cos(ay), np.sin(ay), np.cos(az), np.sin(az)
+    rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return (rx @ ry @ rz).astype(np.float32)
+
+
 class StageInputs:
     """Seeded inputs of one stage at the main path's shapes: of a 2752x1856
-    frame by default, of the training crop with ``height``/``width``."""
+    frame by default, of the training crop with ``height``/``width``. With
+    ``rough``, the source views are rotated (0.3/0.2/0.5 degrees per view
+    about x/y/z) and the hypothesis window of stages 2 and 3 follows a
+    blocky depth (16x16 cells, nearest-upsampled, depths 320-480) with edges
+    between the cells, instead of the bench's axis-aligned views and smooth
+    depth."""
 
-    def __init__(self, si: int, gen: torch.Generator, height: int = H, width: int = W):
+    def __init__(self, si: int, gen: torch.Generator, height: int = H, width: int = W,
+                 rough: bool = False):
         dev = torch.device(DEV)
         s = 2 ** (2 - si)
         self.si, self.h, self.w = si, height // s, width // s
         self.C, self.D = (4, 2, 1)[si] * BASE, NDEPTHS[si]
         self.up = si < 2
         h, w, C = self.h, self.w, self.C
-        projs = torch.from_numpy(bench_projs(height, width, V, FOCAL)[f"stage{si + 1}"]).to(dev)
+        projs = bench_projs(height, width, V, FOCAL)[f"stage{si + 1}"]
+        if rough:
+            for v in range(1, V):
+                projs[v, :3, :3] = projs[v, :3, :3] @ rotation(*np.radians([0.3 * v, 0.2 * v, 0.5 * v]))
+        projs = torch.from_numpy(projs).to(dev)
         self.ref_proj, self.src_projs = projs[None, 0], projs[1:, None]  # [1,4,4], [Vs,1,4,4]
         self.ref = torch.randn((1, h, w, C), generator=gen, device=dev)
         self.srcs = torch.randn((V - 1, 1, h, w, C), generator=gen, device=dev)
@@ -252,9 +305,13 @@ class StageInputs:
         if si == 0:
             self.lo = torch.full((1, h, w), DMIN, device=dev)
             self.step = torch.full((1, h, w), (DMAX - DMIN) / (self.D - 1), device=dev)
-        else:  # a smooth random window around a smooth random depth
-            coarse = 400.0 + 30.0 * torch.randn((1, 1, 8, 8), generator=gen, device=dev)
-            prev = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)[:, 0]
+        else:
+            if rough:  # a window around a blocky random depth
+                coarse = 320.0 + 160.0 * torch.rand((1, 1, 16, 16), generator=gen, device=dev)
+                prev = F.interpolate(coarse, size=(h, w), mode="nearest")[:, 0]
+            else:  # a smooth random window around a smooth random depth
+                coarse = 400.0 + 30.0 * torch.randn((1, 1, 8, 8), generator=gen, device=dev)
+                prev = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)[:, 0]
             interval = RATIOS[si] * (DMAX - DMIN) / NUM_DEPTH
             lo = prev - self.D / 2 * interval
             self.lo, self.step = lo.contiguous(), ((prev + self.D / 2 * interval - lo) / (self.D - 1)).contiguous()
@@ -417,7 +474,7 @@ def phase_kernels(reps: int = 3) -> dict:
                     record("K1", tn, _compare(f"K1 stage1 {tn}", ("K1", dtype), k1(), p1()))
                     if dtype == torch.bfloat16:
                         timing["K1"] = (time_ms(k1, reps), time_ms(p1, 1), sweep_bound("K1", st, dtype))
-                k2 = lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo)
+                k2 = lambda **kw: sf.fused_sweep_volume(ref, srcs, st.weights, *geo, **kw)
                 p2 = lambda: sf.fused_volume_ref(ref, srcs, st.weights, *geo)
                 vol = k2()
                 record("K2", tn, _compare(f"K2 stage{si + 1} {tn}", ("K2", dtype), vol, p2()))
@@ -432,7 +489,7 @@ def phase_kernels(reps: int = 3) -> dict:
                         f"on the same volume: max_abs_err {err:.3e} (max|plain| {scale:.3e}, rel "
                         f"{err / scale:.3e}; information, no limit)")
                     del got, want
-                k4 = lambda: sf.var_sweep_volume(ref, srcs, *geo)
+                k4 = lambda **kw: sf.var_sweep_volume(ref, srcs, *geo, **kw)
                 p4 = lambda: sf.var_volume_ref(ref, srcs, *geo)
                 record("K4", tn, _compare(f"K4 stage{si + 1} {tn}", ("K4", dtype), k4(), p4()))
                 # K6/K7: one hypothesis slice (the middle one) per source view
@@ -443,9 +500,12 @@ def phase_kernels(reps: int = 3) -> dict:
                     torch.cat([ws.sample_bilinear(srcs[v], *uv[v]) for v in range(V - 1)]),
                     torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v]) for v in range(V - 1)])))
                 if dtype == torch.bfloat16:
-                    timing["K2"] = (time_ms(k2, reps), time_ms(p2, 1), sweep_bound("K2", st, dtype))
+                    timing["K2"] = (time_ms(k2, SWEEP_REPS), time_ms(p2, 1),
+                                    sweep_bound("K2", st, dtype))
                     timing["K3"] = (time_ms(k3, reps), time_ms(p3, 1), red_scan_bound(st, dtype))
-                    timing["K4"] = (time_ms(k4, reps), time_ms(p4, 1), sweep_bound("K4", st, dtype))
+                    timing["K4"] = (time_ms(k4, SWEEP_REPS), time_ms(p4, 1),
+                                    sweep_bound("K4", st, dtype))
+                    shares = {"K2": direct_share(k2), "K4": direct_share(k4)}
                     # A stage's sampler calls run back to back, as the scan form issues them.
                     # A call takes a few tens of microseconds, about what the host needs to
                     # launch one, so CUDA events around the calls ("wall_ms") time the host
@@ -489,6 +549,10 @@ def phase_kernels(reps: int = 3) -> dict:
                                          "bound_ms": bms, "bound_by": by})
                 log(f"[kernels] {k} stage{si + 1} bf16: {ms:.3f} ms (plain {pms:.3f} ms, "
                     f"bound {bms:.3f} ms by {by})")
+                if k in shares:
+                    res[k]["stages"][-1]["direct_share"] = shares[k]
+                    log(f"[kernels] {k} stage{si + 1} bf16: {shares[k]:.2%} of the (block, view) "
+                        f"windows gathered directly (information, no limit)")
                 if k == "K3":
                     nbytes, flops, moved = red_scan_work(st, torch.bfloat16)
                     # the card's time in each of the three phase kernels over one call
@@ -503,9 +567,45 @@ def phase_kernels(reps: int = 3) -> dict:
                         f"{nbytes / 1e9:.3f} GB; the design's traffic by its model, not measured "
                         f"(the tiles' halos left out): {moved / 1e9:.3f} GB")
             del ref, srcs, vol, uv
+        rough_sweeps(res, si, gen)
         del st
         torch.cuda.empty_cache()
     return res
+
+
+def direct_share(call) -> float:
+    """The share of a K2/K4 call's (block, source view) windows that
+    exceeded the block's shared memory and were gathered directly, from the
+    kernel's own count."""
+    stats = torch.zeros(2, dtype=torch.int32, device=DEV)
+    call(stats=stats)
+    n, direct = stats.tolist()
+    return direct / max(n, 1)
+
+
+def rough_sweeps(res: dict, si: int, gen) -> None:
+    """K2 and K4 in bf16 at stage ``si``'s shape with rotated views and a
+    blocky hypothesis window (``StageInputs(rough=True)``): against their
+    plain versions, then their times and direct-gather shares (information,
+    no limit), so that the design is not tuned to the bench's smooth,
+    axis-aligned geometry alone."""
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    st = StageInputs(si, gen, rough=True)
+    ref, srcs = st.feats(torch.bfloat16)
+    geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
+    calls = {"K2": (lambda **kw: sf.fused_sweep_volume(ref, srcs, st.weights, *geo, **kw),
+                    lambda: sf.fused_volume_ref(ref, srcs, st.weights, *geo)),
+             "K4": (lambda **kw: sf.var_sweep_volume(ref, srcs, *geo, **kw),
+                    lambda: sf.var_volume_ref(ref, srcs, *geo))}
+    with torch.no_grad():
+        for k, (kern, plain) in calls.items():
+            _compare(f"{k} stage{si + 1} bf16 rotated views, blocky window", (k, torch.bfloat16),
+                     kern(), plain())
+            ms, share = time_ms(kern, SWEEP_REPS), direct_share(kern)
+            res[k]["stages"][-1].update(rough_ms=ms, rough_direct_share=share)
+            log(f"[kernels] {k} stage{si + 1} bf16 rotated views, blocky window: {ms:.3f} ms, "
+                f"{share:.2%} of the windows gathered directly (information, no limit)")
 
 
 def phase_edges() -> None:
@@ -582,6 +682,54 @@ def phase_edges() -> None:
                                 _compare(f"K3 edge cin {cin} base {base} up {up} D {dk} {eh}x{ew} "
                                          f"{tn}", ("K3", dtype), rs.red_scan(c, v),
                                          rs.red_scan_ref(c, v))
+
+
+def phase_sweep_windows() -> None:
+    """K2 and K4 against their plain versions at small shapes, float32 and
+    bfloat16, channels 8/16/32, batch 2, D 11, rotated views: under a blocky
+    hypothesis window (4x6 cells of depth 40-120, nearest-upsampled, 38x54),
+    whose source windows straddle depth edges and are staged in shared
+    memory; and at 64x200 under a random per-pixel window reaching behind the
+    camera with an x and y baseline, whose windows exceed the block's shared
+    memory, so that the kernels' direct-gather branch runs. Fails unless the
+    kernels' own counts show direct windows in every wide case."""
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    B, Vs, D = 2, 3, 11
+    for case, (h, w) in (("blocky", (38, 54)), ("wide", (64, 200))):
+        projs = torch.from_numpy(bench_projs(h, w, Vs + 1, 60.0)["stage3"]).to(DEV)
+        if case == "wide":
+            projs[1:, 1, 3] = 60.0 * 5.0 * torch.arange(1, Vs + 1, device=DEV)
+        projs[1:, :3, :3] += 0.02 * torch.randn((Vs, 3, 3), generator=gen, device=DEV)
+        ref_proj = projs[:1].expand(B, 4, 4).contiguous()
+        src_projs = projs[1:, None].expand(Vs, B, 4, 4).contiguous()
+        if case == "blocky":
+            coarse = 40.0 + 80.0 * torch.rand((B, 1, 4, 6), generator=gen, device=DEV)
+            lo = F.interpolate(coarse, size=(h, w), mode="nearest")[:, 0].contiguous()
+        else:
+            lo = -2.0 + 32.0 * torch.rand((B, h, w), generator=gen, device=DEV)
+        step = 0.5 + torch.rand((B, h, w), generator=gen, device=DEV)
+        geo = (src_projs, ref_proj, lo, step, D)
+        with torch.no_grad():
+            for C in (8, 16, 32):
+                ref = torch.randn((B, h, w, C), generator=gen, device=DEV)
+                srcs = torch.randn((Vs, B, h, w, C), generator=gen, device=DEV)
+                wts = torch.rand((B, Vs, h, w), generator=gen, device=DEV)
+                for dtype, tn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                    r, s = ref.to(dtype), srcs.to(dtype)
+                    for k, kern, plain in (
+                            ("K2", lambda st: sf.fused_sweep_volume(r, s, wts, *geo, stats=st),
+                             lambda: sf.fused_volume_ref(r, s, wts, *geo)),
+                            ("K4", lambda st: sf.var_sweep_volume(r, s, *geo, stats=st),
+                             lambda: sf.var_volume_ref(r, s, *geo))):
+                        stats = torch.zeros(2, dtype=torch.int32, device=DEV)
+                        got = kern(stats)
+                        n, direct = stats.tolist()
+                        _compare(f"{k} {case} C{C} {tn} ({direct} of {n} windows gathered "
+                                 f"directly)", (k, dtype), got, plain())
+                        if case == "wide" and not direct:
+                            fail(f"{k} wide C{C} {tn}: no window took the direct gather")
 
 
 def _k5_calls(mode: str, g, ref, srcs, wn, geo):
@@ -1091,6 +1239,95 @@ def kernels_line(res: dict, launches: dict) -> dict:
     return {"kernels": out}
 
 
+# text edits of csrc/sweep_fuse.cu for ablate(): each removes one part of the
+# K2/K4 kernels' work (the results are wrong; only the times count)
+ABLATIONS = {
+    "no sampling": [("    if (own && cur.w > 0) {", "    if (own && cur.w < 0) {")],
+    "trivial positions": [(
+        "          u = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[0], hyp), gv[9]), pz);\n"
+        "          v = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[1], hyp), gv[10]), pz);",
+        "          u = __fadd_rn(static_cast<float>(x), __fmul_rn(0.6f, static_cast<float>(d)));\n"
+        "          v = static_cast<float>(y);")],
+    "no copies": [(
+        "            cp_async16(dst, sv + (static_cast<size_t>(y) * W + x) * (C * sizeof(T)) + 16 * c);",
+        "            { if (x == -12345) cp_async16(dst, sv); }")],
+    "no stores": [
+        ("        store(o + static_cast<size_t>(c) * hw, __fsub_rn(",
+         "        if (acc[j][c] == 1.2345e-30f) store(o + static_cast<size_t>(c) * hw, __fsub_rn("),
+        ("        store(o + static_cast<size_t>(c) * hw, __fmul_rn(r[c], acc[j][c]));",
+         "        if (acc[j][c] == 1.2345e-30f) store(o + static_cast<size_t>(c) * hw, acc[j][c]);")],
+    "empty kernel": [("  const int tid = threadIdx.x;\n  const int p = tid % P",
+                      "  if (Vs > 0) return;\n  const int tid = threadIdx.x;\n  const int p = tid % P")],
+}
+ABLATIONS["skeleton"] = sum((ABLATIONS[k] for k in ("no sampling", "trivial positions",
+                                                    "no copies", "no stores")), [])
+
+
+def ablate(rounds: int = 3, reps: int = 5) -> None:
+    """``python3 chip_smoke.py --ablate``: K2 and K4 in bf16 at the three
+    stage shapes, built from csrc/sweep_fuse.cu as it is and from text-edited
+    copies that each leave out a part of the kernels' work (ABLATIONS), timed
+    in turns in one process (CUDA events, the least of ``rounds`` medians of
+    ``reps`` runs). The wrappers' own work (weight normalisation, geometry,
+    allocation) is in every time; the "empty kernel" copy measures it."""
+    from adamvs_tpu_torch.kernels import build
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    log(f"[ablate] {phase_device()}")
+    source = open(os.path.join(build.CSRC, "sweep_fuse.cu")).read()
+    root = os.path.join(build.BUILD_DIR, "ablate")
+    jobs = {}
+    for name, edits in {"as built": [], **ABLATIONS}.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                fail(f"ablation {name!r}: its anchor is not in csrc/sweep_fuse.cu once")
+            text = text.replace(old, new)
+        d = os.path.join(root, name.replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(build.CSRC, "common.cuh"), d)
+        with open(os.path.join(d, "sweep_fuse.cu"), "w") as f:
+            f.write(text)
+        jobs[name] = (d, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                                           os.path.join(d, "lib.so"), os.path.join(d, "sweep_fuse.cu")],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (d, proc) in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"ablation {name!r} did not build:\n{out}")
+        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
+        libs[name] = (lib, {"fused": build.bind(lib, "adamvs_fused_sweep", n_ptr=8, n_int=9),
+                            "var": build.bind(lib, "adamvs_var_sweep", n_ptr=7, n_int=9)})
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    total = {n: [0.0, 0.0] for n in libs}
+    entries = sf._entries
+    try:
+        with torch.no_grad():
+            for si in range(3):
+                st = StageInputs(si, gen)
+                ref, srcs = st.feats(torch.bfloat16)
+                geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
+                calls = (lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo),
+                         lambda: sf.var_sweep_volume(ref, srcs, *geo))
+                best = {n: [float("inf")] * 2 for n in libs}
+                for r in range(rounds):
+                    for name in list(libs)[:: 1 if r % 2 == 0 else -1]:
+                        sf._entries = lambda name=name: libs[name]
+                        for i, call in enumerate(calls):
+                            best[name][i] = min(best[name][i], time_ms(call, reps))
+                for name, (k2, k4) in best.items():
+                    total[name][0] += k2
+                    total[name][1] += k4
+                    log(f"[ablate] stage{si + 1} {name}: K2 {k2:.3f} ms, K4 {k4:.3f} ms")
+                del st, ref, srcs
+                torch.cuda.empty_cache()
+    finally:
+        sf._entries = entries
+    for name, (k2, k4) in total.items():
+        log(f"[ablate] per depth map, {name}: K2 {k2:.3f} ms, K4 {k4:.3f} ms")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -1107,6 +1344,7 @@ def main() -> None:
     res = phase_kernels()
     phase_k5(res)
     phase_edges()
+    phase_sweep_windows()
     phase_reference()
     phase_train_reference()
     launches, main_stats = phase_main_path()
@@ -1121,4 +1359,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--ablate"]:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: the ablation needs one GPU")
+        ablate()
+    else:
+        main()
