@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernel sources: element conversion, 16-byte
 // row loads and stores of NHWC features, the four-tap bilinear gather, the
+// asynchronous copies and shared-memory reads of staged source windows, the
 // argument error codes the C entries return, and the error-string entry every
 // library exports.
 #pragma once
@@ -180,13 +181,48 @@ __device__ __forceinline__ void gather_taps(const T* __restrict__ src, const Tap
   }
 }
 
-// Bilinear sample (zeros padding) of src [H,W,C] at pixel coordinates (u, v),
-// in float32, into out.
-template <typename T, int C>
-__device__ __forceinline__ void bilinear_taps(const T* __restrict__ src, int H, int W, float u,
-                                              float v, float* out) {
-  gather_taps<T, C>(src, bilinear_tap_set(H, W, u, v), out);
+// --- shared-memory staging of source windows (the tiled sweeps and their
+// backward) ---
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 8 channels at p (16 bytes of bf16 or 32 of float32, in shared memory), as
+// float32.
+__device__ __forceinline__ void load8_shared(const __nv_bfloat16* p, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint32_t words[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = __uint_as_float(words[j] << 16);
+    v[2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8_shared(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 c = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = c.x, v[5] = c.y, v[6] = c.z, v[7] = c.w;
+}
+
+// One view's source window: the box [x0, x0+w) x [y0, y0+h) of the source,
+// staged in shared memory or (staged false) read from device memory.
+struct Window {
+  int x0, y0, w, h;
+  bool staged;
+};
 
 // The taps in an H x W source of reference pixel (x, y) at depth hyp, under
 // the ref->src transform g = rot (row-major, 9) then trans (3):
@@ -211,7 +247,9 @@ __device__ __forceinline__ Taps sweep_taps(const float* g, float x, float y, flo
 extern "C" const char* adamvs_error_string(int code) {
   switch (code) {
     case adamvs::kBadDtype: return "unsupported dtype";
-    case adamvs::kBadChannels: return "unsupported channel count";
+    case adamvs::kBadChannels:
+      return "unsupported channel count: a sweep launch takes 8, 16 or 32 channels, the sampler "
+             "a multiple of 8; the Python wrappers pad and group every other width";
     case adamvs::kBadViews: return "too many source views";
     case adamvs::kBadBase: return "unsupported regulariser base width";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));

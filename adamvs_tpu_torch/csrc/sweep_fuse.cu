@@ -71,6 +71,10 @@
 // What would help next: fewer, longer-lived blocks that run the chain of the
 // next (tile, chunk, view) while sampling this one.
 //
+// Widths: K1, K2 and K4 launch at C 8, 16 and 32; the wrappers
+// (ops/sweep_fuse.py::sweep_plan) pad narrower features with zeros and run
+// wider ones as channel groups of 32.
+//
 // Layouts: ref [B,h,w,C], src [Vs,B,H,W,C] (float32 or bfloat16), geom
 // [Vs*B,12] float32 (rot row-major, then trans), lo/step [B,h,w] float32,
 // wn [B,Vs,h,w] float32. K1 writes float32 [Vs,B,D,h,w]; K2 and K4 write the
@@ -86,8 +90,13 @@
 
 namespace {
 
+using adamvs::cp_async16;
+using adamvs::cp_async_commit;
+using adamvs::cp_async_wait;
+using adamvs::load8_shared;
 using adamvs::Row;
 using adamvs::store;
+using adamvs::Window;
 
 constexpr int kThreads = 128;
 constexpr int kDChunk = 8;
@@ -160,46 +169,6 @@ struct Tile {
   static constexpr size_t kBoxOffset = kGeomOffset + kMaxViews * 12 * sizeof(float);
   static constexpr size_t kSmemBytes = kBoxOffset + 8 * sizeof(int);
   static_assert(kPixels % kTileW == 0, "a tile is whole rows of 32 pixels");
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 8 channels at p (16 bytes of bf16 or 32 of float32, in shared memory), as
-// float32.
-__device__ __forceinline__ void load8_shared(const __nv_bfloat16* p, float* v) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const uint32_t words[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[2 * j] = __uint_as_float(words[j] << 16);
-    v[2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void load8_shared(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 c = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = c.x, v[5] = c.y, v[6] = c.z, v[7] = c.w;
-}
-
-// One view's source window: the box [x0, x0+w) x [y0, y0+h) of the source,
-// staged in shared memory or (staged false) read from device memory.
-struct Window {
-  int x0, y0, w, h;
-  bool staged;
 };
 
 template <typename T, int C, bool kVar>

@@ -22,6 +22,12 @@ plain forms, the JAX "recompute-by-gather". Gradients reach ref, the sources
 and the weights; the projections, ``lo`` and ``step`` get none, as the
 sample positions carry no gradient (JAX gives them zeros).
 
+Widths: the sweeps take every C with ``128 % C == 0``, as the JAX package's
+do. A launch takes 8, 16 or 32 channels, so the CUDA path pads narrower
+features with zeros and runs wider ones as channel groups of 32, one launch
+each (``sweep_plan``, ``run_groups``, ``merge_volumes``, ``merge_gradients``);
+at the models' widths 8, 16 and 32 that is one launch on the tensors as given.
+
 A wrapper takes the plain version for CPU tensors. For CUDA tensors it
 launches the kernel or raises.
 """
@@ -33,11 +39,38 @@ import functools
 import torch
 
 from ..kernels import build
-from .warp import plane_sweep_warp, warp_transform
+from .warp import pad_channels, plane_sweep_warp, warp_transform
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_CHANNELS = (8, 16, 32)
 _MAX_VIEWS = 16
+# The channel widths the sweeps take, as JAX's merge_sources (128 % C == 0).
+SWEEP_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
+# The widest kernel launch: the kernels have instances at C 8, 16 and 32.
+_LAUNCH_WIDTH = 32
+
+
+def check_sweep_width(C: int) -> None:
+    """Raise ``ValueError`` unless the sweeps take ``C`` channels."""
+    if C not in SWEEP_WIDTHS:
+        raise ValueError(f"the sweeps take C in {SWEEP_WIDTHS} (128 % C == 0, as the JAX "
+                         f"package's), got C {C}")
+
+
+def sweep_plan(C: int) -> tuple[int, int]:
+    """(padded width, group width) of a sweep at ``C`` channels: below 8 the
+    features are zero-padded to 8; past the widest launch they run as channel
+    groups of that width. The kernels then launch once per group."""
+    check_sweep_width(C)
+    Cp = max(C, 8)
+    return Cp, min(Cp, _LAUNCH_WIDTH)
+
+
+def split_channels(x: torch.Tensor, Cp: int, G: int, dim: int = -1) -> list[torch.Tensor]:
+    """``x`` zero-padded along ``dim`` to ``Cp`` channels and cut into
+    contiguous groups of ``G``; ``[x]`` itself when it is one group already."""
+    if x.shape[dim] == Cp == G:
+        return [x]
+    return [t.contiguous() for t in pad_channels(x, Cp, dim).split(G, dim=dim)]
 
 
 def sweep_geometry(src_projs: torch.Tensor, ref_proj: torch.Tensor) -> torch.Tensor:
@@ -128,9 +161,8 @@ def var_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int, blo
     return out
 
 
-@functools.cache
-def _entries():
-    lib = build.load_library("sweep_fuse")
+def bind_sweeps(lib):
+    """(lib, {mode: C entry}) of a library built from ``csrc/sweep_fuse.cu``."""
     return lib, {
         "corr": build.bind(lib, "adamvs_corr_sweep", n_ptr=6, n_int=9),
         "fused": build.bind(lib, "adamvs_fused_sweep", n_ptr=8, n_int=9),
@@ -138,14 +170,23 @@ def _entries():
     }
 
 
-@functools.cache
-def _bwd_entries():
-    lib = build.load_library("sweep_bwd")
+def bind_sweep_bwd(lib):
+    """(lib, {mode: C entry}) of a library built from ``csrc/sweep_bwd.cu``."""
     return lib, {
         "corr": build.bind(lib, "adamvs_corr_sweep_bwd", n_ptr=8, n_int=9),
-        "fused": build.bind(lib, "adamvs_fused_sweep_bwd", n_ptr=10, n_int=9),
-        "var": build.bind(lib, "adamvs_var_sweep_bwd", n_ptr=8, n_int=9),
+        "fused": build.bind(lib, "adamvs_fused_sweep_bwd", n_ptr=11, n_int=9),
+        "var": build.bind(lib, "adamvs_var_sweep_bwd", n_ptr=9, n_int=9),
     }
+
+
+@functools.cache
+def _entries():
+    return bind_sweeps(build.load_library("sweep_fuse"))
+
+
+@functools.cache
+def _bwd_entries():
+    return bind_sweep_bwd(build.load_library("sweep_bwd"))
 
 
 def _check_inputs(ref, srcs, src_projs, ref_proj, lo, step):
@@ -155,7 +196,8 @@ def _check_inputs(ref, srcs, src_projs, ref_proj, lo, step):
     if ref.dtype not in _DTYPE_CODE or srcs.dtype != ref.dtype:
         raise ValueError(f"features must be float32 or bfloat16 and alike, "
                          f"got {ref.dtype}/{srcs.dtype}")
-    if C not in _CHANNELS or ref.shape[0] != B or ref.shape[3] != C:
+    check_sweep_width(C)
+    if ref.shape[0] != B or ref.shape[3] != C:
         raise ValueError(f"unsupported feature shapes ref {tuple(ref.shape)} "
                          f"srcs {tuple(srcs.shape)}")
     h, w = ref.shape[1:3]
@@ -172,21 +214,90 @@ def _check_inputs(ref, srcs, src_projs, ref_proj, lo, step):
     return Vs, B, H, W, C, h, w
 
 
+def run_groups(mode: str, ref, srcs, launch, g=None, g_dim: int = 2) -> tuple[list, int]:
+    """``launch(ref_i, srcs_i, g_i)`` on each launch group of
+    ``sweep_plan(C)``: the features zero-padded and cut into contiguous
+    groups, a cotangent ``g`` split along ``g_dim`` with them or, for corr,
+    rescaled to the true channel mean (``true_mean_scale``). Returns (the
+    launches' results, the group width)."""
+    C = ref.shape[-1]
+    Cp, G = sweep_plan(C)
+    refs, srcss = split_channels(ref, Cp, G), split_channels(srcs, Cp, G)
+    if g is None:
+        gs = [None] * len(refs)
+    elif mode == "corr":
+        gs = [g if G == C else (g * true_mean_scale(C, G)).contiguous()] * len(refs)
+    else:
+        gs = split_channels(g, Cp, G, dim=g_dim)
+    return [launch(r, s, gi) for r, s, gi in zip(refs, srcss, gs)], G
+
+
+def merge_channels(parts: list[torch.Tensor], C: int, dim: int = -1) -> torch.Tensor:
+    """The groups of per-channel results joined along ``dim`` and cut to the
+    true ``C`` channels: padded channels (variance 0, gradients of zero
+    features) are dropped."""
+    if len(parts) == 1 and parts[0].shape[dim] == C:
+        return parts[0]
+    return torch.cat(parts, dim=dim).narrow(dim, 0, C).contiguous()
+
+
+def true_mean_scale(C: int, G: int) -> float:
+    """K1 and K5-corr divide by their launch's width ``G``; a channel mean
+    over the true ``C`` is ``G / C`` times the sum of the groups' means, and
+    a cotangent of it reaches each group as ``G / C`` times itself. Both are
+    powers of two, so the rescaling is exact."""
+    return G / C
+
+
+def merge_volumes(mode: str, outs: list[torch.Tensor], C: int, G: int) -> torch.Tensor:
+    """The volume at the true ``C`` from its launch groups' volumes: corr
+    [Vs,B,D,h,w] the groups' means rescaled and summed, fused and var
+    [D,B,G,h,w] joined along the channels and cut."""
+    if mode != "corr":
+        return merge_channels(outs, C, dim=2)
+    if len(outs) == 1 and G == C:
+        return outs[0]
+    return sum(outs[1:], outs[0]) * true_mean_scale(C, G)
+
+
+def merge_gradients(parts: list[tuple], C: int) -> tuple:
+    """(d ref, d srcs[, d wn]) at the true ``C`` from the launch groups'
+    (d ref, [d wn,] d srcs): the channels joined and cut, d wn summed."""
+    out = (merge_channels([p[0] for p in parts], C), merge_channels([p[-1] for p in parts], C))
+    if len(parts[0]) == 3:
+        out += (sum((p[1] for p in parts[1:]), parts[0][1]),)
+    return out
+
+
+def _launch_sweep(wrapper, mode, ref, srcs, geom, lo, step, D, wn=None,
+                  stats=None) -> torch.Tensor:
+    """One K1/K2/K4 launch on one group's channels, counted on ``wrapper``."""
+    Vs, B, H, W, C = srcs.shape
+    h, w = ref.shape[1:3]
+    if mode == "corr":
+        out = torch.empty((Vs, B, D, h, w), dtype=torch.float32, device=ref.device)
+    else:
+        out = torch.empty((D, B, C, h, w), dtype=ref.dtype, device=ref.device)
+    lib, fns = _entries()
+    ptrs = [ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(), step.data_ptr()]
+    ptrs += ([] if wn is None else [wn.data_ptr()]) + [out.data_ptr()]
+    ptrs += [] if mode == "corr" else [_stats_ptr(stats, ref.device)]
+    err = fns[mode](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, D, *ptrs,
+                    torch.cuda.current_stream(ref.device).cuda_stream)
+    build.check(lib, err, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
 def corr_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int) -> torch.Tensor:
     """K1: [Vs,B,D,h,w] float32 correlation volumes (see ``corr_volume_ref``)."""
     if ref.device.type == "cpu":
         return corr_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth)
-    Vs, B, H, W, C, h, w = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
+    _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
     geom = sweep_geometry(src_projs, ref_proj)
-    out = torch.empty((Vs, B, num_depth, h, w), dtype=torch.float32, device=ref.device)
-    lib, fns = _entries()
-    err = fns["corr"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
-                      ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
-                      step.data_ptr(), out.data_ptr(),
-                      torch.cuda.current_stream(ref.device).cuda_stream)
-    build.check(lib, err, "corr_sweep_volume")
-    corr_sweep_volume.launches += 1
-    return out
+    outs, G = run_groups("corr", ref, srcs, lambda r, s, _: _launch_sweep(
+        corr_sweep_volume, "corr", r, s, geom, lo, step, num_depth))
+    return merge_volumes("corr", outs, ref.shape[-1], G)
 
 
 corr_sweep_volume.launches = 0
@@ -213,10 +324,11 @@ def _check_weights(wn, Vs, B, h, w, device):
 
 
 def _stats_ptr(stats, device) -> int:
-    """The pointer of an optional int32 [2] CUDA tensor to which a K2 or K4
-    launch adds, per (block, source view), 1 to ``stats[0]`` and, where the
-    view's source window exceeded the block's shared memory and its taps were
-    gathered from device memory, 1 to ``stats[1]``; 0 (none) for None."""
+    """The pointer of an optional int32 [2] CUDA tensor to which a K2, K4,
+    K5-fused or K5-var launch adds, per (block, source window), 1 to
+    ``stats[0]`` and, where the window exceeded the block's shared memory and
+    its taps were gathered (and, for K5, scattered) in device memory, 1 to
+    ``stats[1]``; 0 (none) for None."""
     if stats is None:
         return 0
     if stats.dtype != torch.int32 or tuple(stats.shape) != (2,) or stats.device != device:
@@ -233,16 +345,9 @@ def _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth: int,
     _check_weights(wn, Vs, B, h, w, ref.device)
     geom = sweep_geometry(src_projs, ref_proj)
     wn = wn.contiguous()
-    out = torch.empty((num_depth, B, C, h, w), dtype=ref.dtype, device=ref.device)
-    lib, fns = _entries()
-    err = fns["fused"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
-                       ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
-                       step.data_ptr(), wn.data_ptr(), out.data_ptr(),
-                       _stats_ptr(stats, ref.device),
-                       torch.cuda.current_stream(ref.device).cuda_stream)
-    build.check(lib, err, "fused_sweep_volume")
-    fused_sweep_volume.launches += 1
-    return out
+    outs, G = run_groups("fused", ref, srcs, lambda r, s, _: _launch_sweep(
+        fused_sweep_volume, "fused", r, s, geom, lo, step, num_depth, wn, stats))
+    return merge_volumes("fused", outs, C, G)
 
 
 def var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int,
@@ -255,15 +360,9 @@ def var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int,
     if Vs > _MAX_VIEWS:
         raise ValueError(f"var_sweep_volume takes at most {_MAX_VIEWS} source views, got {Vs}")
     geom = sweep_geometry(src_projs, ref_proj)
-    out = torch.empty((num_depth, B, C, h, w), dtype=ref.dtype, device=ref.device)
-    lib, fns = _entries()
-    err = fns["var"](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, num_depth,
-                     ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
-                     step.data_ptr(), out.data_ptr(), _stats_ptr(stats, ref.device),
-                     torch.cuda.current_stream(ref.device).cuda_stream)
-    build.check(lib, err, "var_sweep_volume")
-    var_sweep_volume.launches += 1
-    return out
+    outs, G = run_groups("var", ref, srcs, lambda r, s, _: _launch_sweep(
+        var_sweep_volume, "var", r, s, geom, lo, step, num_depth, stats=stats))
+    return merge_volumes("var", outs, C, G)
 
 
 var_sweep_volume.launches = 0
@@ -311,23 +410,39 @@ def _check_cotangent(g, shape, device):
                          f"{tuple(g.shape)} on {g.device}")
 
 
-def _launch_bwd(mode, ref, srcs, src_projs, ref_proj, lo, step, g, D, *extra):
-    """Run the K5 kernel of ``mode`` on zeroed float32 gradients; returns
-    them: d ref [B,h,w,C], (d wn [B,Vs,h,w] for fused,) d srcs."""
-    Vs, B, H, W, C, h, w = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
+def _launch_bwd(wrapper, mode, ref, srcs, geom, lo, step, g, D, wn=None, stats=None):
+    """One K5 launch of ``mode`` on one group's channels, counted on
+    ``wrapper``, into zeroed float32 gradients; returns them: d ref
+    [B,h,w,C], (d wn [B,Vs,h,w] for fused,) d srcs."""
+    Vs, B, H, W, C = srcs.shape
+    h, w = ref.shape[1:3]
     dev = ref.device
-    geom = sweep_geometry(src_projs, ref_proj)
     dref = torch.zeros((B, h, w, C), dtype=torch.float32, device=dev)
     dsrc = torch.zeros((Vs, B, H, W, C), dtype=torch.float32, device=dev)
-    outs = [dref, torch.zeros((B, Vs, h, w), dtype=torch.float32, device=dev)] if extra else [dref]
+    outs = [dref] if wn is None else [dref, torch.zeros((B, Vs, h, w), dtype=torch.float32,
+                                                        device=dev)]
     lib, fns = _bwd_entries()
+    tail = [] if mode == "corr" else [_stats_ptr(stats, dev)]
     err = fns[mode](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, D, g.data_ptr(),
                     ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
-                    step.data_ptr(), *(t.data_ptr() for t in extra),
-                    *(t.data_ptr() for t in outs), dsrc.data_ptr(),
+                    step.data_ptr(), *([] if wn is None else [wn.data_ptr()]),
+                    *(t.data_ptr() for t in outs), dsrc.data_ptr(), *tail,
                     torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, f"{mode}_sweep_volume_bwd")
+    build.check(lib, err, wrapper.__name__)
+    wrapper.launches += 1
     return (*outs, dsrc)
+
+
+def _sweep_bwd(wrapper, mode, g, ref, srcs, src_projs, ref_proj, lo, step, D, wn=None,
+               stats=None):
+    """K5 of ``mode`` over its launch groups: (d ref, d srcs[, d wn]) in the
+    primals' dtypes (d wn float32)."""
+    _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
+    geom = sweep_geometry(src_projs, ref_proj)
+    parts, _ = run_groups(mode, ref, srcs, lambda r, s, gi: _launch_bwd(
+        wrapper, mode, r, s, geom, lo, step, gi, D, wn, stats), g)
+    dref, dsrc, *dwn = merge_gradients(parts, ref.shape[-1])
+    return (dref.to(ref.dtype), dsrc.to(srcs.dtype), *dwn)
 
 
 def corr_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step):
@@ -337,37 +452,37 @@ def corr_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step):
         return corr_volume_vjp(g, ref, srcs, src_projs, ref_proj, lo, step)
     Vs, B, D, h, w = g.shape
     _check_cotangent(g, (srcs.shape[0], ref.shape[0], D) + tuple(ref.shape[1:3]), ref.device)
-    dref, dsrc = _launch_bwd("corr", ref, srcs, src_projs, ref_proj, lo, step,
-                             g.float().contiguous(), D)
-    corr_sweep_volume_bwd.launches += 1
-    return dref.to(ref.dtype), dsrc.to(srcs.dtype)
+    return _sweep_bwd(corr_sweep_volume_bwd, "corr", g.float().contiguous(), ref, srcs,
+                      src_projs, ref_proj, lo, step, D)
 
 
 corr_sweep_volume_bwd.launches = 0
 
 
-def fused_sweep_volume_bwd(g, ref, srcs, wn, src_projs, ref_proj, lo, step):
+def fused_sweep_volume_bwd(g, ref, srcs, wn, src_projs, ref_proj, lo, step,
+                           stats: torch.Tensor | None = None):
     """K5, fused: (d ref, d srcs, d wn) in the primals' dtypes for the
     cotangent ``g`` [D,B,C,h,w] of ``fused_sweep_volume`` on normalised
-    weights ``wn`` (see ``fused_volume_vjp``)."""
+    weights ``wn`` (see ``fused_volume_vjp``). ``stats`` counts the kernel's
+    windows (``_stats_ptr``), per (block, view)."""
     if ref.device.type == "cpu":
         return fused_volume_vjp(g, ref, srcs, wn, src_projs, ref_proj, lo, step)
     D = g.shape[0]
     B, h, w, C = ref.shape
     _check_cotangent(g, (D, B, C, h, w), ref.device)
     _check_weights(wn, srcs.shape[0], B, h, w, ref.device)
-    dref, dwn, dsrc = _launch_bwd("fused", ref, srcs, src_projs, ref_proj, lo, step,
-                                  g.to(ref.dtype).contiguous(), D, wn.contiguous())
-    fused_sweep_volume_bwd.launches += 1
-    return dref.to(ref.dtype), dsrc.to(srcs.dtype), dwn
+    return _sweep_bwd(fused_sweep_volume_bwd, "fused", g.to(ref.dtype).contiguous(), ref, srcs,
+                      src_projs, ref_proj, lo, step, D, wn.contiguous(), stats)
 
 
 fused_sweep_volume_bwd.launches = 0
 
 
-def var_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step):
+def var_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step,
+                         stats: torch.Tensor | None = None):
     """K5, var: (d ref, d srcs) in the primals' dtypes for the cotangent ``g``
-    [D,B,C,h,w] of ``var_sweep_volume`` (see ``var_volume_vjp``)."""
+    [D,B,C,h,w] of ``var_sweep_volume`` (see ``var_volume_vjp``). ``stats``
+    counts the kernel's windows (``_stats_ptr``), per (block, view, pass)."""
     if ref.device.type == "cpu":
         return var_volume_vjp(g, ref, srcs, src_projs, ref_proj, lo, step)
     D = g.shape[0]
@@ -375,10 +490,8 @@ def var_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step):
     _check_cotangent(g, (D, B, C, h, w), ref.device)
     if srcs.shape[0] > _MAX_VIEWS:
         raise ValueError(f"var_sweep_volume_bwd takes at most {_MAX_VIEWS} source views")
-    dref, dsrc = _launch_bwd("var", ref, srcs, src_projs, ref_proj, lo, step,
-                             g.to(ref.dtype).contiguous(), D)
-    var_sweep_volume_bwd.launches += 1
-    return dref.to(ref.dtype), dsrc.to(srcs.dtype)
+    return _sweep_bwd(var_sweep_volume_bwd, "var", g.to(ref.dtype).contiguous(), ref, srcs,
+                      src_projs, ref_proj, lo, step, D, stats=stats)
 
 
 var_sweep_volume_bwd.launches = 0

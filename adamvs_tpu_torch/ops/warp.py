@@ -102,3 +102,15 @@ def plane_sweep_warp(src_feat, src_proj, ref_proj, depth, grid_hw=None) -> torch
     """Warp source features to the reference frustum. Returns [B,D,H,W,C]
     (see ``sweep_coords`` for the grid)."""
     return bilinear_sample(src_feat, *sweep_coords(src_feat, src_proj, ref_proj, depth, grid_hw))
+
+
+def pad_channels(x: torch.Tensor, Cp: int, dim: int = -1) -> torch.Tensor:
+    """``x`` zero-padded along ``dim`` to ``Cp`` channels (``x`` itself when
+    it has them): the kernels' channel widths (``ops/sweep_fuse.py::
+    sweep_plan``, ``ops/warp_sample.py::sample_width``)."""
+    C = x.shape[dim]
+    if C == Cp:
+        return x
+    pad = list(x.shape)
+    pad[dim] = Cp - C
+    return torch.cat([x, x.new_zeros(pad)], dim=dim)

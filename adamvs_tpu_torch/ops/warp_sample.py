@@ -23,10 +23,18 @@ import functools
 import torch
 
 from ..kernels import build
-from .warp import bilinear_sample, sweep_coords
+from .warp import bilinear_sample, pad_channels, sweep_coords
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_CHANNELS = (8, 16, 32)
+
+
+def sample_width(C: int) -> int:
+    """The padded width the kernel samples for ``C`` channels: ``C`` rounded
+    up to a multiple of 8 (its rows move as 16-byte vectors; it takes them in
+    channel groups of 32, 16 or 8). Raises ``ValueError`` below 1."""
+    if C < 1:
+        raise ValueError(f"the sampler takes any C >= 1, got C {C}")
+    return -(-C // 8) * 8
 
 
 def sample_bilinear_ref(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -48,9 +56,10 @@ def sample_bilinear(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     if feat.device.type != "cuda":
         raise ValueError(f"sample_bilinear takes CUDA tensors, got {feat.device}")
     B, H, W, C = feat.shape
-    if feat.dtype not in _DTYPE_CODE or C not in _CHANNELS:
-        raise ValueError(f"feat must be float32/bfloat16 [B,H,W,C] with C in {_CHANNELS}, got "
-                         f"{feat.dtype} {tuple(feat.shape)}")
+    Cp = sample_width(C)
+    if feat.dtype not in _DTYPE_CODE:
+        raise ValueError(f"feat must be float32/bfloat16 [B,H,W,C], got {feat.dtype} "
+                         f"{tuple(feat.shape)}")
     if u.ndim != 4 or u.shape[0] != B or u.shape != v.shape:
         raise ValueError(f"u and v must be [B,N,h,w] alike, got {tuple(u.shape)} {tuple(v.shape)}")
     for t in (feat, u, v):
@@ -61,13 +70,14 @@ def sample_bilinear(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned (its rows are read as 16-byte vectors)")
     N, h, w = u.shape[1:]
-    out = torch.empty((B, N, h, w, C), dtype=feat.dtype, device=feat.device)
+    feat = pad_channels(feat, Cp)
+    out = torch.empty((B, N, h, w, Cp), dtype=feat.dtype, device=feat.device)
     lib, fn = _entry()
-    err = fn(_DTYPE_CODE[feat.dtype], B, N, h, w, H, W, C, feat.data_ptr(), u.data_ptr(),
+    err = fn(_DTYPE_CODE[feat.dtype], B, N, h, w, H, W, Cp, feat.data_ptr(), u.data_ptr(),
              v.data_ptr(), out.data_ptr(), torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(lib, err, "sample_bilinear")
     sample_bilinear.launches += 1
-    return out
+    return out if Cp == C else out[..., :C].contiguous()
 
 
 sample_bilinear.launches = 0

@@ -9,8 +9,10 @@ Phases, in order; any failure exits nonzero:
 
 1. device: the card's name and power limit;
 2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source;
-   the count of tensor-core instructions (HMMA, HGMMA) in the red_scan
-   library's SASS, which must not be 0;
+   registers and spills of each sweep and K5 instance (a K2, K4, K5-fused or
+   K5-var instance must not spill); the atomics in the sweep_bwd library's
+   SASS (information); the count of tensor-core instructions (HMMA, HGMMA)
+   in the red_scan library's SASS, which must not be 0;
 3. kernels: K1 (corr sweep), K2 (fused sweep), K3 (red-scan recurrence), K4
    (variance sweep) and K6/K7 (bilinear sampler, one hypothesis slice per
    source view) against their plain PyTorch versions at every stage shape
@@ -23,15 +25,19 @@ Phases, in order; any failure exits nonzero:
    autograd VJP of the plain volumes at the training stage shapes (384x768
    crop), float32 and bfloat16, timed in float32; then all of them again at
    small ragged shapes (batch 2, rotated views, samples behind the camera
-   and outside the image), float32, and K3 at every input width, base, head
-   kind, D 1 and 5, 38x54 and 6x10, float32 and bfloat16; K2 and K4 in
-   float32 and bfloat16 under a blocky hypothesis window and where their
-   source windows exceed shared memory (the direct-gather branch, which the
-   kernels' own counts must show); K2 and K4 are timed over 10 runs, with the
+   and outside the image), float32, then the sweeps and K5 at the widths
+   they take by padding or channel groups (C 1, 2, 4, 64, 128) and the
+   sampler at C 1, 3, 4, 12, 64, 128, float32 and bfloat16, and K3 at every
+   input width, base, head kind, D 1 and 5, 38x54 and 6x10, float32 and
+   bfloat16; K2, K4, K5-fused and K5-var in float32 and bfloat16 under a
+   blocky hypothesis window and where their source windows exceed shared
+   memory (the direct branch, which the kernels' own counts must show); K2
+   and K4 are timed over 10 runs, with the
    share of windows gathered directly and their times under rotated views
    and a blocky window as information;
-4. reference: AdaMVS and MS-REDNet (fused and scan forms) on a small frame,
-   kernels on the card against the plain path on the CPU, float32; then one
+4. reference: AdaMVS and MS-REDNet (fused and scan forms) on a small frame
+   at base 8 and base 4 (stage 3 at C 4), kernels on the card against the
+   plain path on the CPU, float32; then one
    train step of each model on that frame, card against CPU (loss, gradient,
    BatchNorm statistics);
 5. main paths, each with every launch counter set to 0 just before it and
@@ -51,8 +57,10 @@ Phases, in order; any failure exits nonzero:
    step timed by phase (upload, forward, backward, update);
 6. the kernels line (JSON), the card line, and the final JSON line.
 
-``python3 chip_smoke.py --ablate`` instead times K2 and K4 at the stage
-shapes as built and with parts of their work left out (``ablate``).
+``python3 chip_smoke.py --ablate [sweep_fuse] [sweep_bwd]`` instead times K2
+and K4 (csrc/sweep_fuse.cu) and K5-fused and K5-var (csrc/sweep_bwd.cu) at
+their stage shapes as built and with parts of their work left out
+(``ablate``).
 """
 
 from __future__ import annotations
@@ -239,8 +247,21 @@ def phase_build() -> None:
     spilled = [label for label, _, spill in sweep if spill and label.startswith(("K2", "K4"))]
     if spilled or not sweep:
         fail(f"K2/K4 instances spill registers or were not reported: {spilled}")
-    # the bf16 K3 must reach the tensor cores: count its matrix instructions in the SASS
+    bwd = sweep_instances(reports.get("sweep_bwd", ""))
+    for label, regs, spill in bwd:
+        log(f"[build] sweep_bwd {label}: {regs} registers, {spill} bytes spill stores")
+    spilled = [label for label, _, spill in bwd if spill and label.startswith(("K5-fused", "K5-var"))]
+    if spilled or not any(label.startswith("K5-fused") for label, _, _ in bwd):
+        fail(f"K5-fused/K5-var instances spill registers or were not reported: {spilled}")
+    # how the tiled K5's shared-memory float adds compiled (information)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build._lib_path("sweep_bwd")], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    ops = {}
+    for op in re.findall(r"\b((?:ATOMS|ATOM|RED|ATOMG|REDG)\.[A-Z0-9_.]+)", sass):
+        ops[op] = ops.get(op, 0) + 1
+    log(f"[build] sweep_bwd SASS atomics: " + ", ".join(f"{k} {n}" for k, n in sorted(ops.items())))
+    # the bf16 K3 must reach the tensor cores: count its matrix instructions in the SASS
     sass = subprocess.run([cuobjdump, "-sass", build._lib_path("red_scan")], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
@@ -251,16 +272,20 @@ def phase_build() -> None:
 
 def sweep_instances(report: str) -> list[tuple[str, int, int]]:
     """(label, registers, spill store bytes) of each kernel instance in the
-    ptxas report of csrc/sweep_fuse.cu; labels as "K2 bf16 C16"."""
+    ptxas report of csrc/sweep_fuse.cu or csrc/sweep_bwd.cu; labels as "K2
+    bf16 C16" or "K5-var f32 C8"."""
+    kinds = {("corr_kernel", None): "K1", ("sweep_tile_kernel", "0"): "K2",
+             ("sweep_tile_kernel", "1"): "K4", ("corr_bwd_kernel", None): "K5-corr",
+             ("sweep_bwd_tile_kernel", "0"): "K5-fused", ("sweep_bwd_tile_kernel", "1"): "K5-var"}
     out = []
     for block in report.split("Compiling entry function")[1:]:
-        m = re.search(r"(corr_kernel|sweep_tile_kernel)I(f|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?",
-                      block)
+        m = re.search(r"(corr_kernel|sweep_tile_kernel|corr_bwd_kernel|sweep_bwd_tile_kernel)"
+                      r"I(f|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if not (m and regs):
             continue
-        kind = "K1" if m.group(1) == "corr_kernel" else ("K4" if m.group(5) == "1" else "K2")
+        kind = kinds[m.group(1), m.group(5)]
         dtype = "f32" if m.group(2) == "f" else "bf16"
         out.append((f"{kind} {dtype} C{m.group(3)}", int(regs.group(1)),
                     int(spill.group(1)) if spill else 0))
@@ -614,10 +639,12 @@ def phase_edges() -> None:
     hypothesis count, rotated views, samples behind the camera and out of
     the image; the sampler at every hypothesis of every view at once (N = D)
     and at random coordinates past every border; K5 in its three modes on
-    the sweeps' inputs; K3 at input widths 8, 16 and 32, both regulariser
-    widths and head kinds, D 1 and 5, at 38x54 and at a size below every tile
-    of its bf16 phases, and at the widths 4, 20, 40 and 64 at 38x54 and D 5,
-    in float32 and bfloat16."""
+    the sweeps' inputs; then, in float32 and bfloat16, K1, K2, K4 and K5 (all
+    modes) at the widths they take by padding or channel groups (1, 2, 4, 64
+    and 128) and the sampler at 1, 3, 4, 12, 64 and 128; K3 at input widths
+    8, 16 and 32, both regulariser widths and head kinds, D 1 and 5, at 38x54
+    and at a size below every tile of its bf16 phases, and at the widths 4,
+    20, 40 and 64 at 38x54 and D 5, in float32 and bfloat16."""
     from adamvs_tpu_torch.nn.blocks import init_parameters
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
     from adamvs_tpu_torch.ops import red_scan as rs
@@ -663,6 +690,37 @@ def phase_edges() -> None:
             u[:, :, :2] = -1e9
             _compare(f"K6/7 edge C{C} random coordinates", ("K6/7", f32),
                      ws.sample_bilinear(srcs[0], u, vv), ws.sample_bilinear_ref(srcs[0], u, vv))
+        # the widths the kernels take by padding or channel groups (ops/sweep_fuse.py::
+        # sweep_plan, ops/warp_sample.py::sample_width), float32 and bf16
+        geo = (src_projs, ref_proj, lo, step, D)
+        for C in (1, 2, 4, 64, 128):
+            ref32 = torch.randn((B, h, w, C), generator=gen, device=DEV)
+            srcs32 = torch.randn((Vs, B, h, w, C), generator=gen, device=DEV)
+            wts = torch.rand((B, Vs, h, w), generator=gen, device=DEV)
+            wn = sf.normalize_weights(wts)
+            for dtype, tn in ((f32, "f32"), (torch.bfloat16, "bf16")):
+                ref, srcs = ref32.to(dtype), srcs32.to(dtype)
+                _compare(f"K1 edge C{C} {tn}", ("K1", dtype), sf.corr_sweep_volume(ref, srcs, *geo),
+                         sf.corr_volume_ref(ref, srcs, *geo))
+                _compare(f"K2 edge C{C} {tn}", ("K2", dtype),
+                         sf.fused_sweep_volume(ref, srcs, wts, *geo),
+                         sf.fused_volume_ref(ref, srcs, wts, *geo))
+                _compare(f"K4 edge C{C} {tn}", ("K4", dtype), sf.var_sweep_volume(ref, srcs, *geo),
+                         sf.var_volume_ref(ref, srcs, *geo))
+                for mode in ("corr", "fused", "var"):
+                    g = (torch.randn((Vs, B, D, h, w), generator=gen, device=DEV) if mode == "corr"
+                         else torch.randn((D, B, C, h, w), generator=gen, device=DEV).to(dtype))
+                    kern, plain = _k5_calls(mode, g, ref, srcs, wn, geo[:4])
+                    _compare_grads(f"K5-{mode} edge C{C} {tn}", (f"K5-{mode}", dtype), kern(),
+                                   plain())
+        hyp = lo[:, None] + torch.arange(D, device=DEV)[None, :, None, None] * step[:, None]
+        for C in (1, 3, 4, 12, 64, 128):
+            feat = torch.randn((B, h, w, C), generator=gen, device=DEV)
+            u, vv = sweep_coords(feat, src_projs[0], ref_proj, hyp)  # [B,D,h,w]
+            for dtype, tn in ((f32, "f32"), (torch.bfloat16, "bf16")):
+                f = feat.to(dtype)
+                _compare(f"K6/7 edge C{C} {tn}", ("K6/7", dtype), ws.sample_bilinear(f, u, vv),
+                         ws.sample_bilinear_ref(f, u, vv))
         # K3 at every input width of AdaMVS base 8, both regulariser widths and head kinds,
         # one and five depth steps, at 38x54 (no multiple of any tile) and at 6x10 (smaller
         # than every tile of the bf16 kernel's phases), in float32 and bf16; then widths the
@@ -685,14 +743,16 @@ def phase_edges() -> None:
 
 
 def phase_sweep_windows() -> None:
-    """K2 and K4 against their plain versions at small shapes, float32 and
+    """K2, K4, K5-fused and K5-var (the tiled kernels) against their plain
+    versions at small shapes, float32 and
     bfloat16, channels 8/16/32, batch 2, D 11, rotated views: under a blocky
     hypothesis window (4x6 cells of depth 40-120, nearest-upsampled, 38x54),
     whose source windows straddle depth edges and are staged in shared
     memory; and at 64x200 under a random per-pixel window reaching behind the
     camera with an x and y baseline, whose windows exceed the block's shared
-    memory, so that the kernels' direct-gather branch runs. Fails unless the
-    kernels' own counts show direct windows in every wide case."""
+    memory, so that the kernels' direct-gather branch runs (and K5's direct
+    scatter). Fails unless the kernels' own counts show direct windows in
+    every wide case."""
     from adamvs_tpu_torch.ops import sweep_fuse as sf
 
     gen = torch.Generator(device=DEV).manual_seed(5)
@@ -716,18 +776,28 @@ def phase_sweep_windows() -> None:
                 ref = torch.randn((B, h, w, C), generator=gen, device=DEV)
                 srcs = torch.randn((Vs, B, h, w, C), generator=gen, device=DEV)
                 wts = torch.rand((B, Vs, h, w), generator=gen, device=DEV)
+                wn = sf.normalize_weights(wts)
                 for dtype, tn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
                     r, s = ref.to(dtype), srcs.to(dtype)
+                    g = torch.randn((D, B, C, h, w), generator=gen, device=DEV).to(dtype)
                     for k, kern, plain in (
                             ("K2", lambda st: sf.fused_sweep_volume(r, s, wts, *geo, stats=st),
                              lambda: sf.fused_volume_ref(r, s, wts, *geo)),
                             ("K4", lambda st: sf.var_sweep_volume(r, s, *geo, stats=st),
-                             lambda: sf.var_volume_ref(r, s, *geo))):
+                             lambda: sf.var_volume_ref(r, s, *geo)),
+                            ("K5-fused",
+                             lambda st: sf.fused_sweep_volume_bwd(g, r, s, wn, *geo[:4], stats=st),
+                             lambda: sf.fused_volume_vjp(g, r, s, wn, *geo[:4])),
+                            ("K5-var", lambda st: sf.var_sweep_volume_bwd(g, r, s, *geo[:4], stats=st),
+                             lambda: sf.var_volume_vjp(g, r, s, *geo[:4]))):
                         stats = torch.zeros(2, dtype=torch.int32, device=DEV)
                         got = kern(stats)
                         n, direct = stats.tolist()
-                        _compare(f"{k} {case} C{C} {tn} ({direct} of {n} windows gathered "
-                                 f"directly)", (k, dtype), got, plain())
+                        tag = f"{k} {case} C{C} {tn} ({direct} of {n} windows gathered directly)"
+                        if k.startswith("K5"):
+                            _compare_grads(tag, (k, dtype), got, plain())
+                        else:
+                            _compare(tag, (k, dtype), got, plain())
                         if case == "wide" and not direct:
                             fail(f"{k} wide C{C} {tn}: no window took the direct gather")
 
@@ -792,18 +862,22 @@ def phase_k5(res: dict, reps: int = 3) -> None:
                 if dtype == torch.float32:
                     ms, pms = time_ms(kern, reps), time_ms(plain, 1)
                     bms, by = sweep_bwd_bound(fwd, st, dtype)
+                    # the kernel's own time on the card, from a trace of one call (the wrapper's
+                    # geometry, zeroing and casts are the rest of ``ms`` where the card waits)
+                    _, top = device_profile(kern, top=8)
+                    kms = sum(t for n, t, _ in top if "bwd" in n and "kernel" in n)
                     res[k]["stages"].append({"stage": si + 1, "ms": ms, "plain_ms": pms,
-                                             "bound_ms": bms, "bound_by": by})
-                    log(f"[kernels] {k} stage{si + 1} f32: {ms:.3f} ms (plain {pms:.3f} ms, "
-                        f"bound {bms:.3f} ms by {by})")
+                                             "bound_ms": bms, "bound_by": by, "kernel_ms": kms})
+                    log(f"[kernels] {k} stage{si + 1} f32: {ms:.3f} ms, the kernel alone {kms:.3f} "
+                        f"ms on the card (plain {pms:.3f} ms, bound {bms:.3f} ms by {by})")
                 del ref, srcs, g
         del st, geo, wn
         torch.cuda.empty_cache()
 
 
 def phase_reference() -> None:
-    """Each path's model on a small frame: kernels on the card against the
-    plain path on the CPU, float32."""
+    """Each path's model on a small frame at base 8 and at base 4: kernels on
+    the card against the plain path on the CPU, float32."""
     from adamvs_tpu_torch.models import build_model
 
     h, w = 128, 160
@@ -811,9 +885,12 @@ def phase_reference() -> None:
     imgs = torch.from_numpy(rng.randn(1, V, h, w, 3).astype(np.float32))
     projs = {k: torch.from_numpy(p[None]) for k, p in bench_projs(h, w, V, FOCAL * h / H).items()}
     dv = torch.tensor([[DMIN, DMAX]])
-    for path, name, opts, _, _ in PATHS:
-        model = build_model(name, seed=1, device=DEV, ndepths=NDEPTHS, base=BASE,
-                            cr_base=(BASE,) * 3, **opts)
+    # base 8 (the main paths'), and base 4, whose stage 3 features have C 4 (the
+    # sweeps and the sampler pad them)
+    for (path, name, opts, _, _), base in [(p, b) for b in (BASE, 4) for p in PATHS]:
+        model = build_model(name, seed=1, device=DEV, ndepths=NDEPTHS, base=base,
+                            cr_base=(base,) * 3, **opts)
+        path = f"{path} base {base}"
         cpu_model = copy.deepcopy(model).cpu()
         got = model(imgs.to(DEV), {k: p.to(DEV) for k, p in projs.items()}, dv.to(DEV),
                     num_depth=NUM_DEPTH)
@@ -1239,9 +1316,10 @@ def kernels_line(res: dict, launches: dict) -> dict:
     return {"kernels": out}
 
 
-# text edits of csrc/sweep_fuse.cu for ablate(): each removes one part of the
-# K2/K4 kernels' work (the results are wrong; only the times count)
-ABLATIONS = {
+# text edits of the kernel sources for ablate(): each removes one part of the
+# kernels' work (the results are wrong; only the times count). An edit is
+# (anchor, replacement): the anchor must occur exactly once in the source.
+ABLATIONS = {"sweep_fuse": {
     "no sampling": [("    if (own && cur.w > 0) {", "    if (own && cur.w < 0) {")],
     "trivial positions": [(
         "          u = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[0], hyp), gv[9]), pz);\n"
@@ -1258,74 +1336,128 @@ ABLATIONS = {
          "        if (acc[j][c] == 1.2345e-30f) store(o + static_cast<size_t>(c) * hw, acc[j][c]);")],
     "empty kernel": [("  const int tid = threadIdx.x;\n  const int p = tid % P",
                       "  if (Vs > 0) return;\n  const int tid = threadIdx.x;\n  const int p = tid % P")],
+}}
+ABLATIONS["sweep_fuse"]["skeleton"] = sum(
+    (ABLATIONS["sweep_fuse"][k] for k in ("no sampling", "trivial positions", "no copies",
+                                          "no stores")), [])
+# K5-fused and K5-var (csrc/sweep_bwd.cu)
+ABLATIONS["sweep_bwd"] = {
+    "no sampling": [("    if (cur.w > 0) {  // a view with no tap in the image adds nothing",
+                     "    if (cur.w < 0) {")],
+    "no shared atomics": [("        red_shared(base + static_cast<unsigned>((rot + c) & (C - 1)) * 4, "
+                           "__fmul_rn(w, v[c]));",
+                           "        if (v[c] == 1.2345e-30f) red_shared(base, w);")],
+    "no flush": [("      if (x >= 0 && x < W && y >= 0 && y < H &&\n          (e[0] != 0.f",
+                  "      if (x == -12345 && x < W && y >= 0 && y < H &&\n          (e[0] != 0.f")],
+    "no gathers": [("            load8_shared(wb + (q0 + (k & 1) + (k >> 1) * win.w) * kPix, vals);",
+                    "            for (int c = 0; c < 8; ++c) vals[c] = wk[c & 3];")],
+    "no cotangent reads": [("const float gc = to_f32(gp[static_cast<size_t>(c) * hw]);",
+                            "const float gc = 1e-3f * static_cast<float>(c + d);")],
+    "empty kernel": [("  constexpr int P = S::kPixels, KD = S::kD;\n  extern __shared__",
+                      "  constexpr int P = S::kPixels, KD = S::kD;\n  if (Vs > 0) return;\n"
+                      "  extern __shared__")],
 }
-ABLATIONS["skeleton"] = sum((ABLATIONS[k] for k in ("no sampling", "trivial positions",
-                                                    "no copies", "no stores")), [])
 
 
-def ablate(rounds: int = 3, reps: int = 5) -> None:
-    """``python3 chip_smoke.py --ablate``: K2 and K4 in bf16 at the three
-    stage shapes, built from csrc/sweep_fuse.cu as it is and from text-edited
-    copies that each leave out a part of the kernels' work (ABLATIONS), timed
-    in turns in one process (CUDA events, the least of ``rounds`` medians of
-    ``reps`` runs). The wrappers' own work (weight normalisation, geometry,
-    allocation) is in every time; the "empty kernel" copy measures it."""
+def _ablation_calls(source: str, si: int, gen):
+    """(entries attribute of ops/sweep_fuse.py, binder of a built library,
+    {kernel: call}) of ``source`` at stage ``si``: K2 and K4 in bf16 at the
+    inference stage shape; K5-fused and K5-var in float32 at the training
+    stage shape."""
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    if source == "sweep_fuse":
+        st = StageInputs(si, gen)
+        ref, srcs = st.feats(torch.bfloat16)
+        geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
+        return "_entries", sf.bind_sweeps, {
+            "K2": lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo),
+            "K4": lambda: sf.var_sweep_volume(ref, srcs, *geo)}
+    st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
+    ref, srcs = st.feats(torch.float32)
+    geo = (st.src_projs, st.ref_proj, st.lo, st.step)
+    wn = sf.normalize_weights(st.weights)
+    g = _cotangent("var", st, torch.float32, gen)
+    return "_bwd_entries", sf.bind_sweep_bwd, {"K5-fused": _k5_calls("fused", g, ref, srcs, wn, geo)[0],
+                                  "K5-var": _k5_calls("var", g, ref, srcs, wn, geo)[0]}
+
+
+def ablate(sources=("sweep_fuse", "sweep_bwd"), rounds: int = 3, reps: int = 5) -> None:
+    """``python3 chip_smoke.py --ablate [source ...]``: the kernels of each
+    source at the stage shapes, built from the source as it is and from
+    text-edited copies that each leave out a part of the kernels' work
+    (ABLATIONS), timed in turns in one process (CUDA events, the least of
+    ``rounds`` medians of ``reps`` runs) and by the card's busy time in one
+    call (a trace, the least of ``rounds``). csrc/sweep_fuse.cu: K2 and K4 in
+    bf16 at the inference shapes, ms per depth map; csrc/sweep_bwd.cu:
+    K5-fused and K5-var in float32 at the training shapes, ms per train step.
+    The wrappers' own work (weight normalisation, geometry, allocation and
+    zeroing) is in every time, on the host where the card waits for it; the
+    "empty kernel" copy measures it."""
     from adamvs_tpu_torch.kernels import build
     from adamvs_tpu_torch.ops import sweep_fuse as sf
 
     log(f"[ablate] {phase_device()}")
-    source = open(os.path.join(build.CSRC, "sweep_fuse.cu")).read()
     root = os.path.join(build.BUILD_DIR, "ablate")
     jobs = {}
-    for name, edits in {"as built": [], **ABLATIONS}.items():
-        text = source
-        for old, new in edits:
-            if text.count(old) != 1:
-                fail(f"ablation {name!r}: its anchor is not in csrc/sweep_fuse.cu once")
-            text = text.replace(old, new)
-        d = os.path.join(root, name.replace(" ", "_"))
-        os.makedirs(d, exist_ok=True)
-        shutil.copy(os.path.join(build.CSRC, "common.cuh"), d)
-        with open(os.path.join(d, "sweep_fuse.cu"), "w") as f:
-            f.write(text)
-        jobs[name] = (d, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
-                                           os.path.join(d, "lib.so"), os.path.join(d, "sweep_fuse.cu")],
-                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (d, proc) in jobs.items():
+    for source in sources:
+        text0 = open(os.path.join(build.CSRC, f"{source}.cu")).read()
+        for name, edits in {"as built": [], **ABLATIONS[source]}.items():
+            text = text0
+            for old, new in edits:
+                if text.count(old) != 1:
+                    fail(f"ablation {name!r}: its anchor is not in csrc/{source}.cu once")
+                text = text.replace(old, new)
+            d = os.path.join(root, source, name.replace(" ", "_"))
+            os.makedirs(d, exist_ok=True)
+            shutil.copy(os.path.join(build.CSRC, "common.cuh"), d)
+            with open(os.path.join(d, f"{source}.cu"), "w") as f:
+                f.write(text)
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(d, "lib.so"),
+                   os.path.join(d, f"{source}.cu")]
+            jobs[source, name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for (source, name), (d, proc) in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode:
-            fail(f"ablation {name!r} did not build:\n{out}")
-        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
-        libs[name] = (lib, {"fused": build.bind(lib, "adamvs_fused_sweep", n_ptr=8, n_int=9),
-                            "var": build.bind(lib, "adamvs_var_sweep", n_ptr=7, n_int=9)})
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    total = {n: [0.0, 0.0] for n in libs}
-    entries = sf._entries
-    try:
-        with torch.no_grad():
-            for si in range(3):
-                st = StageInputs(si, gen)
-                ref, srcs = st.feats(torch.bfloat16)
-                geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
-                calls = (lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo),
-                         lambda: sf.var_sweep_volume(ref, srcs, *geo))
-                best = {n: [float("inf")] * 2 for n in libs}
-                for r in range(rounds):
-                    for name in list(libs)[:: 1 if r % 2 == 0 else -1]:
-                        sf._entries = lambda name=name: libs[name]
-                        for i, call in enumerate(calls):
-                            best[name][i] = min(best[name][i], time_ms(call, reps))
-                for name, (k2, k4) in best.items():
-                    total[name][0] += k2
-                    total[name][1] += k4
-                    log(f"[ablate] stage{si + 1} {name}: K2 {k2:.3f} ms, K4 {k4:.3f} ms")
-                del st, ref, srcs
-                torch.cuda.empty_cache()
-    finally:
-        sf._entries = entries
-    for name, (k2, k4) in total.items():
-        log(f"[ablate] per depth map, {name}: K2 {k2:.3f} ms, K4 {k4:.3f} ms")
+            fail(f"ablation {source} {name!r} did not build:\n{out}")
+        built.setdefault(source, {})[name] = ctypes.CDLL(os.path.join(d, "lib.so"))
+    for source, libs in built.items():
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        total = {}
+        per = "depth map" if source == "sweep_fuse" else "train step"
+        for si in range(3):
+            attr, bind, calls = _ablation_calls(source, si, gen)
+            bound = {name: bind(lib) for name, lib in libs.items()}
+            entries = getattr(sf, attr)
+            # per variant and kernel: (CUDA events around a call, the card's busy time in it)
+            best = {n: {k: [float("inf")] * 2 for k in calls} for n in bound}
+            try:
+                with torch.no_grad():
+                    for r in range(rounds):
+                        for name in list(bound)[:: 1 if r % 2 == 0 else -1]:
+                            setattr(sf, attr, lambda name=name: bound[name])
+                            for k, call in calls.items():
+                                b = best[name][k]
+                                b[0] = min(b[0], time_ms(call, reps))
+                                b[1] = min(b[1], device_busy_ms(call))
+            finally:
+                setattr(sf, attr, entries)
+            for name, times in best.items():
+                for k, (t, busy) in times.items():
+                    acc = total.setdefault(name, {}).setdefault(k, [0.0, 0.0])
+                    acc[0] += t
+                    acc[1] += busy
+                log(f"[ablate] {source} stage{si + 1} {name}: "
+                    + ", ".join(f"{k} {t:.3f} ms (card busy {busy:.3f})"
+                                for k, (t, busy) in times.items()))
+            del calls
+            torch.cuda.empty_cache()
+        for name, times in total.items():
+            log(f"[ablate] {source} per {per}, {name}: "
+                + ", ".join(f"{k} {t:.3f} ms (card busy {busy:.3f})"
+                            for k, (t, busy) in times.items()))
 
 
 def main() -> None:
@@ -1359,9 +1491,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--ablate"]:
+    if sys.argv[1:2] == ["--ablate"]:
         if not torch.cuda.is_available():
             fail("no CUDA device: the ablation needs one GPU")
-        ablate()
+        ablate(*([sys.argv[2:]] if sys.argv[2:] else []))
     else:
         main()
