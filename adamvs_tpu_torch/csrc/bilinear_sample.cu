@@ -55,7 +55,7 @@ sample_kernel(const T* __restrict__ feat, const float* __restrict__ u, const flo
   for (int c = 0; c < CB; ++c) acc[c] = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if (t.idx[k] >= 0) {  // the valid taps summed in order, as common.cuh::gather_taps
+    if (t.idx[k] >= 0) {  // the valid taps summed in order
       Row<T, CB>::load(src + static_cast<size_t>(t.idx[k]) * C, vals);
 #pragma unroll
       for (int c = 0; c < CB; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(vals[c], t.w[k]));

@@ -1,8 +1,8 @@
 // Helpers shared by the port's kernel sources: element conversion, 16-byte
-// row loads and stores of NHWC features, the four-tap bilinear gather, the
-// asynchronous copies and shared-memory reads of staged source windows, the
-// argument error codes the C entries return, and the error-string entry every
-// library exports.
+// row loads and stores of NHWC features, the four bilinear taps of a source
+// position, the sample positions of the plane sweeps, the asynchronous copies
+// and shared-memory reads of staged source windows, the argument error codes
+// the C entries return, and the error-string entry every library exports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,8 +92,7 @@ struct Row<__nv_bfloat16, C> {
 // index yi*W + xi, or -1 when it lies outside the image, and its weight. A
 // tap counts only when 0 <= xi <= W-1 and 0 <= yi <= H-1, so a sample at
 // -1e9 (behind the camera) has no tap. The weights follow
-// ops/warp.py::bilinear_sample's order of operations. The gathers read, and
-// the sweep backward (sweep_bwd.cu) scatters to, exactly these taps.
+// ops/warp.py::bilinear_sample's order of operations.
 struct Taps {
   int idx[4];
   float w[4];
@@ -153,34 +152,6 @@ __device__ __forceinline__ TapGrid bilinear_tap_grid(int H, int W, float u, floa
   return t;
 }
 
-// The taps of a sample behind the camera: none.
-__device__ __forceinline__ Taps no_taps() {
-  Taps t;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    t.idx[k] = -1;
-    t.w[k] = 0.f;
-  }
-  return t;
-}
-
-// Bilinear sample (zeros padding) of src [H,W,C] at the taps t, in float32,
-// into out: the valid taps summed in order.
-template <typename T, int C>
-__device__ __forceinline__ void gather_taps(const T* __restrict__ src, const Taps& t, float* out) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) out[c] = 0.f;
-  float vals[C];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (t.idx[k] >= 0) {
-      Row<T, C>::load(src + static_cast<size_t>(t.idx[k]) * C, vals);
-#pragma unroll
-      for (int c = 0; c < C; ++c) out[c] = __fadd_rn(out[c], __fmul_rn(vals[c], t.w[k]));
-    }
-  }
-}
-
 // --- shared-memory staging of source windows (the tiled sweeps and their
 // backward) ---
 
@@ -224,22 +195,88 @@ struct Window {
   bool staged;
 };
 
-// The taps in an H x W source of reference pixel (x, y) at depth hyp, under
-// the ref->src transform g = rot (row-major, 9) then trans (3):
-// p = rot.[x,y,1].hyp + trans, (u, v) = (p.x/p.z, p.y/p.z), none when
-// p.z <= 1e-6 (behind the camera). The order of operations is the plain
-// version's (ops/warp.py::_source_coords), so both sample the same positions.
-__device__ __forceinline__ Taps sweep_taps(const float* g, float x, float y, float hyp, int H,
-                                           int W) {
-  float p[3];
+// rot.[x, y, 1] of the ref->src transform g = rot (row-major, 9) then trans
+// (3), in the plain version's order of operations (ops/warp.py::
+// _source_coords). It does not depend on the depth: the corr walks compute it
+// once per reference pixel, the tiles once per pixel and view.
+__device__ __forceinline__ void rot_xyz(const float* g, float x, float y, float* r) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float rxyz =
-        __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], x), __fmul_rn(g[3 * i + 1], y)), g[3 * i + 2]);
-    p[i] = __fadd_rn(__fmul_rn(rxyz, hyp), g[9 + i]);
+  for (int i = 0; i < 3; ++i)
+    r[i] = __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], x), __fmul_rn(g[3 * i + 1], y)), g[3 * i + 2]);
+}
+
+// Where the reference pixel whose rot_xyz is r lands in the source at depth
+// hyp: p = r.hyp + t (t the transform's translation, g[9..11]), (u, v) =
+// (p.x/p.z, p.y/p.z), as the plain version rounds it; (-1e9, -1e9), which has
+// no tap in the image, when p.z <= 1e-6 (behind the camera, as the plain
+// version).
+__device__ __forceinline__ float2 sweep_position(const float* r, const float* t, float hyp) {
+  float2 uv = make_float2(-1e9f, -1e9f);
+  const float pz = __fadd_rn(__fmul_rn(r[2], hyp), t[2]);
+  if (pz > 1e-6f) {
+    uv.x = __fdiv_rn(__fadd_rn(__fmul_rn(r[0], hyp), t[0]), pz);
+    uv.y = __fdiv_rn(__fadd_rn(__fmul_rn(r[1], hyp), t[1]), pz);
   }
-  if (!(p[2] > 1e-6f)) return no_taps();
-  return bilinear_tap_set(H, W, __fdiv_rn(p[0], p[2]), __fdiv_rn(p[1], p[2]));
+  return uv;
+}
+
+// Whether some tap of t lies in the image (then t.x0, t.y0 are meaningful).
+__device__ __forceinline__ bool any_tap(const TapGrid& t) {
+  return t.ok[0] || t.ok[1] || t.ok[2] || t.ok[3];
+}
+
+// The taps of t that count in a corr walk, as bits k: tap k lies in the
+// image and its weight is not 0. A tap of weight 0 adds 0 * (a finite dot
+// product) in the plain version, so the walk neither computes its dot product
+// (K1) nor adds to its coefficient (K5-corr).
+__device__ __forceinline__ int walk_taps(const TapGrid& t) {
+  return static_cast<int>(t.ok[0] && t.w[0] != 0.f) |
+         static_cast<int>(t.ok[1] && t.w[1] != 0.f) << 1 |
+         static_cast<int>(t.ok[2] && t.w[2] != 0.f) << 2 |
+         static_cast<int>(t.ok[3] && t.w[3] != 0.f) << 3;
+}
+
+// A corr walk holds the 2x2 tap set of its last sample: tap j at (x0 + (j & 1),
+// y0 + (j >> 1)) with a value each. When the corner moves by (ddx, ddy), held
+// tap j stays in the set exactly when |ddx| <= 1, |ddy| <= 1 and (j & 1) - ddx
+// and (j >> 1) - ddy are 0 or 1: staying() gives those taps as bits j, and
+// move_bits() and move_values() carry bits and values from the old index j to
+// the new one, (j & 1) - ddx + 2 ((j >> 1) - ddy). A new tap that no held tap
+// became keeps a meaningless value and bit 0 after move_bits(staying() & b).
+__device__ __forceinline__ int staying(int ddx, int ddy) {
+  const int xs = ddx == 0 ? 0xf : ddx == 1 ? 0xa : ddx == -1 ? 0x5 : 0;
+  const int ys = ddy == 0 ? 0xf : ddy == 1 ? 0xc : ddy == -1 ? 0x3 : 0;
+  return xs & ys;
+}
+
+__device__ __forceinline__ int move_bits(int bits, int ddx, int ddy) {
+  bits = ddx == 1 ? (bits >> 1) & 0x5 : ddx == -1 ? (bits << 1) & 0xa : bits;
+  return ddy == 1 ? (bits >> 2) & 0x3 : ddy == -1 ? (bits << 2) & 0xc : bits;
+}
+
+__device__ __forceinline__ void move_values(float* v, int ddx, int ddy) {
+  const float a0 = ddx == 1 ? v[1] : v[0], a1 = ddx == -1 ? v[0] : v[1];
+  const float a2 = ddx == 1 ? v[3] : v[2], a3 = ddx == -1 ? v[2] : v[3];
+  v[0] = ddy == 1 ? a2 : a0;
+  v[1] = ddy == 1 ? a3 : a1;
+  v[2] = ddy == -1 ? a0 : a2;
+  v[3] = ddy == -1 ? a1 : a3;
+}
+
+// stats[0] += n and stats[1] += m summed over the calling warp's active
+// lanes, one atomic each per warp: the corr walks' counts of samples and of
+// dot products or flushes.
+__device__ __forceinline__ void add_walk_counts(int* stats, int n, int m) {
+  const unsigned lanes = __activemask();
+  n = __reduce_add_sync(lanes, n);
+  m = __reduce_add_sync(lanes, m);
+  if (static_cast<int>(threadIdx.x % 32) == __ffs(lanes) - 1)
+    atomicAdd(stats, n), atomicAdd(stats + 1, m);
+}
+
+// a[j] for j in 0..3 by selects, so that a stays in registers.
+__device__ __forceinline__ float pick4(const float* a, int j) {
+  return j == 0 ? a[0] : j == 1 ? a[1] : j == 2 ? a[2] : a[3];
 }
 
 }  // namespace adamvs

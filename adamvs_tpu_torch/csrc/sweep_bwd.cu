@@ -21,21 +21,47 @@
 //   var   (g [D,B,C,h,w]; nv = Vs+1, m = (ref + sum_v X_v) / nv):
 //         dref = sum_d g (2/nv)(ref - m);  dsrc_v += T_v(g (2/nv)(X_v - m))
 //
-// What bounds it on an H100: the forward's tap arithmetic again (the
+// What bounds fused and var on an H100: the forward's tap arithmetic again (the
 // samples X_v are recomputed, for dref, dwn and the variance mean) plus one
 // multiply-add per tap, channel and scatter target, at 67 TFLOP/s float32;
 // at the full-resolution stage the bytes of g, ref, the sources and the
 // gradients, each moved once in its own dtype.
 //
-// corr (corr_bwd_kernel): the forward's direct layout, one thread per
-// (view, batch, reference pixel, chunk of 8 hypotheses); the samples come
-// from common.cuh::sweep_taps and gather_taps, the forward K1's own code, and
-// the scatter is float4 atomics into a zeroed float32 d srcs in device
-// memory (L2).
-//
-// fused and var (sweep_bwd_tile_kernel). Direct kernels in corr's layout
-// scattered every tap as C/4 float4 atomics into L2, which held most of
-// their time (PERF.md §6 gives the measurement).
+// corr (corr_walk_bwd_kernel): the walk of the forward K1 (sweep_fuse.cu).
+// What bounds it: its bytes (g, ref, the sources, the gradients, each moved
+// once: 0.011 ms per train step at 3.35 TB/s). A kernel that scattered every
+// tap of every sample as C/4 float4 atomics into L2 (~113 M per train step)
+// spent most of its time in them. With g_d / C the cotangent of sample d, the
+// gradient of sum_k w_k (ref . s_k) / C is, per source pixel q that a tap
+// touches, a_q = sum of w_k g_d / C over the samples and taps k that land on
+// q, then d src_q += a_q ref and d ref += a_q s_q: one C-wide scatter and one
+// C-wide multiply-add per source pixel, not per tap and sample.
+//   - A thread owns one (view, batch, reference pixel) and a run of kRun
+//     hypotheses, walked in order as in K1 (common.cuh::sweep_position,
+//     bilinear_tap_grid, walk_taps, staying, move_bits, move_values). It
+//     holds the 2x2 tap set's coefficients a_q; a tap that counts adds
+//     w_k g_d / C to its coefficient, whether the tap was held or is new.
+//   - A held tap whose pixel leaves the set, and every held tap at the end of
+//     the run or at a sample behind the camera or with no tap in the image,
+//     is flushed if its coefficient is not 0: d src_q += a_q ref as C/4
+//     float4 atomics into the zeroed float32 d srcs (L2), and the thread's
+//     d ref (C floats in registers) += a_q s_q from a C-wide load of the
+//     source row. ref is read again at each flush (from L1), which keeps the
+//     float32 C32 instance within 128 registers.
+//   - The flushes stay global atomics. Left out, they take ~0.15 ms per
+//     train step off the kernel (chip_smoke.py --ablate corr_bwd, PERF.md):
+//     all that shared-memory accumulator windows could win back, before
+//     their boxes, barriers and compare-and-swap adds (the tiled K5-fused
+//     below), so they were not built. Runs of 16 hypotheses ran faster than
+//     runs of 8 or 48 at the training shape, which has ~16x fewer (view,
+//     pixel) pairs than the inference shape.
+//   - d ref takes one float4 atomic row per (view, pixel, run).
+//   - Everything sums in float32; the atomics' order varies from run to run.
+
+// fused and var (sweep_bwd_tile_kernel). Direct kernels, one thread per
+// (view, pixel, chunk of hypotheses), scattered every tap as C/4 float4
+// atomics into L2, which held most of their time (PERF.md §6 gives the
+// measurement).
 // This kernel takes K2/K4's tile (sweep_fuse.cu::sweep_tile_kernel) and
 // moves the scatter into shared memory:
 //   - A 256-thread block owns a 32-wide tile of reference pixels (32x8 at C
@@ -109,12 +135,9 @@ using adamvs::cp_async_commit;
 using adamvs::cp_async_wait;
 using adamvs::load8_shared;
 using adamvs::Row;
-using adamvs::Taps;
 using adamvs::to_f32;
 using adamvs::Window;
 
-constexpr int kThreads = 128;
-constexpr int kDChunk = 8;
 constexpr int kMaxViews = 16;
 
 // dst[0..C) += v[0..C) (float32, 16-byte aligned) as float4 vector atomics,
@@ -127,61 +150,93 @@ __device__ __forceinline__ void atomic_add_row(float* dst, const float* v) {
     atomicAdd(q + i, make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]));
 }
 
-// dst [H*W, C] float32 += w_k * row at each valid tap k of t.
-template <int C>
-__device__ __forceinline__ void scatter_taps(float* __restrict__ dst, const Taps& t,
-                                             const float* row) {
-  float v[C];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (t.idx[k] >= 0) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) v[c] = __fmul_rn(t.w[k], row[c]);
-      atomic_add_row<C>(dst + static_cast<size_t>(t.idx[k]) * C, v);
-    }
-  }
-}
+// --- corr: the walk ----------------------------------------------------------
+
+constexpr int kWalkThreads = 128;
+constexpr int kRun = 16;  // hypotheses a thread walks
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-corr_bwd_kernel(const float* __restrict__ gout, const T* __restrict__ ref,
-                const T* __restrict__ src, const float* __restrict__ geom,
-                const float* __restrict__ lo, const float* __restrict__ step,
-                float* __restrict__ dref, float* __restrict__ dsrc, int B, int h, int w, int H,
-                int W, int D) {
+__global__ void __launch_bounds__(kWalkThreads, 4)
+corr_walk_bwd_kernel(const float* __restrict__ gout, const T* __restrict__ ref,
+                     const T* __restrict__ src, const float* __restrict__ geom,
+                     const float* __restrict__ lo, const float* __restrict__ step,
+                     float* __restrict__ dref, float* __restrict__ dsrc, int* __restrict__ stats,
+                     int B, int h, int w, int H, int W, int D) {
   const int hw = h * w;
-  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  const int pix = blockIdx.x * kWalkThreads + threadIdx.x;
   const int vb = blockIdx.y;  // v * B + b
   const int b = vb % B;
   __shared__ float g[12];
   if (threadIdx.x < 12) g[threadIdx.x] = geom[vb * 12 + threadIdx.x];
   __syncthreads();
   if (pix >= hw) return;
-  const float x = static_cast<float>(pix % w), y = static_cast<float>(pix / w);
   const size_t bp = static_cast<size_t>(b) * hw + pix;
-  float r[C];
-  Row<T, C>::load(ref + bp * C, r);
+  // d ref in registers; ref itself is read again at each flush (L1), which
+  // leaves the registers to d ref
+  const T* rp = ref + bp * C;
+  float a[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] = 0.f;
+  float rxyz[3];
+  adamvs::rot_xyz(g, static_cast<float>(pix % w), static_cast<float>(pix / w), rxyz);
+  const float t[3] = {g[9], g[10], g[11]};
   const float l = lo[bp], st = step[bp];
-  const size_t view = static_cast<size_t>(vb) * H * W * C;
-  const int d0 = blockIdx.z * kDChunk;
-  const int d1 = min(D, d0 + kDChunk);
-  float acc[C], xs[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  for (int d = d0; d < d1; ++d) {
-    const float gd = __fdiv_rn(gout[(static_cast<size_t>(vb) * D + d) * hw + pix],
-                               static_cast<float>(C));
-    const float hyp = __fadd_rn(l, __fmul_rn(static_cast<float>(d), st));
-    const Taps t = adamvs::sweep_taps(g, x, y, hyp, H, W);
-    adamvs::gather_taps<T, C>(src + view, t, xs);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc[c] = fmaf(gd, xs[c], acc[c]);
-      xs[c] = __fmul_rn(gd, r[c]);
+  const size_t view = static_cast<size_t>(vb) * H * W * C;  // one view, < 2^31 elements
+  const T* s = src + view;
+  float* ds = dsrc + view;
+  const int d0 = blockIdx.z * kRun, d1 = min(D, d0 + kRun);
+  const float* gp = gout + (static_cast<size_t>(vb) * D + d0) * hw + pix;
+  // the held tap set: corner (hx, hy) and each tap's coefficient (0: nothing
+  // to flush)
+  int hx = 0, hy = 0, flushes = 0;
+  float coef[4] = {0.f, 0.f, 0.f, 0.f};
+  // one step past the run flushes what is held
+  for (int d = d0; d <= d1; ++d, gp += hw) {
+    float2 uv = make_float2(-1e9f, -1e9f);  // past the run: no tap
+    float gd = 0.f;
+    if (d < d1) {
+      gd = __fdiv_rn(*gp, static_cast<float>(C));
+      uv = adamvs::sweep_position(rxyz, t, __fadd_rn(l, __fmul_rn(static_cast<float>(d), st)));
     }
-    scatter_taps<C>(dsrc + view, t, xs);
+    const adamvs::TapGrid c = adamvs::bilinear_tap_grid(H, W, uv.x, uv.y);
+    const bool some = adamvs::any_tap(c);
+    const int ddx = some ? c.x0 - hx : 0, ddy = some ? c.y0 - hy : 0;
+    const int stay = some ? adamvs::staying(ddx, ddy) : 0;
+    // flush the held taps that leave: d src_q += a_q ref, d ref += a_q s_q
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const float aq = adamvs::pick4(coef, j);
+      if ((stay >> j & 1) || aq == 0.f) continue;
+      const int q = ((hy + (j >> 1)) * W + hx + (j & 1)) * C;
+#pragma unroll
+      for (int i = 0; i < C / 8; ++i) {
+        float v[8], rv[8];
+        Row<T, 8>::load(s + q + 8 * i, v);
+        Row<T, 8>::load(rp + 8 * i, rv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a[8 * i + e] = fmaf(aq, v[e], a[8 * i + e]);
+        float4* dq = reinterpret_cast<float4*>(ds + q + 8 * i);
+        atomicAdd(dq, make_float4(__fmul_rn(aq, rv[0]), __fmul_rn(aq, rv[1]),
+                                  __fmul_rn(aq, rv[2]), __fmul_rn(aq, rv[3])));
+        atomicAdd(dq + 1, make_float4(__fmul_rn(aq, rv[4]), __fmul_rn(aq, rv[5]),
+                                      __fmul_rn(aq, rv[6]), __fmul_rn(aq, rv[7])));
+      }
+      ++flushes;
+    }
+    // the staying taps' coefficients at their new index, the new taps' from 0
+    adamvs::move_values(coef, ddx, ddy);
+    const int kept = adamvs::move_bits(stay, ddx, ddy);
+    const int taps = adamvs::walk_taps(c);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!(kept >> k & 1)) coef[k] = 0.f;
+      if (taps >> k & 1) coef[k] = fmaf(c.w[k], gd, coef[k]);
+    }
+    hx = c.x0, hy = c.y0;
   }
-  atomic_add_row<C>(dref + bp * C, acc);
+  if (flushes) atomic_add_row<C>(dref + bp * C, a);
+  // the samples walked and the flushes
+  if (stats != nullptr) adamvs::add_walk_counts(stats, d1 - d0, flushes);
 }
 
 // --- fused and var: 2-D tiles with d srcs accumulated in shared memory -------
@@ -293,7 +348,7 @@ sweep_bwd_tile_kernel(const T* __restrict__ gout, const T* __restrict__ ref,
   };
 
   // This pixel's sample position at hypothesis d0 + j in view vv, in the
-  // order of common.cuh::sweep_taps: (-1e9, -1e9), no tap, behind the camera
+  // order of common.cuh::sweep_position: (-1e9, -1e9), no tap, behind the camera
   // (as the plain version) or past D. prepare() reduces the box from it and
   // sample() computes it again, which costs a few instructions per sample and
   // leaves the registers to the tap sums.
@@ -302,18 +357,10 @@ sweep_bwd_tile_kernel(const T* __restrict__ gout, const T* __restrict__ ref,
     const int d = d0 + j;
     float2 uv = make_float2(-1e9f, -1e9f);
     if (own && d < D) {
-      float rxyz[3];  // rot.[x,y,1]
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        rxyz[i] = __fadd_rn(__fadd_rn(__fmul_rn(gv[3 * i], static_cast<float>(px)),
-                                      __fmul_rn(gv[3 * i + 1], static_cast<float>(py))),
-                            gv[3 * i + 2]);
-      const float hyp = __fadd_rn(lq, __fmul_rn(static_cast<float>(d), sq));
-      const float pz = __fadd_rn(__fmul_rn(rxyz[2], hyp), gv[11]);
-      if (pz > 1e-6f) {
-        uv.x = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[0], hyp), gv[9]), pz);
-        uv.y = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[1], hyp), gv[10]), pz);
-      }
+      float rxyz[3];
+      adamvs::rot_xyz(gv, static_cast<float>(px), static_cast<float>(py), rxyz);
+      uv = adamvs::sweep_position(rxyz, gv + 9,
+                                  __fadd_rn(lq, __fmul_rn(static_cast<float>(d), sq)));
     }
     return uv;
   };
@@ -613,13 +660,13 @@ sweep_bwd_tile_kernel(const T* __restrict__ gout, const T* __restrict__ ref,
 template <typename T, int C>
 int launch_corr(int Vs, int B, int h, int w, int H, int W, int D, const void* g, const void* ref,
                 const void* src, const void* geom, const void* lo, const void* step, void* dref,
-                void* dsrc, cudaStream_t s) {
-  const dim3 grid((h * w + kThreads - 1) / kThreads, Vs * B, (D + kDChunk - 1) / kDChunk);
-  corr_bwd_kernel<T, C><<<grid, kThreads, 0, s>>>(
+                void* dsrc, void* stats, cudaStream_t s) {
+  const dim3 grid((h * w + kWalkThreads - 1) / kWalkThreads, Vs * B, (D + kRun - 1) / kRun);
+  corr_walk_bwd_kernel<T, C><<<grid, kWalkThreads, 0, s>>>(
       static_cast<const float*>(g), static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(geom), static_cast<const float*>(lo),
-      static_cast<const float*>(step), static_cast<float*>(dref), static_cast<float*>(dsrc), B, h,
-      w, H, W, D);
+      static_cast<const float*>(step), static_cast<float*>(dref), static_cast<float*>(dsrc),
+      static_cast<int*>(stats), B, h, w, H, W, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -646,11 +693,17 @@ int launch_tile(int Vs, int B, int h, int w, int H, int W, int D, const void* g,
 template <typename T>
 int corr_for_channels(int C, int Vs, int B, int h, int w, int H, int W, int D, const void* g,
                       const void* ref, const void* src, const void* geom, const void* lo,
-                      const void* step, void* dref, void* dsrc, cudaStream_t s) {
+                      const void* step, void* dref, void* dsrc, void* stats, cudaStream_t s) {
   switch (C) {
-    case 8: return launch_corr<T, 8>(Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step, dref, dsrc, s);
-    case 16: return launch_corr<T, 16>(Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step, dref, dsrc, s);
-    case 32: return launch_corr<T, 32>(Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step, dref, dsrc, s);
+    case 8:
+      return launch_corr<T, 8>(Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step, dref, dsrc,
+                               stats, s);
+    case 16:
+      return launch_corr<T, 16>(Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step, dref, dsrc,
+                                stats, s);
+    case 32:
+      return launch_corr<T, 32>(Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step, dref, dsrc,
+                                stats, s);
     default: return adamvs::kBadChannels;
   }
 }
@@ -692,18 +745,20 @@ int tile_for_dtype(int dtype, int Vs, int B, int h, int w, int H, int W, int C, 
 
 }  // namespace
 
-// K5, corr. dref and dsrc must be zeroed float32. Returns 0 or the launch error.
+// K5, corr. dref and dsrc must be zeroed float32; `stats` may be null: when
+// it is not, the kernel adds the samples it walked to stats[0] and its
+// flushes to stats[1]. Returns 0 or the launch error.
 extern "C" int adamvs_corr_sweep_bwd(int dtype, int Vs, int B, int h, int w, int H, int W, int C,
                                      int D, const void* g, const void* ref, const void* src,
                                      const void* geom, const void* lo, const void* step,
-                                     void* dref, void* dsrc, void* stream) {
+                                     void* dref, void* dsrc, void* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == adamvs::kFloat32)
     return corr_for_channels<float>(C, Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step, dref,
-                                    dsrc, s);
+                                    dsrc, stats, s);
   if (dtype == adamvs::kBFloat16)
     return corr_for_channels<__nv_bfloat16>(C, Vs, B, h, w, H, W, D, g, ref, src, geom, lo, step,
-                                            dref, dsrc, s);
+                                            dref, dsrc, stats, s);
   return adamvs::kBadDtype;
 }
 

@@ -15,11 +15,45 @@
 // are TPU artefacts and are not copied: every in-image tap is read, where the
 // TPU kernel zeroes samples that leave its band.
 //
-// K1: one thread per (view, batch, reference pixel, chunk of 8 hypotheses),
-// 128-thread blocks along the flattened pixel index. The thread keeps the
-// reference features in registers and gathers each sample's four taps as
-// 16-byte vector loads straight from the NHWC source (common.cuh::
-// gather_taps). Its bound on an H100 is the tap arithmetic (operations).
+// K1: the walk. What bounds it: its output (Vs*D float32 per reference pixel,
+// 245 MB per bf16 map at the inference shape) and its inputs (102 MB), moved
+// once, 0.104 ms at 3.35 TB/s; its least arithmetic is about half of that
+// (chip_smoke.py::sweep_bound). A kernel that gathers four C-channel taps per
+// sample and does 5C multiply-adds (the bilinear sample, then its dot product
+// with ref) took 2.77 ms per map (PERF.md). But the output is one scalar per
+// sample: mean_C(ref * sum_k w_k s_k) = sum_k w_k (ref . s_k) / C, so the
+// C-wide work is one dot product ref . s_q per source pixel q that a tap
+// touches, and a reference pixel's taps over the hypotheses slide along its
+// epipolar line, touching each source pixel at several hypotheses in a row.
+//   - A thread owns one (view, batch, reference pixel) and a run of kRun
+//     hypotheses, which it walks in order; the threads of a warp are 32
+//     neighbouring pixels of a row, so the output stores of a hypothesis are
+//     coalesced and the warp's taps lie side by side in the source. The
+//     thread keeps the reference row (C floats) in registers. Runs of all 48
+//     hypotheses of the stage-1 sweep ran faster than runs of 8 or 16
+//     (chip_smoke.py --ablate corr); 128-thread blocks leave room for five
+//     blocks per SM at the bf16 C32 instance's 96 registers.
+//   - Per sample it computes the source position and the four tap weights
+//     (common.cuh::sweep_position and bilinear_tap_grid, the plain version's
+//     rounding) and holds the 2x2 tap set: the corner (x0, y0) and each
+//     tap's dot product, if known.
+//     A tap of the new set that was in the held set (the corner moved by at
+//     most one pixel in x and y) takes its dot product from there; a tap that
+//     counts (in the image, weight not 0: common.cuh::walk_taps) and was not
+//     held costs one C-wide dot product of 16-byte loads through L1. Under
+//     the bench's camera a sample costs about half of one (tests/
+//     test_torch_port_corr_walk.py and the kernel's own count), against 4
+//     taps (4C multiply-adds for the sample, C for its product with ref).
+//   - A sample behind the camera or with no tap in the image writes 0 and
+//     ends the held set.
+//   - Sums stay float32: each dot product in four partial sums, the taps in
+//     order; float32 agreement with the plain version ~1e-7 of its largest
+//     value (only the order of the sums differs).
+// With the C-wide work cut so, the kernel is held by its per-sample
+// instructions (the position's two IEEE divisions, the tap set's
+// bookkeeping) more than by its row loads or its stores (chip_smoke.py
+// --ablate corr, PERF.md); the source rows stay in L1/L2 rather than in
+// shared-memory windows.
 //
 // K2 and K4: what bounds them. Each sample reads four taps of a C-channel
 // source row, about 47 GB of taps per bf16 depth map over the three stages,
@@ -44,7 +78,7 @@
 //     stores are coalesced. The chunks of a tile are neighbouring blocks, so
 //     they find the tile's source footprint in L2.
 //   - Per source view the block computes every sample's source position (the
-//     plain version's rounding order, as common.cuh::sweep_taps) into shared
+//     plain version's rounding order, common.cuh::sweep_position) into shared
 //     memory, reduces the box of all in-image taps (samples behind the
 //     camera and taps outside the image do not widen it), and copies the box
 //     with a ring of one pixel into shared memory with cp.async 16-byte
@@ -79,9 +113,11 @@
 // [Vs*B,12] float32 (rot row-major, then trans), lo/step [B,h,w] float32,
 // wn [B,Vs,h,w] float32. K1 writes float32 [Vs,B,D,h,w]; K2 and K4 write the
 // feature dtype as [D,B,C,h,w], the layout the regularisers read one depth
-// slice [B,C,h,w] at a time. K2 and K4 take an optional int[2] `stats`: when
-// it is not null, each block adds, per source view, 1 to stats[0] and, if the
-// view's window was gathered directly, 1 to stats[1].
+// slice [B,C,h,w] at a time. Every mode takes an optional int[2] `stats`:
+// when it is not null, K2 and K4 add, per block and source view, 1 to
+// stats[0] and, if the view's window was gathered directly, 1 to stats[1]; K1
+// adds the samples it walked to stats[0] and the C-wide dot products it
+// computed to stats[1].
 
 #include <climits>
 #include <type_traits>
@@ -98,49 +134,84 @@ using adamvs::Row;
 using adamvs::store;
 using adamvs::Window;
 
-constexpr int kThreads = 128;
-constexpr int kDChunk = 8;
 constexpr int kMaxViews = 16;
 
-// Bilinear sample (zeros padding) of src [H,W,C] at the source position of
-// reference pixel (x, y) at depth hyp (common.cuh::sweep_taps).
+// --- K1: the walk ------------------------------------------------------------
+
+constexpr int kWalkThreads = 128;
+constexpr int kRun = 48;  // hypotheses a thread walks
+
+// ref . the C channels at p (NHWC source row), in four partial sums.
 template <typename T, int C>
-__device__ __forceinline__ void warp_sample(const T* __restrict__ src, int H, int W,
-                                            const float* g, float x, float y, float hyp,
-                                            float* out) {
-  adamvs::gather_taps<T, C>(src, adamvs::sweep_taps(g, x, y, hyp, H, W), out);
+__device__ __forceinline__ float row_dot(const T* __restrict__ p, const float* r) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < C / 8; ++i) {
+    float v[8];
+    Row<T, 8>::load(p + 8 * i, v);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[c & 3] = fmaf(r[8 * i + c], v[c], s[c & 3]);
+  }
+  return __fadd_rn(__fadd_rn(s[0], s[1]), __fadd_rn(s[2], s[3]));
 }
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-corr_kernel(const T* __restrict__ ref, const T* __restrict__ src, const float* __restrict__ geom,
-            const float* __restrict__ lo, const float* __restrict__ step, float* __restrict__ out,
-            int B, int h, int w, int H, int W, int D) {
+__global__ void __launch_bounds__(kWalkThreads, 4)
+corr_walk_kernel(const T* __restrict__ ref, const T* __restrict__ src,
+                 const float* __restrict__ geom, const float* __restrict__ lo,
+                 const float* __restrict__ step, float* __restrict__ out, int* __restrict__ stats,
+                 int B, int h, int w, int H, int W, int D) {
   const int hw = h * w;
-  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  const int pix = blockIdx.x * kWalkThreads + threadIdx.x;
   const int vb = blockIdx.y;  // v * B + b
   const int b = vb % B;
   __shared__ float g[12];
   if (threadIdx.x < 12) g[threadIdx.x] = geom[vb * 12 + threadIdx.x];
   __syncthreads();
   if (pix >= hw) return;
-  const float x = static_cast<float>(pix % w), y = static_cast<float>(pix / w);
   const size_t bp = static_cast<size_t>(b) * hw + pix;
   float r[C];
   Row<T, C>::load(ref + bp * C, r);
+  float rxyz[3];
+  adamvs::rot_xyz(g, static_cast<float>(pix % w), static_cast<float>(pix / w), rxyz);
+  const float t[3] = {g[9], g[10], g[11]};
   const float l = lo[bp], st = step[bp];
-  const T* s = src + static_cast<size_t>(vb) * H * W * C;
-  const int d0 = blockIdx.z * kDChunk;
-  const int d1 = min(D, d0 + kDChunk);
-  float wv[C];
-  for (int d = d0; d < d1; ++d) {
+  const T* s = src + static_cast<size_t>(vb) * H * W * C;  // one view's source, < 2^31 elements
+  const int d0 = blockIdx.z * kRun, d1 = min(D, d0 + kRun);
+  float* o = out + (static_cast<size_t>(vb) * D + d0) * hw + pix;
+  // the held tap set: corner (hx, hy), tap j's dot product dot[j] where bit j
+  // of `held` is set
+  int hx = 0, hy = 0, held = 0, dots = 0;
+  float dot[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int d = d0; d < d1; ++d, o += hw) {
     const float hyp = __fadd_rn(l, __fmul_rn(static_cast<float>(d), st));
-    warp_sample<T, C>(s, H, W, g, x, y, hyp, wv);
+    const float2 uv = adamvs::sweep_position(rxyz, t, hyp);
+    const adamvs::TapGrid c = adamvs::bilinear_tap_grid(H, W, uv.x, uv.y);
     float acc = 0.f;
+    if (adamvs::any_tap(c)) {
+      const int ddx = c.x0 - hx, ddy = c.y0 - hy;
+      if (ddx != 0 || ddy != 0) {
+        held = adamvs::move_bits(held & adamvs::staying(ddx, ddy), ddx, ddy);
+        adamvs::move_values(dot, ddx, ddy);
+        hx = c.x0, hy = c.y0;
+      }
+      const int taps = adamvs::walk_taps(c), need = taps & ~held;
+      const T* q = s + (c.y0 * W + c.x0) * C;
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc = fmaf(r[c], wv[c], acc);
-    out[(static_cast<size_t>(vb) * D + d) * hw + pix] = acc / static_cast<float>(C);
+      for (int k = 0; k < 4; ++k)
+        if (need >> k & 1) dot[k] = row_dot<T, C>(q + ((k >> 1) * W + (k & 1)) * C, r);
+      held |= need;
+      dots += __popc(need);
+      // the taps that count, in order (0 * a held finite dot product adds nothing)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc = fmaf(taps >> k & 1 ? c.w[k] : 0.f, dot[k], acc);
+    } else {
+      held = 0;
+    }
+    *o = acc / static_cast<float>(C);
   }
+  // the samples walked and the C-wide dot products
+  if (stats != nullptr) adamvs::add_walk_counts(stats, d1 - d0, dots);
 }
 
 // --- K2 and K4: 2-D tiles over source windows in shared memory ---------------
@@ -261,31 +332,23 @@ sweep_tile_kernel(const T* __restrict__ ref, const T* __restrict__ src,
     // in v), over the samples that have some.
     const int q = tid % P, x = tx0 + q % kTileW, y = ty0 + q / kTileW;
     const bool in = x < w && y < h;
-    float rxyz[3];  // rot.[x,y,1], in the order of common.cuh::sweep_taps
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      rxyz[i] = __fadd_rn(__fadd_rn(__fmul_rn(gv[3 * i], static_cast<float>(x)),
-                                    __fmul_rn(gv[3 * i + 1], static_cast<float>(y))),
-                          gv[3 * i + 2]);
+    float rxyz[3];
+    adamvs::rot_xyz(gv, static_cast<float>(x), static_cast<float>(y), rxyz);
     const float lq = lo_s[q], sq = st_s[q], fw = static_cast<float>(W), fh = static_cast<float>(H);
     float umin = 3e38f, vmin = 3e38f, umax = -3e38f, vmax = -3e38f;
     int d = d0 + tid / P;
 #pragma unroll 2
     for (int k = 0; k < S::kSamples / kTileThreads; ++k, d += kTileThreads / P) {
-      float u = -1e9f, v = -1e9f;  // no tap, as the plain version's behind-camera samples
+      float2 uv = make_float2(-1e9f, -1e9f);  // no tap: past D
       if (in && d < D) {
         const float hyp = __fadd_rn(lq, __fmul_rn(static_cast<float>(d), sq));
-        const float pz = __fadd_rn(__fmul_rn(rxyz[2], hyp), gv[11]);
-        if (pz > 1e-6f) {
-          u = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[0], hyp), gv[9]), pz);
-          v = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[1], hyp), gv[10]), pz);
-          if (u >= -1.f && u < fw && v >= -1.f && v < fh) {
-            umin = fminf(umin, u), umax = fmaxf(umax, u);
-            vmin = fminf(vmin, v), vmax = fmaxf(vmax, v);
-          }
+        uv = adamvs::sweep_position(rxyz, gv + 9, hyp);
+        if (uv.x >= -1.f && uv.x < fw && uv.y >= -1.f && uv.y < fh) {
+          umin = fminf(umin, uv.x), umax = fmaxf(umax, uv.x);
+          vmin = fminf(vmin, uv.y), vmax = fmaxf(vmax, uv.y);
         }
       }
-      cv[tid + k * kTileThreads] = make_float2(u, v);
+      cv[tid + k * kTileThreads] = uv;
     }
     // empty: x0 > x1 (INT_MAX / INT_MIN); else exact small integers
     const bool none = umin > umax;
@@ -449,12 +512,13 @@ sweep_tile_kernel(const T* __restrict__ ref, const T* __restrict__ src,
 
 template <typename T, int C>
 int launch_corr(int Vs, int B, int h, int w, int H, int W, int D, const void* ref, const void* src,
-                const void* geom, const void* lo, const void* step, void* out, cudaStream_t s) {
-  const dim3 grid((h * w + kThreads - 1) / kThreads, Vs * B, (D + kDChunk - 1) / kDChunk);
-  corr_kernel<T, C><<<grid, kThreads, 0, s>>>(
+                const void* geom, const void* lo, const void* step, void* out, void* stats,
+                cudaStream_t s) {
+  const dim3 grid((h * w + kWalkThreads - 1) / kWalkThreads, Vs * B, (D + kRun - 1) / kRun);
+  corr_walk_kernel<T, C><<<grid, kWalkThreads, 0, s>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src), static_cast<const float*>(geom),
-      static_cast<const float*>(lo), static_cast<const float*>(step), static_cast<float*>(out), B, h,
-      w, H, W, D);
+      static_cast<const float*>(lo), static_cast<const float*>(step), static_cast<float*>(out),
+      static_cast<int*>(stats), B, h, w, H, W, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -512,27 +576,31 @@ int tile_for_dtype(int dtype, int Vs, int B, int h, int w, int H, int W, int C, 
 template <typename T>
 int corr_for_channels(int C, int Vs, int B, int h, int w, int H, int W, int D, const void* ref,
                       const void* src, const void* geom, const void* lo, const void* step,
-                      void* out, cudaStream_t s) {
+                      void* out, void* stats, cudaStream_t s) {
   switch (C) {
-    case 8: return launch_corr<T, 8>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
-    case 16: return launch_corr<T, 16>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
-    case 32: return launch_corr<T, 32>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
+    case 8: return launch_corr<T, 8>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, stats, s);
+    case 16:
+      return launch_corr<T, 16>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, stats, s);
+    case 32:
+      return launch_corr<T, 32>(Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, stats, s);
     default: return adamvs::kBadChannels;
   }
 }
 
 }  // namespace
 
-// K1. Returns 0 or the launch error.
+// K1. `stats` may be null. Returns 0 or the launch error.
 extern "C" int adamvs_corr_sweep(int dtype, int Vs, int B, int h, int w, int H, int W, int C, int D,
                                  const void* ref, const void* src, const void* geom,
-                                 const void* lo, const void* step, void* out, void* stream) {
+                                 const void* lo, const void* step, void* out, void* stats,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == adamvs::kFloat32)
-    return corr_for_channels<float>(C, Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, s);
+    return corr_for_channels<float>(C, Vs, B, h, w, H, W, D, ref, src, geom, lo, step, out, stats,
+                                    s);
   if (dtype == adamvs::kBFloat16)
     return corr_for_channels<__nv_bfloat16>(C, Vs, B, h, w, H, W, D, ref, src, geom, lo, step,
-                                            out, s);
+                                            out, stats, s);
   return adamvs::kBadDtype;
 }
 

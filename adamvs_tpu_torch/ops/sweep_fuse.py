@@ -22,6 +22,10 @@ plain forms, the JAX "recompute-by-gather". Gradients reach ref, the sources
 and the weights; the projections, ``lo`` and ``step`` get none, as the
 sample positions carry no gradient (JAX gives them zeros).
 
+The training forms compute the kernels' geometry (``sweep_geometry``, a
+batched 4x4 inverse that waits for the card) once per forward and hand it to
+the backward (the ``geom`` argument of the wrappers).
+
 Widths: the sweeps take every C with ``128 % C == 0``, as the JAX package's
 do. A launch takes 8, 16 or 32 channels, so the CUDA path pads narrower
 features with zeros and runs wider ones as channel groups of 32, one launch
@@ -164,7 +168,7 @@ def var_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int, blo
 def bind_sweeps(lib):
     """(lib, {mode: C entry}) of a library built from ``csrc/sweep_fuse.cu``."""
     return lib, {
-        "corr": build.bind(lib, "adamvs_corr_sweep", n_ptr=6, n_int=9),
+        "corr": build.bind(lib, "adamvs_corr_sweep", n_ptr=7, n_int=9),
         "fused": build.bind(lib, "adamvs_fused_sweep", n_ptr=8, n_int=9),
         "var": build.bind(lib, "adamvs_var_sweep", n_ptr=7, n_int=9),
     }
@@ -173,7 +177,7 @@ def bind_sweeps(lib):
 def bind_sweep_bwd(lib):
     """(lib, {mode: C entry}) of a library built from ``csrc/sweep_bwd.cu``."""
     return lib, {
-        "corr": build.bind(lib, "adamvs_corr_sweep_bwd", n_ptr=8, n_int=9),
+        "corr": build.bind(lib, "adamvs_corr_sweep_bwd", n_ptr=9, n_int=9),
         "fused": build.bind(lib, "adamvs_fused_sweep_bwd", n_ptr=11, n_int=9),
         "var": build.bind(lib, "adamvs_var_sweep_bwd", n_ptr=9, n_int=9),
     }
@@ -212,6 +216,18 @@ def _check_inputs(ref, srcs, src_projs, ref_proj, lo, step):
     if src_projs.device != ref.device or ref_proj.device != ref.device:
         raise ValueError("projections must be on the features' device")
     return Vs, B, H, W, C, h, w
+
+
+def _geometry(geom, src_projs, ref_proj, Vs, B, device) -> torch.Tensor:
+    """``geom`` [Vs*B,12] float32 as ``sweep_geometry`` packs it, checked, or
+    ``sweep_geometry`` of the projections when it is None."""
+    if geom is None:
+        return sweep_geometry(src_projs, ref_proj)
+    if (geom.dtype != torch.float32 or tuple(geom.shape) != (Vs * B, 12) or geom.device != device
+            or not geom.is_contiguous()):
+        raise ValueError(f"geom must be contiguous float32 [{Vs * B},12] on {device}, got "
+                         f"{geom.dtype} {tuple(geom.shape)} on {geom.device}")
+    return geom
 
 
 def run_groups(mode: str, ref, srcs, launch, g=None, g_dim: int = 2) -> tuple[list, int]:
@@ -280,8 +296,8 @@ def _launch_sweep(wrapper, mode, ref, srcs, geom, lo, step, D, wn=None,
         out = torch.empty((D, B, C, h, w), dtype=ref.dtype, device=ref.device)
     lib, fns = _entries()
     ptrs = [ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(), step.data_ptr()]
-    ptrs += ([] if wn is None else [wn.data_ptr()]) + [out.data_ptr()]
-    ptrs += [] if mode == "corr" else [_stats_ptr(stats, ref.device)]
+    ptrs += [] if wn is None else [wn.data_ptr()]
+    ptrs += [out.data_ptr(), _stats_ptr(stats, ref.device)]
     err = fns[mode](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, D, *ptrs,
                     torch.cuda.current_stream(ref.device).cuda_stream)
     build.check(lib, err, wrapper.__name__)
@@ -289,14 +305,19 @@ def _launch_sweep(wrapper, mode, ref, srcs, geom, lo, step, D, wn=None,
     return out
 
 
-def corr_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int) -> torch.Tensor:
-    """K1: [Vs,B,D,h,w] float32 correlation volumes (see ``corr_volume_ref``)."""
+def corr_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int,
+                      stats: torch.Tensor | None = None,
+                      geom: torch.Tensor | None = None) -> torch.Tensor:
+    """K1: [Vs,B,D,h,w] float32 correlation volumes (see ``corr_volume_ref``).
+    ``stats`` counts the samples the kernel walked and its dot products
+    (``_stats_ptr``); ``geom`` is ``sweep_geometry`` of the projections,
+    computed when None."""
     if ref.device.type == "cpu":
         return corr_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth)
-    _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
-    geom = sweep_geometry(src_projs, ref_proj)
+    Vs, B = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)[:2]
+    geom = _geometry(geom, src_projs, ref_proj, Vs, B, ref.device)
     outs, G = run_groups("corr", ref, srcs, lambda r, s, _: _launch_sweep(
-        corr_sweep_volume, "corr", r, s, geom, lo, step, num_depth))
+        corr_sweep_volume, "corr", r, s, geom, lo, step, num_depth, stats=stats))
     return merge_volumes("corr", outs, ref.shape[-1], G)
 
 
@@ -324,11 +345,13 @@ def _check_weights(wn, Vs, B, h, w, device):
 
 
 def _stats_ptr(stats, device) -> int:
-    """The pointer of an optional int32 [2] CUDA tensor to which a K2, K4,
-    K5-fused or K5-var launch adds, per (block, source window), 1 to
-    ``stats[0]`` and, where the window exceeded the block's shared memory and
-    its taps were gathered (and, for K5, scattered) in device memory, 1 to
-    ``stats[1]``; 0 (none) for None."""
+    """The pointer of an optional int32 [2] CUDA tensor to which a launch
+    adds its counts; 0 (none) for None. K2, K4, K5-fused and K5-var add, per
+    (block, source window), 1 to ``stats[0]`` and, where the window exceeded
+    the block's shared memory and its taps were gathered (and, for K5,
+    scattered) in device memory, 1 to ``stats[1]``. K1 and K5-corr add the
+    samples they walked to ``stats[0]`` and their C-wide dot products (K1) or
+    flushes (K5-corr) to ``stats[1]``."""
     if stats is None:
         return 0
     if stats.dtype != torch.int32 or tuple(stats.shape) != (2,) or stats.device != device:
@@ -337,13 +360,14 @@ def _stats_ptr(stats, device) -> int:
 
 
 def _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth: int,
-                 stats: torch.Tensor | None = None) -> torch.Tensor:
+                 stats: torch.Tensor | None = None,
+                 geom: torch.Tensor | None = None) -> torch.Tensor:
     """K2 on normalised weights ``wn`` [B,Vs,h,w] float32."""
     if ref.device.type == "cpu":
         return fused_volume_wn(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth)
     Vs, B, H, W, C, h, w = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
     _check_weights(wn, Vs, B, h, w, ref.device)
-    geom = sweep_geometry(src_projs, ref_proj)
+    geom = _geometry(geom, src_projs, ref_proj, Vs, B, ref.device)
     wn = wn.contiguous()
     outs, G = run_groups("fused", ref, srcs, lambda r, s, _: _launch_sweep(
         fused_sweep_volume, "fused", r, s, geom, lo, step, num_depth, wn, stats))
@@ -351,15 +375,16 @@ def _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth: int,
 
 
 def var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth: int,
-                     stats: torch.Tensor | None = None) -> torch.Tensor:
+                     stats: torch.Tensor | None = None,
+                     geom: torch.Tensor | None = None) -> torch.Tensor:
     """K4: [D,B,C,h,w] variance volume in the feature dtype (see
-    ``var_volume_ref``). ``stats`` as for K2 (``_stats_ptr``)."""
+    ``var_volume_ref``). ``stats`` and ``geom`` as for K1 and K2."""
     if ref.device.type == "cpu":
         return var_volume_ref(ref, srcs, src_projs, ref_proj, lo, step, num_depth)
     Vs, B, H, W, C, h, w = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
     if Vs > _MAX_VIEWS:
         raise ValueError(f"var_sweep_volume takes at most {_MAX_VIEWS} source views, got {Vs}")
-    geom = sweep_geometry(src_projs, ref_proj)
+    geom = _geometry(geom, src_projs, ref_proj, Vs, B, ref.device)
     outs, G = run_groups("var", ref, srcs, lambda r, s, _: _launch_sweep(
         var_sweep_volume, "var", r, s, geom, lo, step, num_depth, stats=stats))
     return merge_volumes("var", outs, C, G)
@@ -422,11 +447,10 @@ def _launch_bwd(wrapper, mode, ref, srcs, geom, lo, step, g, D, wn=None, stats=N
     outs = [dref] if wn is None else [dref, torch.zeros((B, Vs, h, w), dtype=torch.float32,
                                                         device=dev)]
     lib, fns = _bwd_entries()
-    tail = [] if mode == "corr" else [_stats_ptr(stats, dev)]
     err = fns[mode](_DTYPE_CODE[ref.dtype], Vs, B, h, w, H, W, C, D, g.data_ptr(),
                     ref.data_ptr(), srcs.data_ptr(), geom.data_ptr(), lo.data_ptr(),
                     step.data_ptr(), *([] if wn is None else [wn.data_ptr()]),
-                    *(t.data_ptr() for t in outs), dsrc.data_ptr(), *tail,
+                    *(t.data_ptr() for t in outs), dsrc.data_ptr(), _stats_ptr(stats, dev),
                     torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, wrapper.__name__)
     wrapper.launches += 1
@@ -434,37 +458,41 @@ def _launch_bwd(wrapper, mode, ref, srcs, geom, lo, step, g, D, wn=None, stats=N
 
 
 def _sweep_bwd(wrapper, mode, g, ref, srcs, src_projs, ref_proj, lo, step, D, wn=None,
-               stats=None):
+               stats=None, geom=None):
     """K5 of ``mode`` over its launch groups: (d ref, d srcs[, d wn]) in the
     primals' dtypes (d wn float32)."""
-    _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)
-    geom = sweep_geometry(src_projs, ref_proj)
+    Vs, B = _check_inputs(ref, srcs, src_projs, ref_proj, lo, step)[:2]
+    geom = _geometry(geom, src_projs, ref_proj, Vs, B, ref.device)
     parts, _ = run_groups(mode, ref, srcs, lambda r, s, gi: _launch_bwd(
         wrapper, mode, r, s, geom, lo, step, gi, D, wn, stats), g)
     dref, dsrc, *dwn = merge_gradients(parts, ref.shape[-1])
     return (dref.to(ref.dtype), dsrc.to(srcs.dtype), *dwn)
 
 
-def corr_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step):
+def corr_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step,
+                          stats: torch.Tensor | None = None, geom: torch.Tensor | None = None):
     """K5, corr: (d ref, d srcs) in the primals' dtypes for the cotangent
-    ``g`` [Vs,B,D,h,w] of ``corr_sweep_volume`` (see ``corr_volume_vjp``)."""
+    ``g`` [Vs,B,D,h,w] of ``corr_sweep_volume`` (see ``corr_volume_vjp``).
+    ``stats`` counts the samples the kernel walked and its flushes
+    (``_stats_ptr``); ``geom`` as for ``corr_sweep_volume``."""
     if ref.device.type == "cpu":
         return corr_volume_vjp(g, ref, srcs, src_projs, ref_proj, lo, step)
     Vs, B, D, h, w = g.shape
     _check_cotangent(g, (srcs.shape[0], ref.shape[0], D) + tuple(ref.shape[1:3]), ref.device)
     return _sweep_bwd(corr_sweep_volume_bwd, "corr", g.float().contiguous(), ref, srcs,
-                      src_projs, ref_proj, lo, step, D)
+                      src_projs, ref_proj, lo, step, D, stats=stats, geom=geom)
 
 
 corr_sweep_volume_bwd.launches = 0
 
 
 def fused_sweep_volume_bwd(g, ref, srcs, wn, src_projs, ref_proj, lo, step,
-                           stats: torch.Tensor | None = None):
+                           stats: torch.Tensor | None = None, geom: torch.Tensor | None = None):
     """K5, fused: (d ref, d srcs, d wn) in the primals' dtypes for the
     cotangent ``g`` [D,B,C,h,w] of ``fused_sweep_volume`` on normalised
     weights ``wn`` (see ``fused_volume_vjp``). ``stats`` counts the kernel's
-    windows (``_stats_ptr``), per (block, view)."""
+    windows (``_stats_ptr``), per (block, view); ``geom`` as for
+    ``corr_sweep_volume``."""
     if ref.device.type == "cpu":
         return fused_volume_vjp(g, ref, srcs, wn, src_projs, ref_proj, lo, step)
     D = g.shape[0]
@@ -472,17 +500,18 @@ def fused_sweep_volume_bwd(g, ref, srcs, wn, src_projs, ref_proj, lo, step,
     _check_cotangent(g, (D, B, C, h, w), ref.device)
     _check_weights(wn, srcs.shape[0], B, h, w, ref.device)
     return _sweep_bwd(fused_sweep_volume_bwd, "fused", g.to(ref.dtype).contiguous(), ref, srcs,
-                      src_projs, ref_proj, lo, step, D, wn.contiguous(), stats)
+                      src_projs, ref_proj, lo, step, D, wn.contiguous(), stats, geom)
 
 
 fused_sweep_volume_bwd.launches = 0
 
 
 def var_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step,
-                         stats: torch.Tensor | None = None):
+                         stats: torch.Tensor | None = None, geom: torch.Tensor | None = None):
     """K5, var: (d ref, d srcs) in the primals' dtypes for the cotangent ``g``
     [D,B,C,h,w] of ``var_sweep_volume`` (see ``var_volume_vjp``). ``stats``
-    counts the kernel's windows (``_stats_ptr``), per (block, view, pass)."""
+    counts the kernel's windows (``_stats_ptr``), per (block, view, pass);
+    ``geom`` as for ``corr_sweep_volume``."""
     if ref.device.type == "cpu":
         return var_volume_vjp(g, ref, srcs, src_projs, ref_proj, lo, step)
     D = g.shape[0]
@@ -491,48 +520,61 @@ def var_sweep_volume_bwd(g, ref, srcs, src_projs, ref_proj, lo, step,
     if srcs.shape[0] > _MAX_VIEWS:
         raise ValueError(f"var_sweep_volume_bwd takes at most {_MAX_VIEWS} source views")
     return _sweep_bwd(var_sweep_volume_bwd, "var", g.to(ref.dtype).contiguous(), ref, srcs,
-                      src_projs, ref_proj, lo, step, D, stats=stats)
+                      src_projs, ref_proj, lo, step, D, stats=stats, geom=geom)
 
 
 var_sweep_volume_bwd.launches = 0
 
 
+def _train_geometry(ref, src_projs, ref_proj):
+    """The geometry a training form's forward hands to its backward: the
+    kernels' (``sweep_geometry``) for CUDA features, None for CPU ones, whose
+    plain versions compute their own."""
+    return None if ref.device.type == "cpu" else sweep_geometry(src_projs, ref_proj)
+
+
 class _CorrSweepT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ref, srcs, src_projs, ref_proj, lo, step, num_depth):
-        ctx.save_for_backward(ref, srcs, src_projs, ref_proj, lo, step)
-        return corr_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth)
+        geom = _train_geometry(ref, src_projs, ref_proj)
+        ctx.save_for_backward(ref, srcs, src_projs, ref_proj, lo, step, geom)
+        return corr_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth, geom=geom)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        dref, dsrcs = corr_sweep_volume_bwd(g, *ctx.saved_tensors)
+        *inputs, geom = ctx.saved_tensors
+        dref, dsrcs = corr_sweep_volume_bwd(g, *inputs, geom=geom)
         return dref, dsrcs, None, None, None, None, None
 
 
 class _FusedSweepT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth):
-        ctx.save_for_backward(ref, srcs, wn, src_projs, ref_proj, lo, step)
-        return _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth)
+        geom = _train_geometry(ref, src_projs, ref_proj)
+        ctx.save_for_backward(ref, srcs, wn, src_projs, ref_proj, lo, step, geom)
+        return _fused_sweep(ref, srcs, wn, src_projs, ref_proj, lo, step, num_depth, geom=geom)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        dref, dsrcs, dwn = fused_sweep_volume_bwd(g, *ctx.saved_tensors)
+        *inputs, geom = ctx.saved_tensors
+        dref, dsrcs, dwn = fused_sweep_volume_bwd(g, *inputs, geom=geom)
         return dref, dsrcs, dwn, None, None, None, None, None
 
 
 class _VarSweepT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ref, srcs, src_projs, ref_proj, lo, step, num_depth):
-        ctx.save_for_backward(ref, srcs, src_projs, ref_proj, lo, step)
-        return var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth)
+        geom = _train_geometry(ref, src_projs, ref_proj)
+        ctx.save_for_backward(ref, srcs, src_projs, ref_proj, lo, step, geom)
+        return var_sweep_volume(ref, srcs, src_projs, ref_proj, lo, step, num_depth, geom=geom)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        dref, dsrcs = var_sweep_volume_bwd(g, *ctx.saved_tensors)
+        *inputs, geom = ctx.saved_tensors
+        dref, dsrcs = var_sweep_volume_bwd(g, *inputs, geom=geom)
         return dref, dsrcs, None, None, None, None, None
 
 

@@ -9,8 +9,8 @@ Phases, in order; any failure exits nonzero:
 
 1. device: the card's name and power limit;
 2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source;
-   registers and spills of each sweep and K5 instance (a K2, K4, K5-fused or
-   K5-var instance must not spill); the atomics in the sweep_bwd library's
+   registers and spills of each sweep and K5 instance (no instance may
+   spill); the atomics in the sweep_bwd library's
    SASS (information); the count of tensor-core instructions (HMMA, HGMMA)
    in the red_scan library's SASS, which must not be 0;
 3. kernels: K1 (corr sweep), K2 (fused sweep), K3 (red-scan recurrence), K4
@@ -18,12 +18,16 @@ Phases, in order; any failure exits nonzero:
    source view) against their plain PyTorch versions at every stage shape
    of the inference paths (2752x1856 frames, V=5, ndepths 48/32/8, base 8),
    in float32 with TF32 off and in bfloat16, with their times (CUDA events,
-   median) and, for K6/K7, F.grid_sample's; for K3 also its TFLOP/s, the
-   bytes its phases move, the card's time in each phase (a trace) and its
-   bf16 error against the float32 plain version (information); then K5, the
-   backward of the sweeps in its three modes (corr, fused, var), against the
-   autograd VJP of the plain volumes at the training stage shapes (384x768
-   crop), float32 and bfloat16, timed in float32; then all of them again at
+   median) and, for K6/K7, F.grid_sample's; for K1 also the kernel's own
+   time (a trace) and the dot products per sample its walk computed; for K3
+   its TFLOP/s, the bytes its phases move, the card's time in each phase (a
+   trace) and its bf16 error against the float32 plain version
+   (information); then K5, the backward of the sweeps in its three modes
+   (corr, fused, var), against the autograd VJP of the plain volumes at the
+   training stage shapes (384x768 crop), float32 and bfloat16, timed in
+   float32 with the forward's geometry handed in, as the training forms
+   call it, and with its own, beside the kernel's own time, the geometry's
+   and the zeroing's (K5-corr also its flushes per sample); then all of them again at
    small ragged shapes (batch 2, rotated views, samples behind the camera
    and outside the image), float32, then the sweeps and K5 at the widths
    they take by padding or channel groups (C 1, 2, 4, 64, 128) and the
@@ -57,9 +61,10 @@ Phases, in order; any failure exits nonzero:
    step timed by phase (upload, forward, backward, update);
 6. the kernels line (JSON), the card line, and the final JSON line.
 
-``python3 chip_smoke.py --ablate [sweep_fuse] [sweep_bwd]`` instead times K2
-and K4 (csrc/sweep_fuse.cu) and K5-fused and K5-var (csrc/sweep_bwd.cu) at
-their stage shapes as built and with parts of their work left out
+``python3 chip_smoke.py --ablate [sweep_fuse] [sweep_bwd] [corr] [corr_bwd]``
+instead times K2 and K4 (csrc/sweep_fuse.cu), K5-fused and K5-var
+(csrc/sweep_bwd.cu), K1 (csrc/sweep_fuse.cu) and K5-corr (csrc/sweep_bwd.cu)
+at their stage shapes as built and with parts of their work left out
 (``ablate``).
 """
 
@@ -208,13 +213,19 @@ def device_busy_ms(fn) -> float:
 
 def device_profile(fn, top: int = 0) -> tuple[float, list]:
     """(``device_busy_ms`` of ``fn``, the ``top`` kernel names by their
-    summed device time as [name, ms, launches])."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    if not busy > 0.0:
+    summed device time as [name, ms, launches]). A trace that shows no
+    device time at all (the profiler has returned such traces now and then)
+    is taken again, up to 3 traces in all."""
+    for attempt in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        if busy > 0.0:
+            break
+        log(f"[profile] trace {attempt + 1} of 3 showed no device time")
+    else:
         fail("the profiler traced no device time")
     events.sort(key=lambda e: -e.self_device_time_total)
     return busy, [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in events[:top]]
@@ -241,18 +252,18 @@ def phase_build() -> None:
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"[build] {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} bytes")
-    sweep = sweep_instances(reports.get("sweep_fuse", ""))
-    for label, regs, spill in sweep:
-        log(f"[build] sweep_fuse {label}: {regs} registers, {spill} bytes spill stores")
-    spilled = [label for label, _, spill in sweep if spill and label.startswith(("K2", "K4"))]
-    if spilled or not sweep:
-        fail(f"K2/K4 instances spill registers or were not reported: {spilled}")
-    bwd = sweep_instances(reports.get("sweep_bwd", ""))
-    for label, regs, spill in bwd:
-        log(f"[build] sweep_bwd {label}: {regs} registers, {spill} bytes spill stores")
-    spilled = [label for label, _, spill in bwd if spill and label.startswith(("K5-fused", "K5-var"))]
-    if spilled or not any(label.startswith("K5-fused") for label, _, _ in bwd):
-        fail(f"K5-fused/K5-var instances spill registers or were not reported: {spilled}")
+    # every instance of the sweeps (K1, K2, K4) and of K5 (corr, fused, var), each
+    # at C 8, 16 and 32 in float32 and bf16, reported and free of spills
+    for source, kinds in (("sweep_fuse", ("K1", "K2", "K4")),
+                          ("sweep_bwd", ("K5-corr", "K5-fused", "K5-var"))):
+        found = sweep_instances(reports.get(source, ""))
+        for label, regs, spill, stack in found:
+            log(f"[build] {source} {label}: {regs} registers, {spill} bytes spill stores, "
+                f"{stack} bytes stack frame")
+        spilled = [label for label, _, spill, _ in found if spill]
+        if spilled or len(found) != 6 * len(kinds):
+            fail(f"{source}: instances spill registers ({spilled}) or {len(found)} of "
+                 f"{6 * len(kinds)} were reported")
     # how the tiled K5's shared-memory float adds compiled (information)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", build._lib_path("sweep_bwd")], capture_output=True,
@@ -270,25 +281,27 @@ def phase_build() -> None:
         fail("the red_scan library has no tensor-core instructions")
 
 
-def sweep_instances(report: str) -> list[tuple[str, int, int]]:
-    """(label, registers, spill store bytes) of each kernel instance in the
-    ptxas report of csrc/sweep_fuse.cu or csrc/sweep_bwd.cu; labels as "K2
-    bf16 C16" or "K5-var f32 C8"."""
-    kinds = {("corr_kernel", None): "K1", ("sweep_tile_kernel", "0"): "K2",
-             ("sweep_tile_kernel", "1"): "K4", ("corr_bwd_kernel", None): "K5-corr",
+def sweep_instances(report: str) -> list[tuple[str, int, int, int]]:
+    """(label, registers, spill store bytes, stack frame bytes) of each
+    kernel instance in the ptxas report of csrc/sweep_fuse.cu or
+    csrc/sweep_bwd.cu; labels as "K2 bf16 C16" or "K5-var f32 C8"."""
+    kinds = {("corr_walk_kernel", None): "K1", ("sweep_tile_kernel", "0"): "K2",
+             ("sweep_tile_kernel", "1"): "K4", ("corr_walk_bwd_kernel", None): "K5-corr",
              ("sweep_bwd_tile_kernel", "0"): "K5-fused", ("sweep_bwd_tile_kernel", "1"): "K5-var"}
     out = []
     for block in report.split("Compiling entry function")[1:]:
-        m = re.search(r"(corr_kernel|sweep_tile_kernel|corr_bwd_kernel|sweep_bwd_tile_kernel)"
+        m = re.search(r"(corr_walk_kernel|sweep_tile_kernel|corr_walk_bwd_kernel"
+                      r"|sweep_bwd_tile_kernel)"
                       r"I(f|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
+        stack = re.search(r"(\d+) bytes stack frame", block)
         if not (m and regs):
             continue
         kind = kinds[m.group(1), m.group(5)]
         dtype = "f32" if m.group(2) == "f" else "bf16"
         out.append((f"{kind} {dtype} C{m.group(3)}", int(regs.group(1)),
-                    int(spill.group(1)) if spill else 0))
+                    int(spill.group(1)) if spill else 0, int(stack.group(1)) if stack else 0))
     return sorted(out)
 
 
@@ -313,6 +326,7 @@ class StageInputs:
     def __init__(self, si: int, gen: torch.Generator, height: int = H, width: int = W,
                  rough: bool = False):
         dev = torch.device(DEV)
+        self.taps = None  # (samples, distinct taps) of the corr sweep (corr_taps)
         s = 2 ** (2 - si)
         self.si, self.h, self.w = si, height // s, width // s
         self.C, self.D = (4, 2, 1)[si] * BASE, NDEPTHS[si]
@@ -350,6 +364,36 @@ def _bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def corr_taps(st: StageInputs) -> tuple[int, int]:
+    """(samples, distinct taps) of the corr sweep on ``st``'s geometry: the
+    Vs*D*h*w samples, and over them, per (view, reference pixel), the source
+    pixels that some hypothesis's bilinear tap reaches in the image with a
+    weight that is not 0, each counted once. A distinct tap is the least
+    C-wide work of K1 (one dot product ref . s_q) and of K5-corr (one
+    scatter a_q ref and one multiply-add a_q s_q): it depends on the data, so
+    it is counted on this run's positions (the plain ``sweep_coords``)."""
+    from adamvs_tpu_torch.ops.warp import sweep_coords
+
+    if st.taps is None:
+        hyp = st.lo[:, None] + torch.arange(st.D, device=DEV)[None, :, None, None] * st.step[:, None]
+        distinct = 0
+        for v in range(V - 1):
+            u, vv = sweep_coords(st.srcs[v], st.src_projs[v], st.ref_proj, hyp)  # [1,D,h,w]
+            u0, v0 = torch.floor(u), torch.floor(vv)
+            du, dv = u - u0, vv - v0
+            keys = []
+            for ox, oy, wt in ((0, 0, (1 - du) * (1 - dv)), (1, 0, du * (1 - dv)),
+                               (0, 1, (1 - du) * dv), (1, 1, du * dv)):
+                x, y = u0 + ox, v0 + oy
+                ok = (x >= 0) & (x <= st.w - 1) & (y >= 0) & (y <= st.h - 1) & (wt != 0)
+                keys.append(torch.where(ok, y * st.w + x, -1.0).long())
+            k = torch.cat(keys, dim=1)[0].flatten(1).t().sort(dim=1).values  # [h*w, 4D]
+            distinct += int(((k[:, 1:] != k[:, :-1]) & (k[:, 1:] >= 0)).sum() + (k[:, 0] >= 0).sum())
+            del u, vv, u0, v0, du, dv, keys, k
+        st.taps = ((V - 1) * st.D * st.h * st.w, distinct)
+    return st.taps
+
+
 def _sweep_work(kind: str, st: StageInputs, dtype) -> tuple[float, float]:
     """(bytes, float32 operations) of the least work of a sweep volume,
     counting a multiply-add as 2.
@@ -358,8 +402,13 @@ def _sweep_work(kind: str, st: StageInputs, dtype) -> tuple[float, float]:
     (hypothesis, pixel), 2; per (view, hypothesis, pixel) p = R.[x,y,1].hyp + t
     (6), u and v (2 divisions), their floors (2), the fractions and their
     complements (4) and the four tap weights (4), 18 in all.
-    K1: mean_C(ref * sum_k w_k s_k) = sum_k w_k (ref . s_k) / C, four length-C
-    dot products (8C) and their weighted sum over C (8) per sample.
+    K1: mean_C(ref * sum_k w_k s_k) = sum_k w_k (ref . s_k) / C: per sample
+    the weighted sum of four dot products (8), and one length-C dot product
+    (2C) per distinct tap (``corr_taps``), not per tap and sample. At the
+    inference shape (bf16, 688x464 C32 D48, Vs 4, the bench geometry: 0.53
+    distinct taps per sample) that is 0.056 ms of arithmetic against 0.104 ms
+    of bytes (102 MB in, 245 MB of float32 volume out): K1 is bound by
+    bytes.
     K2: sum_v w'_v (ref * sum_k w_k s_k) = ref * sum_v sum_k (w'_v w_k) s_k,
     four weight products (4) and four length-C multiply-adds (8C) per sample,
     then the product with ref (C) per (hypothesis, pixel).
@@ -371,8 +420,9 @@ def _sweep_work(kind: str, st: StageInputs, dtype) -> tuple[float, float]:
     nbytes = (1 + Vs) * hw * C * es + 2 * hw * 4
     flops = Vs * hw * 12 + D * hw * 2
     if kind == "K1":
+        samples, distinct = corr_taps(st)
         nbytes += Vs * D * hw * 4
-        flops += Vs * D * hw * (18 + 8 * C + 8)
+        flops += samples * (18 + 8) + distinct * 2 * C
     elif kind == "K2":
         nbytes += Vs * hw * 4 + D * hw * C * es
         flops += Vs * D * hw * (18 + 4 + 8 * C) + D * hw * C
@@ -391,18 +441,27 @@ def sweep_bwd_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
     """Least work of one K5 call, the backward of the sweep ``kind`` (K1, K2
     or K4). Bytes: the cotangent g, ref, the sources, lo, step (and the
     weights) read once; d ref (and d weights) and d srcs written once, in
-    their primals' dtypes. Operations: the forward's tap arithmetic
+    their primals' dtypes. Operations (K2, K4): the forward's tap arithmetic
     (``_sweep_work``), which the backward needs again for the samples it
     multiplies with g, plus one multiply-add per tap, channel and source view
-    for the scatter into d srcs (8C per sample)."""
+    for the scatter into d srcs (8C per sample). K1: no sample is needed, only
+    per sample its coordinates and the four taps' coefficients w_k g / C (26),
+    and per distinct tap (``corr_taps``) the multiply-adds of the scatter
+    d src_q += a_q ref (2C) and of d ref += a_q s_q (2C). At the training
+    shape (float32, 96x192 C32 D48, Vs 4) the bytes, ~38 MB, bound it
+    (0.011 ms); the arithmetic is less."""
     es = torch.tensor([], dtype=dtype).element_size()
     Vs, hw, C, D = V - 1, st.h * st.w, st.C, st.D
-    _, flops = _sweep_work(kind, st, dtype)
+    if kind == "K1":
+        samples, distinct = corr_taps(st)
+        flops = Vs * hw * 12 + D * hw * 2 + samples * (18 + 8) + distinct * 4 * C
+    else:
+        flops = _sweep_work(kind, st, dtype)[1] + Vs * D * hw * 8 * C
     g_bytes = Vs * D * hw * 4 if kind == "K1" else D * hw * C * es
     nbytes = g_bytes + 2 * (1 + Vs) * hw * C * es + 2 * hw * 4
     if kind == "K2":
         nbytes += 2 * Vs * hw * 4
-    return _bound(nbytes, flops + Vs * D * hw * 8 * C, F32_FLOPS)
+    return _bound(nbytes, flops, F32_FLOPS)
 
 
 def sample_bound(st: StageInputs, dtype) -> tuple[float, str]:
@@ -494,7 +553,7 @@ def phase_kernels(reps: int = 3) -> dict:
             timing = {}
             with torch.no_grad():
                 if si == 0:
-                    k1 = lambda: sf.corr_sweep_volume(ref, srcs, *geo)
+                    k1 = lambda **kw: sf.corr_sweep_volume(ref, srcs, *geo, **kw)
                     p1 = lambda: sf.corr_volume_ref(ref, srcs, *geo)
                     record("K1", tn, _compare(f"K1 stage1 {tn}", ("K1", dtype), k1(), p1()))
                     if dtype == torch.bfloat16:
@@ -574,6 +633,17 @@ def phase_kernels(reps: int = 3) -> dict:
                                          "bound_ms": bms, "bound_by": by})
                 log(f"[kernels] {k} stage{si + 1} bf16: {ms:.3f} ms (plain {pms:.3f} ms, "
                     f"bound {bms:.3f} ms by {by})")
+                if k == "K1":
+                    # the kernel's own time on the card (a trace of one call) and the dot
+                    # products its walk computed per sample (the kernel's own count)
+                    _, top = device_profile(k1, top=8)
+                    kms = sum(t for n, t, _ in top if "corr_walk_kernel" in n)
+                    per = walk_counts(k1)
+                    samples, distinct = corr_taps(st)
+                    res[k]["stages"][-1].update(kernel_ms=kms, dots_per_sample=per)
+                    log(f"[kernels] K1 stage1 bf16: the kernel alone {kms:.3f} ms on the card; "
+                        f"{per:.3f} dot products per sample walked (distinct taps "
+                        f"{distinct / samples:.3f} per sample; information, no limit)")
                 if k in shares:
                     res[k]["stages"][-1]["direct_share"] = shares[k]
                     log(f"[kernels] {k} stage{si + 1} bf16: {shares[k]:.2%} of the (block, view) "
@@ -596,6 +666,15 @@ def phase_kernels(reps: int = 3) -> dict:
         del st
         torch.cuda.empty_cache()
     return res
+
+
+def walk_counts(call) -> float:
+    """The C-wide dot products (K1) or flushes (K5-corr) per sample walked of
+    a corr call, from the kernel's own count."""
+    stats = torch.zeros(2, dtype=torch.int32, device=DEV)
+    call(stats=stats)
+    n, m = stats.tolist()
+    return m / max(n, 1)
 
 
 def direct_share(call) -> float:
@@ -804,16 +883,17 @@ def phase_sweep_windows() -> None:
 
 def _k5_calls(mode: str, g, ref, srcs, wn, geo):
     """(kernel, plain) callables of the K5 backward of ``mode`` ("corr",
-    "fused" or "var"); each returns its gradients as a tuple."""
+    "fused" or "var"); each returns its gradients as a tuple, the kernel's
+    taking the wrapper's keyword arguments (``geom``, ``stats``)."""
     from adamvs_tpu_torch.ops import sweep_fuse as sf
 
     if mode == "corr":
-        return (lambda: sf.corr_sweep_volume_bwd(g, ref, srcs, *geo),
+        return (lambda **kw: sf.corr_sweep_volume_bwd(g, ref, srcs, *geo, **kw),
                 lambda: sf.corr_volume_vjp(g, ref, srcs, *geo))
     if mode == "fused":
-        return (lambda: sf.fused_sweep_volume_bwd(g, ref, srcs, wn, *geo),
+        return (lambda **kw: sf.fused_sweep_volume_bwd(g, ref, srcs, wn, *geo, **kw),
                 lambda: sf.fused_volume_vjp(g, ref, srcs, wn, *geo))
-    return (lambda: sf.var_sweep_volume_bwd(g, ref, srcs, *geo),
+    return (lambda **kw: sf.var_sweep_volume_bwd(g, ref, srcs, *geo, **kw),
             lambda: sf.var_volume_vjp(g, ref, srcs, *geo))
 
 
@@ -839,14 +919,17 @@ def phase_k5(res: dict, reps: int = 3) -> None:
     ndepths 48/32/8, base 8: 96x192 C32 D48, 192x384 C16 D32, 384x768 C8
     D8; corr at stage 1 only, as the training path runs it), in float32 with
     TF32 off and in bfloat16, with its float32 times (the training path's
-    dtype), the plain version's and the bound."""
-    from adamvs_tpu_torch.ops.sweep_fuse import normalize_weights
+    dtype), the plain version's and the bound. Every call, compared and
+    timed, takes the forward's geometry, as the training forms do: ``ms`` by
+    CUDA events, beside the kernel's own time in a trace (``kernel_ms``)."""
+    from adamvs_tpu_torch.ops.sweep_fuse import normalize_weights, sweep_geometry
 
     gen = torch.Generator(device=DEV).manual_seed(4)
     for si in range(3):
         st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
         geo = (st.src_projs, st.ref_proj, st.lo, st.step)
         wn = normalize_weights(st.weights)
+        geom = sweep_geometry(st.src_projs, st.ref_proj)
         for mode, fwd in (("corr", "K1"), ("fused", "K2"), ("var", "K4")):
             if mode == "corr" and si > 0:
                 continue
@@ -856,22 +939,30 @@ def phase_k5(res: dict, reps: int = 3) -> None:
                 ref, srcs = st.feats(dtype)
                 g = _cotangent(mode, st, dtype, gen)
                 kern, plain = _k5_calls(mode, g, ref, srcs, wn, geo)
-                err = _compare_grads(f"{k} stage{si + 1} {tn}", (k, dtype), kern(), plain())
+                err = _compare_grads(f"{k} stage{si + 1} {tn}", (k, dtype), kern(geom=geom),
+                                     plain())
                 old = res[k]["err"].get(tn, (0.0, 0.0))
                 res[k]["err"][tn] = (max(old[0], err[0]), max(old[1], err[1]))
                 if dtype == torch.float32:
-                    ms, pms = time_ms(kern, reps), time_ms(plain, 1)
+                    ms = time_ms(lambda: kern(geom=geom), reps)
+                    pms = time_ms(plain, 1)
                     bms, by = sweep_bwd_bound(fwd, st, dtype)
                     # the kernel's own time on the card, from a trace of one call (the wrapper's
-                    # geometry, zeroing and casts are the rest of ``ms`` where the card waits)
-                    _, top = device_profile(kern, top=8)
+                    # zeroing and casts are the rest of ``ms`` where the card waits)
+                    _, top = device_profile(lambda: kern(geom=geom), top=8)
                     kms = sum(t for n, t, _ in top if "bwd" in n and "kernel" in n)
-                    res[k]["stages"].append({"stage": si + 1, "ms": ms, "plain_ms": pms,
-                                             "bound_ms": bms, "bound_by": by, "kernel_ms": kms})
-                    log(f"[kernels] {k} stage{si + 1} f32: {ms:.3f} ms, the kernel alone {kms:.3f} "
-                        f"ms on the card (plain {pms:.3f} ms, bound {bms:.3f} ms by {by})")
+                    entry = {"stage": si + 1, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                             "bound_by": by, "kernel_ms": kms}
+                    if mode == "corr":
+                        entry["flushes_per_sample"] = walk_counts(lambda **kw: kern(geom=geom, **kw))
+                    res[k]["stages"].append(entry)
+                    log(f"[kernels] {k} stage{si + 1} f32: {ms:.3f} ms with the forward's geometry; "
+                        f"the kernel alone {kms:.3f} ms on the card (plain {pms:.3f} ms, bound "
+                        f"{bms:.3f} ms by {by})"
+                        + (f"; {entry['flushes_per_sample']:.3f} flushes per sample walked "
+                           f"(information, no limit)" if mode == "corr" else ""))
                 del ref, srcs, g
-        del st, geo, wn
+        del st, geo, wn, geom
         torch.cuda.empty_cache()
 
 
@@ -1316,16 +1407,16 @@ def kernels_line(res: dict, launches: dict) -> dict:
     return {"kernels": out}
 
 
-# text edits of the kernel sources for ablate(): each removes one part of the
-# kernels' work (the results are wrong; only the times count). An edit is
-# (anchor, replacement): the anchor must occur exactly once in the source.
+# text edits of the kernel sources for ablate(), by group of kernels: each
+# removes one part of the kernels' work (the results are wrong; only the times
+# count) or changes one of their constants. An edit is (anchor, replacement):
+# the anchor must occur exactly once in the group's source (ABLATION_SOURCES).
 ABLATIONS = {"sweep_fuse": {
     "no sampling": [("    if (own && cur.w > 0) {", "    if (own && cur.w < 0) {")],
     "trivial positions": [(
-        "          u = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[0], hyp), gv[9]), pz);\n"
-        "          v = __fdiv_rn(__fadd_rn(__fmul_rn(rxyz[1], hyp), gv[10]), pz);",
-        "          u = __fadd_rn(static_cast<float>(x), __fmul_rn(0.6f, static_cast<float>(d)));\n"
-        "          v = static_cast<float>(y);")],
+        "        uv = adamvs::sweep_position(rxyz, gv + 9, hyp);",
+        "        uv = make_float2(__fadd_rn(static_cast<float>(x), __fmul_rn(0.6f, static_cast<float>(d))),\n"
+        "                         static_cast<float>(y));")],
     "no copies": [(
         "            cp_async16(dst, sv + (static_cast<size_t>(y) * W + x) * (C * sizeof(T)) + 16 * c);",
         "            { if (x == -12345) cp_async16(dst, sv); }")],
@@ -1357,78 +1448,165 @@ ABLATIONS["sweep_bwd"] = {
                       "  constexpr int P = S::kPixels, KD = S::kD;\n  if (Vs > 0) return;\n"
                       "  extern __shared__")],
 }
+# K1 (csrc/sweep_fuse.cu::corr_walk_kernel): runs of 8 and 16 hypotheses against the
+# built 48, and registers for 6 blocks of 128 threads per SM against 4; no reuse
+# computes the dot product of every tap that counts
+ABLATIONS["corr"] = {
+    "runs of 8": [("constexpr int kRun = 48;", "constexpr int kRun = 8;")],
+    "runs of 16": [("constexpr int kRun = 48;", "constexpr int kRun = 16;")],
+    "6 blocks per SM": [("__launch_bounds__(kWalkThreads, 4)\ncorr_walk_kernel",
+                         "__launch_bounds__(kWalkThreads, 6)\ncorr_walk_kernel")],
+    "no reuse": [("      const int taps = adamvs::walk_taps(c), need = taps & ~held;",
+                  "      const int taps = adamvs::walk_taps(c), need = taps;")],
+    "no gathers": [("    Row<T, 8>::load(p + 8 * i, v);",
+                    "    for (int c = 0; c < 8; ++c) v[c] = r[8 * i + (c ^ 1)];")],
+    "no stores": [("    *o = acc / static_cast<float>(C);", "    if (acc == 1.2345e-30f) *o = acc;")],
+    "empty kernel": [("  const int pix = blockIdx.x * kWalkThreads + threadIdx.x;",
+                      "  if (D > 0) return;\n"
+                      "  const int pix = blockIdx.x * kWalkThreads + threadIdx.x;")],
+}
+# K5-corr (csrc/sweep_bwd.cu::corr_walk_bwd_kernel): no reuse flushes every tap at
+# every sample; no scatter leaves out the flushes' global atomics, no flush the
+# whole flush (its source rows, d ref's multiply-adds and the atomics)
+ABLATIONS["corr_bwd"] = {
+    "runs of 8": [("constexpr int kRun = 16;", "constexpr int kRun = 8;")],
+    "runs of 48": [("constexpr int kRun = 16;", "constexpr int kRun = 48;")],
+    "no reuse": [("    const int stay = some ? adamvs::staying(ddx, ddy) : 0;",
+                  "    const int stay = 0;")],
+    "no gathers": [("        Row<T, 8>::load(s + q + 8 * i, v);",
+                    "        for (int e = 0; e < 8; ++e) v[e] = 1e-3f * static_cast<float>(e + i);")],
+    "no scatter": [("        atomicAdd(dq, make_float4(",
+                    "        if (aq == 1.2345e-30f) atomicAdd(dq, make_float4("),
+                   ("        atomicAdd(dq + 1, make_float4(",
+                    "        if (aq == 1.2345e-30f) atomicAdd(dq + 1, make_float4(")],
+    "no flush": [("      if ((stay >> j & 1) || aq == 0.f) continue;",
+                  "      if ((stay >> j & 1) || aq == 0.f || hx > -9) continue;")],
+    "empty kernel": [("  const int pix = blockIdx.x * kWalkThreads + threadIdx.x;",
+                      "  if (D > 0) return;\n"
+                      "  const int pix = blockIdx.x * kWalkThreads + threadIdx.x;")],
+}
+ABLATION_SOURCES = {"sweep_fuse": "sweep_fuse", "sweep_bwd": "sweep_bwd", "corr": "sweep_fuse",
+                    "corr_bwd": "sweep_bwd"}
 
 
-def _ablation_calls(source: str, si: int, gen):
+def _ablation_calls(group: str, si: int, gen):
     """(entries attribute of ops/sweep_fuse.py, binder of a built library,
-    {kernel: call}) of ``source`` at stage ``si``: K2 and K4 in bf16 at the
-    inference stage shape; K5-fused and K5-var in float32 at the training
-    stage shape."""
+    {kernel: call}) of the kernels of ``group`` at stage ``si``: K2 and K4,
+    and K1 (stage 1), in bf16 at the inference stage shape; K5-fused and
+    K5-var, and K5-corr (stage 1), in float32 at the training stage shape
+    with the forward's geometry handed in, as the training forms call them."""
     from adamvs_tpu_torch.ops import sweep_fuse as sf
 
-    if source == "sweep_fuse":
+    if ABLATION_SOURCES[group] == "sweep_fuse":
         st = StageInputs(si, gen)
         ref, srcs = st.feats(torch.bfloat16)
         geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
+        if group == "corr":
+            return "_entries", sf.bind_sweeps, {"K1": lambda: sf.corr_sweep_volume(ref, srcs, *geo)}
         return "_entries", sf.bind_sweeps, {
             "K2": lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo),
             "K4": lambda: sf.var_sweep_volume(ref, srcs, *geo)}
     st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
     ref, srcs = st.feats(torch.float32)
     geo = (st.src_projs, st.ref_proj, st.lo, st.step)
+    geom = sf.sweep_geometry(st.src_projs, st.ref_proj)
     wn = sf.normalize_weights(st.weights)
-    g = _cotangent("var", st, torch.float32, gen)
-    return "_bwd_entries", sf.bind_sweep_bwd, {"K5-fused": _k5_calls("fused", g, ref, srcs, wn, geo)[0],
-                                  "K5-var": _k5_calls("var", g, ref, srcs, wn, geo)[0]}
+    modes = ("corr",) if group == "corr_bwd" else ("fused", "var")
+    calls = {}
+    for mode in modes:
+        kern = _k5_calls(mode, _cotangent(mode, st, torch.float32, gen), ref, srcs, wn, geo)[0]
+        calls[f"K5-{mode}"] = lambda kern=kern: kern(geom=geom)
+    return "_bwd_entries", sf.bind_sweep_bwd, calls
 
 
-def ablate(sources=("sweep_fuse", "sweep_bwd"), rounds: int = 3, reps: int = 5) -> None:
-    """``python3 chip_smoke.py --ablate [source ...]``: the kernels of each
-    source at the stage shapes, built from the source as it is and from
+def k5_wrapper_parts(group: str, rounds: int, reps: int) -> None:
+    """What CUDA events around a K5 call of ``group`` (sweep_bwd: K5-fused and
+    K5-var; corr_bwd: K5-corr) see beyond the kernel, in float32 at the
+    training stage shapes, ms per train step (the least of ``rounds``
+    medians of ``reps`` runs): the call with the forward's geometry handed in,
+    as the training forms make it, the call that computes its own, the
+    geometry alone and the zeroing of the gradients alone."""
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    modes = ("corr",) if group == "corr_bwd" else ("fused", "var")
+    total = {}
+    for si in (0,) if group == "corr_bwd" else range(3):
+        st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
+        ref, srcs = st.feats(torch.float32)
+        geo = (st.src_projs, st.ref_proj, st.lo, st.step)
+        geom = sf.sweep_geometry(st.src_projs, st.ref_proj)
+        wn = sf.normalize_weights(st.weights)
+        for mode in modes:
+            kern = _k5_calls(mode, _cotangent(mode, st, torch.float32, gen), ref, srcs, wn, geo)[0]
+            parts = {"with the forward's geometry": lambda: kern(geom=geom), "with its own": kern,
+                     "the geometry alone": lambda: sf.sweep_geometry(st.src_projs, st.ref_proj),
+                     "the zeroing alone": lambda: (torch.zeros_like(ref), torch.zeros_like(srcs))}
+            with torch.no_grad():
+                times = {n: min(time_ms(f, reps) for _ in range(rounds)) for n, f in parts.items()}
+            for n, t in times.items():
+                total.setdefault(mode, {}).setdefault(n, 0.0)
+                total[mode][n] += t
+            log(f"[ablate] {group} stage{si + 1} K5-{mode} wrapper: "
+                + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items()))
+        del st, ref, srcs, geom, wn
+        torch.cuda.empty_cache()
+    for mode, times in total.items():
+        log(f"[ablate] {group} per train step, K5-{mode} wrapper: "
+            + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items()))
+
+
+def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd"), rounds: int = 3,
+           reps: int = 5) -> None:
+    """``python3 chip_smoke.py --ablate [group ...]``: the kernels of each
+    group at the stage shapes, built from their source as it is and from
     text-edited copies that each leave out a part of the kernels' work
     (ABLATIONS), timed in turns in one process (CUDA events, the least of
     ``rounds`` medians of ``reps`` runs) and by the card's busy time in one
-    call (a trace, the least of ``rounds``). csrc/sweep_fuse.cu: K2 and K4 in
-    bf16 at the inference shapes, ms per depth map; csrc/sweep_bwd.cu:
-    K5-fused and K5-var in float32 at the training shapes, ms per train step.
-    The wrappers' own work (weight normalisation, geometry, allocation and
-    zeroing) is in every time, on the host where the card waits for it; the
-    "empty kernel" copy measures it."""
+    call (a trace, the least of ``rounds``). sweep_fuse: K2 and K4 in bf16 at
+    the inference shapes, ms per depth map; sweep_bwd: K5-fused and K5-var
+    in float32 at the training shapes, ms per train step; corr: K1 in bf16
+    at the inference stage-1 shape, ms per depth map; corr_bwd: K5-corr in
+    float32 at the training stage-1 shape, ms per train step. The wrappers'
+    own work (weight normalisation, geometry, allocation and zeroing) is in
+    every time, on the host where the card waits for it; the "empty kernel"
+    copy measures it, and for the K5 groups ``k5_wrapper_parts`` splits it."""
     from adamvs_tpu_torch.kernels import build
     from adamvs_tpu_torch.ops import sweep_fuse as sf
 
     log(f"[ablate] {phase_device()}")
     root = os.path.join(build.BUILD_DIR, "ablate")
     jobs = {}
-    for source in sources:
+    for group in groups:
+        source = ABLATION_SOURCES[group]
         text0 = open(os.path.join(build.CSRC, f"{source}.cu")).read()
-        for name, edits in {"as built": [], **ABLATIONS[source]}.items():
+        for name, edits in {"as built": [], **ABLATIONS[group]}.items():
             text = text0
             for old, new in edits:
                 if text.count(old) != 1:
                     fail(f"ablation {name!r}: its anchor is not in csrc/{source}.cu once")
                 text = text.replace(old, new)
-            d = os.path.join(root, source, name.replace(" ", "_"))
+            d = os.path.join(root, group, name.replace(" ", "_"))
             os.makedirs(d, exist_ok=True)
             shutil.copy(os.path.join(build.CSRC, "common.cuh"), d)
             with open(os.path.join(d, f"{source}.cu"), "w") as f:
                 f.write(text)
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(d, "lib.so"),
                    os.path.join(d, f"{source}.cu")]
-            jobs[source, name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                      stderr=subprocess.STDOUT, text=True))
+            jobs[group, name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True))
     built = {}
-    for (source, name), (d, proc) in jobs.items():
+    for (group, name), (d, proc) in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode:
-            fail(f"ablation {source} {name!r} did not build:\n{out}")
-        built.setdefault(source, {})[name] = ctypes.CDLL(os.path.join(d, "lib.so"))
-    for source, libs in built.items():
+            fail(f"ablation {group} {name!r} did not build:\n{out}")
+        built.setdefault(group, {})[name] = ctypes.CDLL(os.path.join(d, "lib.so"))
+    for group, libs in built.items():
         gen = torch.Generator(device=DEV).manual_seed(0)
         total = {}
-        per = "depth map" if source == "sweep_fuse" else "train step"
-        for si in range(3):
-            attr, bind, calls = _ablation_calls(source, si, gen)
+        per = "depth map" if ABLATION_SOURCES[group] == "sweep_fuse" else "train step"
+        for si in (0,) if group in ("corr", "corr_bwd") else range(3):
+            attr, bind, calls = _ablation_calls(group, si, gen)
             bound = {name: bind(lib) for name, lib in libs.items()}
             entries = getattr(sf, attr)
             # per variant and kernel: (CUDA events around a call, the card's busy time in it)
@@ -1449,15 +1627,22 @@ def ablate(sources=("sweep_fuse", "sweep_bwd"), rounds: int = 3, reps: int = 5) 
                     acc = total.setdefault(name, {}).setdefault(k, [0.0, 0.0])
                     acc[0] += t
                     acc[1] += busy
-                log(f"[ablate] {source} stage{si + 1} {name}: "
+                log(f"[ablate] {group} stage{si + 1} {name}: "
                     + ", ".join(f"{k} {t:.3f} ms (card busy {busy:.3f})"
                                 for k, (t, busy) in times.items()))
             del calls
             torch.cuda.empty_cache()
         for name, times in total.items():
-            log(f"[ablate] {source} per {per}, {name}: "
+            log(f"[ablate] {group} per {per}, {name}: "
                 + ", ".join(f"{k} {t:.3f} ms (card busy {busy:.3f})"
                             for k, (t, busy) in times.items()))
+        if per == "train step":  # with the as-built copy, so that nothing builds csrc/ here
+            entries, as_built = sf._bwd_entries, sf.bind_sweep_bwd(libs["as built"])
+            sf._bwd_entries = lambda: as_built
+            try:
+                k5_wrapper_parts(group, rounds, reps)
+            finally:
+                sf._bwd_entries = entries
 
 
 def main() -> None:

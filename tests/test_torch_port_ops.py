@@ -252,6 +252,20 @@ def test_sweep_geometry_is_the_warp_transform():
         np.testing.assert_allclose(geom[v, :, 9:], np.asarray(trans), rtol=1e-5, atol=1e-3)
 
 
+def test_handed_geometry_is_checked_and_used_as_given():
+    """The wrappers' ``geom`` argument (the training forms hand the
+    forward's geometry to the backward): None computes ``sweep_geometry``, a
+    geometry of the right kind is taken as given, any other raises."""
+    _, _, src_projs, ref_proj, _, _, _ = _sweep_case(0, 2, 3, 8, 8, 8, False)
+    sp, rp = _t(src_projs), _t(ref_proj)
+    want = tsweep.sweep_geometry(sp, rp)
+    assert torch.equal(tsweep._geometry(None, sp, rp, 3, 2, torch.device("cpu")), want)
+    assert tsweep._geometry(want, sp, rp, 3, 2, torch.device("cpu")) is want
+    for bad in (want[:5], want.double(), want.t().contiguous().t()):
+        with pytest.raises(ValueError, match="geom"):
+            tsweep._geometry(bad, sp, rp, 3, 2, torch.device("cpu"))
+
+
 # --- ground rules ---------------------------------------------------------------
 
 def _port_files():
