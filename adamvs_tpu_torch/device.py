@@ -7,13 +7,12 @@ import torch
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another. With no device given and no CUDA device present this raises; an
-    entry point never falls back to the CPU on its own."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    another. A CUDA device, asked for or by default, raises when none is
+    present; an entry point never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU"
         )
-    return torch.device("cuda")
+    return dev

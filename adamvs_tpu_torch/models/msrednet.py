@@ -51,9 +51,7 @@ from ..ops.regression import (
 from ..ops.sampling import window_min_and_interval
 from ..ops.sweep_fuse import var_sweep_volume, var_sweep_volume_t
 from ..ops.warp_sample import plane_sweep_warp_sampled
-from .adamvs import parse_depth_values
-
-SWEEP_IMPLS = ("fused", "scan")
+from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features
 
 
 def variance_slice(ref, srcs, src_projs, ref_proj, hyp) -> torch.Tensor:
@@ -86,39 +84,56 @@ class MSREDNet(nn.Module):
         self.sweep_impl = sweep_impl
         n = len(self.ndepths)
         self.feature = RedFeatureNet(base, num_stages=n)
-        chans = (4 * base, 2 * base, base)
-        self.cost_regularization = nn.ModuleList(RedCell(chans[i], cr_base[i]) for i in range(n))
+        self.chans = (4 * base, 2 * base, base)[:n]
+        self.cost_regularization = nn.ModuleList(RedCell(self.chans[i], cr_base[i])
+                                                 for i in range(n))
+
+    def feature_module(self) -> nn.Module:
+        """The feature net, NCHW in and {"stageK": [N,C,h,w]} out: the pyramid
+        that ``forward(features=...)`` takes, computed apart."""
+        return self.feature
 
     def forward(self, imgs, proj_matrices, depth_values, num_depth: int | None = None,
-                train: bool = False) -> dict:
+                train: bool = False, features: dict | None = None) -> dict:
         """``imgs`` [B,V,H,W,3], ``proj_matrices`` {"stageK": [B,V,4,4]},
         ``depth_values`` [B,3] = [min,max,interval] or [B,2] = [min,max]
-        split into ``num_depth`` intervals. Returns per stage ``depth`` and
+        split into ``num_depth`` intervals. ``features`` (optional)
+        {"stageK": [B,V,C,h,w] or [B,V,h,w,C]} replaces the feature net
+        (``imgs`` may then be None; the last stage's maps give the frame
+        size). Returns per stage ``depth`` and
         ``photometric_confidence`` [B,h,w], the last stage's also at the top
         level. ``train=True`` runs the training form under autograd and needs
         the module in train mode; otherwise the inference form runs without
         gradients."""
         if not train:
             with torch.no_grad():
-                return self._cascade(imgs, proj_matrices, depth_values, num_depth, False)
+                return self._cascade(imgs, proj_matrices, depth_values, num_depth, False,
+                                     features)
         if not self.training:
             raise ValueError("train=True needs the module in train mode (model.train())")
         if self.sweep_impl != "fused":
             raise ValueError(f"training runs the fused form; sweep_impl is {self.sweep_impl!r}")
-        return self._cascade(imgs, proj_matrices, depth_values, num_depth, True)
+        return self._cascade(imgs, proj_matrices, depth_values, num_depth, True, features)
 
-    def _cascade(self, imgs, proj_matrices, depth_values, num_depth, train: bool) -> dict:
+    def _cascade(self, imgs, proj_matrices, depth_values, num_depth, train: bool,
+                 features) -> dict:
         dtype = self.feature.out1.weight.dtype
         dmin, dmax, interval = parse_depth_values(depth_values.float(), num_depth)
-        B, V, H, W = imgs.shape[:4]
-        feats = self.feature(imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
+        if features is None:
+            B, V, H, W = imgs.shape[:4]
+            feats = self.feature(
+                imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
+        else:
+            feats, B, V = stage_features(features, self.chans)
+            H, W = feats[f"stage{len(self.ndepths)}"].shape[2:]
+        device = depth_values.device
         var_fn = var_sweep_volume_t if train else var_sweep_volume
 
         outputs: dict = {}
         prev_depth = None
         for si, D in enumerate(self.ndepths):
             key = f"stage{si + 1}"
-            f = feats[key]
+            f = feats[key].to(dtype)
             C, h, w = f.shape[1:]
             f = f.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)  # [B,V,h,w,C]
             ref = f[:, 0].contiguous()
@@ -137,8 +152,8 @@ class MSREDNet(nn.Module):
                 step = resize_bilinear(step_f, h, w).contiguous()
 
             cell = self.cost_regularization[si]
-            state = cell.init_state(B, h, w, dtype, imgs.device)
-            acc = online_softmax_init((B, h, w), device=imgs.device)
+            state = cell.init_state(B, h, w, dtype, device)
+            acc = online_softmax_init((B, h, w), device=device)
             vol = (var_fn(ref, srcs, src_projs, ref_proj, lo, step, D)
                    if self.sweep_impl == "fused" else None)  # [D,B,C,h,w]
             for d in range(D):

@@ -39,7 +39,8 @@ Phases, in order; any failure exits nonzero:
    and K4 are timed over 10 runs, with the
    share of windows gathered directly and their times under rotated views
    and a blocky window as information;
-4. reference: AdaMVS and MS-REDNet (fused and scan forms) on a small frame
+4. reference: AdaMVS (fused form with K3 and with the cell stepped, scan
+   form) and MS-REDNet (fused and scan forms) on a small frame
    at base 8 and base 4 (stage 3 at C 4), kernels on the card against the
    plain path on the CPU, float32; then one
    train step of each model on that frame, card against CPU (loss, gradient,
@@ -48,7 +49,9 @@ Phases, in order; any failure exits nonzero:
    read just after: PredictEngine with seeded random weights in bfloat16 at
    full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map), on
    MS-REDNet in its fused form (3 requests: K4 3 per map) and in its scan
-   form (2 requests: the sampler 4 x (48+32+8) = 352 per map); the first
+   form (2 requests: the sampler 4 x (48+32+8) = 352 per map), and in
+   float32 on AdaMVS in its scan form, the predict CLI's default (2
+   requests: the sampler 352 + 12 for stage 1's correlation blocks); the first
    request of each is a warm-up; outputs must be finite with confidence in
    (0, 1]; one more request, after the counts are read, is traced with
    torch.profiler for the card's busy time; then each model's layers are
@@ -59,7 +62,15 @@ Phases, in order; any failure exits nonzero:
    moved, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3; MS-REDNet: K4 3), and one
    more traced step for the card's busy time and its top kernels; then one
    step timed by phase (upload, forward, backward, update);
-6. the kernels line (JSON), the card line, and the final JSON line.
+6. cli: the port's predict command in this process on a synthetic tree of 6
+   aerial frames at 5504x3712 (PNG), each the reference of one work item of
+   5 views: at the JAX CLI's defaults (AdaMVS scan form, float32), in the
+   fused bf16 form (K1 1, K2 3, K3 3 per forward), and in that form with the
+   feature cache and batches of 2; the output files, their maps and camera
+   text, the cached run against the uncached one and the cache's hits are
+   checked, and the per-item infer and save times logged;
+7. the kernels line (JSON; launches summed over phases 5 and 6), the card
+   line, and the final JSON line.
 
 ``python3 chip_smoke.py --ablate [sweep_fuse] [sweep_bwd] [corr] [corr_bwd]``
 instead times K2 and K4 (csrc/sweep_fuse.cu), K5-fused and K5-var
@@ -136,12 +147,21 @@ REPLACES = {
     "K5-var": ("var_sweep_bwd", "adamvs_tpu_torch/csrc/sweep_bwd.cu",
                "adamvs_tpu/ops/sweep_fuse.py:832"),
 }
+# stage 1 of the AdaMVS scan form samples its correlation volume in blocks of 16
+# hypotheses, one sampler launch per block and source view
+CORR_BLOCKS = (V - 1) * NDEPTHS[0] // 16
 # (path, model, model options, requests, launches per depth map)
 PATHS = (
     ("adamvs", "adamvs", {}, 3, {"K1": 1, "K2": 3, "K3": 3}),
     ("msrednet_fused", "msrednet", {"sweep_impl": "fused"}, 3, {"K4": 3}),
     ("msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 2, {"K6/7": (V - 1) * sum(NDEPTHS)}),
+    ("adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"}, 2,
+     {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
 )
+# the dtype of each path: bf16, but the AdaMVS scan form at the predict CLI's default
+PATH_DTYPE = {"adamvs_scan": torch.float32}
+# forms held card against CPU beside the paths
+REFERENCE_FORMS = (("adamvs_fused_regscan", "adamvs", {"sweep_impl": "fused", "reg_impl": "scan"}),)
 # (training path, model, train steps, launches per train step); each path ends
 # with one eval_epoch on the batch, whose launches are EVAL_LAUNCHES
 TRAIN_PATHS = (
@@ -967,8 +987,9 @@ def phase_k5(res: dict, reps: int = 3) -> None:
 
 
 def phase_reference() -> None:
-    """Each path's model on a small frame at base 8 and at base 4: kernels on
-    the card against the plain path on the CPU, float32."""
+    """Each path's model, and each of REFERENCE_FORMS, on a small frame at
+    base 8 and at base 4: kernels on the card against the plain path on the
+    CPU, float32."""
     from adamvs_tpu_torch.models import build_model
 
     h, w = 128, 160
@@ -978,7 +999,8 @@ def phase_reference() -> None:
     dv = torch.tensor([[DMIN, DMAX]])
     # base 8 (the main paths'), and base 4, whose stage 3 features have C 4 (the
     # sweeps and the sampler pad them)
-    for (path, name, opts, _, _), base in [(p, b) for b in (BASE, 4) for p in PATHS]:
+    forms = [p[:3] for p in PATHS] + list(REFERENCE_FORMS)
+    for (path, name, opts), base in [(f, b) for b in (BASE, 4) for f in forms]:
         model = build_model(name, seed=1, device=DEV, ndepths=NDEPTHS, base=base,
                             cr_base=(base,) * 3, **opts)
         path = f"{path} base {base}"
@@ -997,8 +1019,9 @@ def phase_reference() -> None:
 
 
 def phase_main_path() -> tuple[dict, list]:
-    """Every path of PATHS through PredictEngine at full width in bf16, each
-    with all launch counters set to 0 just before it and read just after.
+    """Every path of PATHS through PredictEngine at full width in its dtype
+    (PATH_DTYPE, else bf16), each with all launch counters set to 0 just
+    before it and read just after.
     Returns (launches summed over the paths, per-path statistics)."""
     from adamvs_tpu_torch.models import build_model
     from adamvs_tpu_torch.predict.engine import PredictEngine
@@ -1013,7 +1036,8 @@ def phase_main_path() -> tuple[dict, list]:
     total = dict.fromkeys(KERNELS, 0)
     stats = []
     for path, name, opts, requests, per_map in PATHS:
-        model = build_model(name, seed=0, device=DEV, dtype=torch.bfloat16, ndepths=NDEPTHS,
+        dtype = PATH_DTYPE.get(path, torch.bfloat16)
+        model = build_model(name, seed=0, device=DEV, dtype=dtype, ndepths=NDEPTHS,
                             depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, **opts)
         engine = PredictEngine(model, num_depth=NUM_DEPTH, device=DEV)
         torch.cuda.synchronize()
@@ -1040,14 +1064,24 @@ def phase_main_path() -> tuple[dict, list]:
                 fail(f"{path}: {k} launched {n} times over {requests} requests, expected "
                      f"{requests * per_map.get(k, 0)}")
             total[k] += n
-        # one more request, traced, after the counts were read: the card's busy time in it
-        busy = device_busy_ms(lambda: engine.predict_sample(sample))
-        layers = layer_times(model, sample) if name == "adamvs" else msrednet_layer_times(model, opts)
-        entry = {"path": path, "ms_per_map": statistics.mean(times[1:]), "timed_ms": times[1:],
-                 "warmup_ms": times[0], "peak_gib": peak, "launches": launches,
-                 "device_busy_ms": busy, "layers_ms": layers}
+        # one more request, traced, after the counts were read: the card's busy time in
+        # it (and for the scan form, whose layers are not timed alone, its top kernels)
+        busy, top = device_profile(lambda: engine.predict_sample(sample),
+                                   top=8 if path == "adamvs_scan" else 0)
+        if path == "adamvs_scan":
+            layers = {}
+            log(f"[main] {path} top kernels of the traced request (ms on the card, launches): "
+                + "; ".join(f"{k} {ms:.2f} x{n}" for k, ms, n in top))
+        elif name == "adamvs":
+            layers = layer_times(model, sample)
+        else:
+            layers = msrednet_layer_times(model, opts)
+        entry = {"path": path, "dtype": str(dtype), "ms_per_map": statistics.mean(times[1:]),
+                 "timed_ms": times[1:], "warmup_ms": times[0], "peak_gib": peak,
+                 "launches": launches, "device_busy_ms": busy, "layers_ms": layers,
+                 "top_kernels": top}
         stats.append(entry)
-        log(f"[main] {path} {H}x{W} V={V} ndepths {NDEPTHS} bf16: {entry['ms_per_map']:.1f} ms "
+        log(f"[main] {path} {H}x{W} V={V} ndepths {NDEPTHS} {dtype}: {entry['ms_per_map']:.1f} ms "
             f"per depth map (timed {', '.join(f'{t:.1f}' for t in times[1:])}; warm-up "
             f"{times[0]:.1f}), peak {peak:.2f} GiB, launches {launches}, card busy in a traced "
             f"request {busy:.1f} ms ({busy / entry['ms_per_map']:.0%} of the mean)")
@@ -1249,6 +1283,140 @@ def phase_train_paths() -> tuple[dict, list]:
             + "; ".join(f"{n} {ms:.2f} x{c}" for n, ms, c in top))
         del model, state, trainer
         torch.cuda.empty_cache()
+    return total, stats
+
+
+# The predict command's fixture: 6 aerial frames at the raw size that the CLI's
+# defaults (--resize_scale 0.5 --max_h 5504 --max_w 3712) take to the main paths'
+# 2752x1856, with the bench's focal length before the resize, a 10 m baseline and
+# depths of about 330-470 m; every view is a reference once, with 4 sources.
+CLI_VIEWS, CLI_RAW = 6, (2 * H, 2 * W)
+CLI_FUSED = ["--sweep_impl", "fused", "--reg_impl", "pallas", "--compute_dtype", "bf16"]
+# (run, flags, launches per forward)
+CLI_RUNS = (
+    ("defaults", [], {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
+    ("fused_bf16", CLI_FUSED, {"K1": 1, "K2": 3, "K3": 3}),
+    ("fused_bf16_cache_batch", CLI_FUSED + ["--feature_cache", "8", "--predict_batch", "2"],
+     {"K1": 1, "K2": 3, "K3": 3}),
+)
+
+
+def cli_fixture(root: str) -> tuple[str, float]:
+    """(the predict-source tree written under ``root``, its depth range)."""
+    from adamvs_tpu_torch.data.synthetic import make_scene, write_predict_source_tree
+
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    scene = make_scene(num_views=CLI_VIEWS, height=CLI_RAW[0], width=CLI_RAW[1], seed=0,
+                       focal=2 * FOCAL, fly_height=400.0, plane=(0.2, -0.16, 0.0),
+                       baseline=10.0, tilt=0.025, workers=workers)
+    t1 = time.perf_counter()
+    tree = write_predict_source_tree(os.path.join(root, "source"), scene, workers=workers)
+    log(f"[cli] fixture: {CLI_VIEWS} views {CLI_RAW[0]}x{CLI_RAW[1]}, depths "
+        f"[{scene.depth_start}, {scene.depth_end}], rendered in {t1 - t0:.1f} s, PNGs written "
+        f"in {time.perf_counter() - t1:.1f} s")
+    return tree, scene.depth_end - scene.depth_start
+
+
+def phase_cli() -> tuple[dict, list]:
+    """The port's predict command (``adamvs_tpu_torch.cli.main``) in this
+    process on a synthetic tree of CLI_VIEWS frames, once per CLI_RUNS: the
+    JAX CLI's defaults (AdaMVS scan form, float32), the fused bf16 form, and
+    that form with the feature cache and batches of 2. Each run has every
+    launch counter set to 0 just before it and read just after; its files are
+    checked (layout, 2752x1856 finite maps, confidence in (0, 1], the camera
+    text), the cached run against the uncached one, and the cache's hits.
+    Returns (launches summed over the runs, per-run statistics)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from adamvs_tpu_torch.cli import main as cli_main
+    from adamvs_tpu_torch.io.pfm import read_pfm
+
+    counted = wrappers()
+    total = dict.fromkeys(KERNELS, 0)
+    stats = []
+    names = [f"view_{i:03d}" for i in range(CLI_VIEWS)]
+    want = [f"{n}{suffix}" for n in names
+            for suffix in ("_init.pfm", "_prob.pfm", ".jpg", ".txt")]
+    want += [f"color/{n}{suffix}" for n in names for suffix in ("_init.png", "_prob.png")]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tree, depth_range = cli_fixture(tmp)
+        maps = {}
+        for run, flags, per_forward in CLI_RUNS:
+            out = os.path.join(tmp, run)
+            argv = ["predict", "--data_folder", tree, "--output_folder", out, "--device", DEV,
+                    *flags]
+            for fn in counted.values():
+                fn.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                engine = cli_main(argv)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counted.items()}
+            lines = [ln for ln in buf.getvalue().splitlines() if " done: " in ln]
+            for ln in lines:
+                log(f"[cli] {run}: {ln}")
+            per_item = [tuple(float(x) for x in re.search(r"([\d.]+)s infer, ([\d.]+)s save",
+                                                          ln).groups()) for ln in lines]
+            if len(per_item) != CLI_VIEWS:
+                fail(f"cli {run}: {len(per_item)} work items logged, expected {CLI_VIEWS}")
+            batch = int(flags[flags.index("--predict_batch") + 1]) if "--predict_batch" in flags else 1
+            forwards = -(-CLI_VIEWS // batch)
+            for k, n in launches.items():
+                if n != forwards * per_forward.get(k, 0):
+                    fail(f"cli {run}: {k} launched {n} times in {forwards} forwards, expected "
+                         f"{forwards * per_forward.get(k, 0)}")
+                total[k] += n
+            files = sorted(os.path.relpath(os.path.join(d, f), out)
+                           for d, _, fs in os.walk(out) for f in fs)
+            if files != sorted(os.path.join("1", f) for f in want):
+                fail(f"cli {run}: output files {files}")
+            run_maps = {}
+            for n in names:
+                depth = read_pfm(os.path.join(out, "1", f"{n}_init.pfm"))[0]
+                prob = read_pfm(os.path.join(out, "1", f"{n}_prob.pfm"))[0]
+                if depth.shape != (H, W) or prob.shape != (H, W):
+                    fail(f"cli {run} {n}: maps {depth.shape} {prob.shape}, expected {(H, W)}")
+                if not (np.isfinite(depth).all() and np.isfinite(prob).all()):
+                    fail(f"cli {run} {n}: non-finite depth or confidence")
+                if not (prob.min() > 0.0 and prob.max() <= 1.0):
+                    fail(f"cli {run} {n}: confidence outside (0, 1]: [{prob.min()}, {prob.max()}]")
+                with open(os.path.join(out, "1", f"{n}.txt")) as f:
+                    if not f.read().startswith("extrinsic: XrightYdown"):
+                        fail(f"cli {run} {n}: camera text does not start with its header")
+                run_maps[n] = (depth, prob)
+            entry = {"run": run, "flags": flags, "wall_s": wall, "items": CLI_VIEWS,
+                     "infer_s": [t[0] for t in per_item], "save_s": [t[1] for t in per_item],
+                     "launches": launches}
+            if engine.feature_cache:
+                lookups = engine.cache_hits + engine.cache_misses
+                entry["cache"] = {"hits": engine.cache_hits, "misses": engine.cache_misses}
+                if lookups != CLI_VIEWS * V or engine.cache_hits < lookups - CLI_VIEWS:
+                    fail(f"cli {run}: feature cache {engine.cache_hits} hits of {lookups} "
+                         f"lookups, expected at least {CLI_VIEWS * V - CLI_VIEWS} of "
+                         f"{CLI_VIEWS * V}")
+                base = maps["fused_bf16"]
+                derr = max(np.abs(run_maps[n][0] - base[n][0]).max() for n in names) / depth_range
+                cerr = max(np.abs(run_maps[n][1] - base[n][1]).max() for n in names)
+                entry.update(depth_err=float(derr), conf_err=float(cerr))
+                log(f"[cli] {run} against fused_bf16: depth err {derr:.2e} of the range (limit "
+                    f"1e-4), confidence err {cerr:.2e} (limit 1e-3)")
+                if not (derr < 1e-4 and cerr < 1e-3):
+                    fail(f"cli {run}: the cached, batched run disagrees with the uncached one")
+            maps[run] = run_maps
+            shutil.rmtree(out)
+            stats.append(entry)
+            cache = (f", feature cache {entry['cache']['hits']} hits of "
+                     f"{CLI_VIEWS * V} lookups" if "cache" in entry else "")
+            log(f"[cli] {run} ({' '.join(flags) or 'the JAX CLI defaults'}): {CLI_VIEWS} work "
+                f"items in {wall:.1f} s wall; per item infer {statistics.mean(entry['infer_s']):.3f}"
+                f" s (first {entry['infer_s'][0]:.3f}), save {statistics.mean(entry['save_s']):.3f}"
+                f" s; launches {launches}; files, shapes and values ok{cache}")
+            del engine
+            torch.cuda.empty_cache()
     return total, stats
 
 
@@ -1666,8 +1834,11 @@ def main() -> None:
     phase_train_reference()
     launches, main_stats = phase_main_path()
     train_launches, train_stats = phase_train_paths()
-    line = kernels_line(res, {k: n + train_launches[k] for k, n in launches.items()})
+    cli_launches, cli_stats = phase_cli()
+    line = kernels_line(res, {k: n + train_launches[k] + cli_launches[k]
+                              for k, n in launches.items()})
     line["main_path"] = main_stats + train_stats
+    line["cli"] = cli_stats
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

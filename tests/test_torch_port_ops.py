@@ -314,6 +314,23 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     assert PredictEngine(model, num_depth=32, device="cpu").device.type == "cpu"
     assert Trainer(state, model_loss("adamvs"), str(tmp_path / "logs"),
                    device="cpu").device.type == "cpu"
+    # the predict command and PredictEngine.run: CUDA unless --device cpu / device="cpu"
+    from adamvs_tpu_torch.cli import main
+    from adamvs_tpu_torch.data.lists import PredictSource
+    from adamvs_tpu_torch.device import resolve_device
+
+    source = PredictSource({}, {}, {}, {}, [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["predict", "--data_folder", str(tmp_path), "--output_folder", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["predict", "--data_folder", str(tmp_path), "--output_folder", str(tmp_path),
+              "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PredictEngine(model, num_depth=32).run(source, str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+    assert PredictEngine(model, num_depth=32, device="cpu").run(
+        source, str(tmp_path / "out")) == []
 
 
 def test_cpu_calls_take_the_plain_path_without_a_build(monkeypatch):
