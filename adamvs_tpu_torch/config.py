@@ -1,9 +1,11 @@
-"""Model and predict configuration (counterpart of adamvs_tpu/config.py).
+"""Model, data, train and predict configuration (counterpart of
+adamvs_tpu/config.py).
 
 ``ModelConfig`` holds the JAX CLI's model flags with the same validity rules
 (config.py:61-74) and builds the port's model. Flag values the JAX package
 takes but the port has not ported yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them.
+the ROADMAP.md item that ports them. ``DataConfig``, ``TrainConfig`` and
+``PredictConfig`` hold the other commands' flags with the JAX defaults.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ class ModelConfig:
     # fusedf32 is fused)
     sweep_impl: str = "scan"
     # scan: the regulariser stepped per depth slice; adamvs 'pallas': K3 over
-    # the fused volume; 'precomp': not ported
+    # the fused volume; msrednet 'precomp': red_precomp_depth over K4's volume
+    # (AdaMVS precomp is not ported)
     reg_impl: str = "scan"
     dtype: str = "f32"  # f32 | bf16
 
@@ -76,24 +79,46 @@ class ModelConfig:
                 f"reg_impl={self.reg_impl!r} requires sweep_impl "
                 f"'fused'/'fusedf32' (got {self.sweep_impl!r})"
             )
-        if self.reg_impl == "precomp":
-            raise not_ported(
-                f"reg_impl='precomp' ({self.model})",
-                "MS-REDNet reg_impl=\"precomp\"" if self.model == "msrednet"
-                else "the rest, AdaMVS reg_impl=precomp")
+        if self.reg_impl == "precomp" and self.model == "adamvs":
+            raise not_ported("reg_impl='precomp' (adamvs)", "the rest, AdaMVS reg_impl=precomp")
         if self.warp_impl == "pallas2bf16" and self.dtype == "f32":
             raise not_ported("warp_impl='pallas2bf16' with a float32 model",
                              "bf16 sampling for a float32 model")
         if self.model == "msrednet" and self.share_cr:
             raise NotImplementedError(
                 "share_cr is broken in the reference (msrednet.py:271) and unsupported here")
-        kwargs = dict(ndepths=self.ndepths, depth_intervals_ratio=self.depth_intervals_ratio,
-                      base=self.base_channels, cr_base=self.cr_base_chs,
-                      sweep_impl="scan" if self.sweep_impl == "scan" else "fused")
-        if self.model == "adamvs":
-            kwargs["reg_impl"] = self.reg_impl
         return build_model(self.model, seed=seed, device=device, dtype=DTYPES[self.dtype],
-                           **kwargs)
+                           ndepths=self.ndepths, depth_intervals_ratio=self.depth_intervals_ratio,
+                           base=self.base_channels, cr_base=self.cr_base_chs,
+                           sweep_impl="scan" if self.sweep_impl == "scan" else "fused",
+                           reg_impl=self.reg_impl)
+
+
+@dataclasses.dataclass
+class DataConfig:
+    dataset: str = "cas_total_rscv"  # accepted for parity; loaders keyed by set_name
+    set_name: str = "whu_omvs"
+    trainpath: str = ""
+    testpath: str = ""
+    view_num: int = 5
+    interval_scale: float = 1.0
+    batch_size: int = 1
+    num_workers: int = 2
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    epochs: int = 80
+    lr: float = 1e-3
+    lrepochs: str = "10,12,14:2"
+    wd: float = 0.0
+    summary_freq: int = 50
+    save_freq: int = 1
+    seed: int = 1
+    logdir: str = "./checkpoints/run"
+    resume: bool = False
+    loadckpt: str = ""
+    dlossw: tuple[float, ...] = (0.5, 1.0, 2.0)
 
 
 @dataclasses.dataclass

@@ -30,6 +30,23 @@
 //
 // Layouts: feat [B,H,W,C] float32 or bfloat16, u/v [B,N,h,w] float32,
 // out [B,N,h,w,C] in the feature dtype.
+//
+// K6/K7-bwd, the gradient of the same function with respect to feat, is the
+// second entry below (adamvs_bilinear_sample_bwd). JAX has no Pallas
+// backward for K6/K7: it trains the scan form through XLA autodiff of the
+// gather warp (adamvs_tpu/ops/warp.py::bilinear_sample, the coordinates
+// under stop_gradient), and the port's scan form samples through K6/K7, so
+// its training form needs this kernel. It computes the exact transpose of
+// the forward: dfeat[b, tap] += w_tap * dout[b, n, pixel] over every sample
+// and valid tap, with the forward's taps and weights (bilinear_tap_set).
+// Bound: bytes, as the forward (dout, u and v read once, dfeat written
+// once). Design: one thread per (sample, channel group of CB), as the
+// forward; it reads its CB channels of dout as 16-byte vectors and adds
+// w_tap * dout into each valid tap's row of a float32 dfeat with float4
+// atomics (sm_90 offers them on global memory). Neighbouring samples hit
+// neighbouring source pixels, so the atomics mostly meet in L2. The wrapper
+// zeroes dfeat and casts it to the feature dtype afterwards; the order of
+// the atomic sums varies from run to run.
 
 #include "common.cuh"
 
@@ -84,6 +101,55 @@ int for_channels(int C, int B, int N, int hw, int H, int W, const void* feat, co
   return launch<T, 8>(B, N, hw, H, W, C, feat, u, v, out, s);
 }
 
+// K6/K7-bwd: dfeat [B,H,W,C] float32 (zeroed by the caller) += the
+// transpose of the sampling applied to dout [B,N,h,w,C].
+template <typename T, int CB>
+__global__ void __launch_bounds__(kThreads)
+sample_bwd_kernel(const T* __restrict__ dout, const float* __restrict__ u,
+                  const float* __restrict__ v, float* __restrict__ dfeat, int N, int hw, int H,
+                  int W, int C) {
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= hw) return;
+  const int bn = blockIdx.y;  // b * N + n
+  const int c0 = blockIdx.z * CB;
+  const size_t i = static_cast<size_t>(bn) * hw + pix;
+  const adamvs::Taps t = adamvs::bilinear_tap_set(H, W, u[i], v[i]);
+  if (t.idx[0] < 0 && t.idx[1] < 0 && t.idx[2] < 0 && t.idx[3] < 0) return;
+  float g[CB], val[CB];
+  Row<T, CB>::load(dout + i * C + c0, g);
+  float* dst = dfeat + static_cast<size_t>(bn / N) * H * W * C + c0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (t.idx[k] >= 0) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) val[c] = __fmul_rn(g[c], t.w[k]);
+      float4* q = reinterpret_cast<float4*>(dst + static_cast<size_t>(t.idx[k]) * C);
+#pragma unroll
+      for (int j = 0; j < CB / 4; ++j)
+        atomicAdd(q + j, make_float4(val[4 * j], val[4 * j + 1], val[4 * j + 2], val[4 * j + 3]));
+    }
+  }
+}
+
+template <typename T, int CB>
+int launch_bwd(int B, int N, int hw, int H, int W, int C, const void* dout, const void* u,
+               const void* v, void* dfeat, cudaStream_t s) {
+  const dim3 grid((hw + kThreads - 1) / kThreads, B * N, C / CB);
+  sample_bwd_kernel<T, CB><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(dout), static_cast<const float*>(u), static_cast<const float*>(v),
+      static_cast<float*>(dfeat), N, hw, H, W, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int for_channels_bwd(int C, int B, int N, int hw, int H, int W, const void* dout, const void* u,
+                     const void* v, void* dfeat, cudaStream_t s) {
+  if (C <= 0 || C % 8) return adamvs::kBadChannels;
+  if (C % 32 == 0) return launch_bwd<T, 32>(B, N, hw, H, W, C, dout, u, v, dfeat, s);
+  if (C % 16 == 0) return launch_bwd<T, 16>(B, N, hw, H, W, C, dout, u, v, dfeat, s);
+  return launch_bwd<T, 8>(B, N, hw, H, W, C, dout, u, v, dfeat, s);
+}
+
 }  // namespace
 
 // K6/K7 on features of C channels, a multiple of 8. Returns 0 or the launch
@@ -95,5 +161,19 @@ extern "C" int adamvs_bilinear_sample(int dtype, int B, int N, int h, int w, int
   if (dtype == adamvs::kFloat32) return for_channels<float>(C, B, N, h * w, H, W, feat, u, v, out, s);
   if (dtype == adamvs::kBFloat16)
     return for_channels<__nv_bfloat16>(C, B, N, h * w, H, W, feat, u, v, out, s);
+  return adamvs::kBadDtype;
+}
+
+// K6/K7-bwd: dfeat [B,H,W,C] float32, zeroed by the caller, gets the
+// gradient of the sampling for the cotangent dout [B,N,h,w,C] in the
+// feature dtype (C a multiple of 8). Returns 0 or the launch error.
+extern "C" int adamvs_bilinear_sample_bwd(int dtype, int B, int N, int h, int w, int H, int W,
+                                          int C, const void* dout, const void* u, const void* v,
+                                          void* dfeat, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == adamvs::kFloat32)
+    return for_channels_bwd<float>(C, B, N, h * w, H, W, dout, u, v, dfeat, s);
+  if (dtype == adamvs::kBFloat16)
+    return for_channels_bwd<__nv_bfloat16>(C, B, N, h * w, H, W, dout, u, v, dfeat, s);
   return adamvs::kBadDtype;
 }

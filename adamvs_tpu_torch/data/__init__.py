@@ -1,1 +1,1 @@
-"""Predict-source lists, sample assembly and synthetic fixture trees."""
+"""Sample lists, sample assembly, the batching loader and synthetic fixture trees."""

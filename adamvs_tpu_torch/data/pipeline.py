@@ -1,11 +1,21 @@
-"""Predict sample assembly: images + cameras -> the model's inputs
-(counterpart of the predict part of adamvs_tpu/data/pipeline.py).
+"""Host-side sample assembly: images and cameras into the model's inputs
+(counterpart of adamvs_tpu/data/pipeline.py).
 
-A sample holds ``imgs`` float32 [V,H,W,3] (per-image mean/var normalised),
-``proj_matrices`` {"stage1", "stage2", "stage3"}: [V,4,4] and
-``depth_values`` float32 [2] = [min, max] (predict_oblique.py:114-190).
-Images are read with PIL and resized with OpenCV, both imported by the
-functions that use them.
+A training sample (the reference's NCHW equivalent is
+cas_total_rscv.py:558-567) holds:
+
+- ``imgs`` float32 [V,H,W,3], per-image mean/var normalised;
+- ``proj_matrices`` {"stage1", "stage2", "stage3"}: [V,4,4];
+- ``depth`` {"stageK"}: the GT pyramid at 1/4, 1/2 and 1/1, downsampled
+  nearest-neighbour; ``mask`` {"stageK"}: depth within [depth_min,
+  depth_max];
+- ``depth_values`` float32 [3] = [depth_min, depth_max, depth_interval] and
+  ``depth_interval``.
+
+A predict sample holds ``imgs``, ``proj_matrices`` and ``depth_values``
+float32 [2] = [min, max] (predict_oblique.py:114-190). Images are read with
+PIL, augmented with PIL's ImageEnhance and resized with OpenCV, each
+imported by the function that uses it.
 """
 
 from __future__ import annotations
@@ -25,8 +35,21 @@ from ..geom.camera import (
     scale_camera,
     stage_proj_matrices,
 )
-from ..io.images import read_image
-from .lists import PredictSource, PredictSpec
+from ..io.cams_text import (
+    read_blendedmvs_cam,
+    read_dtu_cam,
+    read_obliquewhu_cam,
+    read_whu_cam,
+)
+from ..io.images import read_gt_depth, read_image
+from .lists import PredictSource, PredictSpec, SampleSpec
+
+_CAM_READERS = {
+    "whu_mvs": read_whu_cam,
+    "dtu": read_dtu_cam,
+    "BlendedMVS": read_blendedmvs_cam,
+    "whu_omvs": read_obliquewhu_cam,
+}
 
 
 def center_image(img: np.ndarray) -> np.ndarray:
@@ -35,6 +58,125 @@ def center_image(img: np.ndarray) -> np.ndarray:
     var = np.var(img, axis=(0, 1), keepdims=True)
     mean = np.mean(img, axis=(0, 1), keepdims=True)
     return (img - mean) / (np.sqrt(var) + 1e-8)
+
+
+def color_augment(img: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """Photometric augmentation: colour, brightness, contrast and sharpness
+    jitter (preprocess.py:116-135), drawn from ``rng`` in that order."""
+    from PIL import Image, ImageEnhance
+
+    pil = Image.fromarray(img)
+    pil = ImageEnhance.Color(pil).enhance(rng.randint(1, 301) / 100.0)
+    pil = ImageEnhance.Brightness(pil).enhance(rng.randint(10, 201) / 100.0)
+    pil = ImageEnhance.Contrast(pil).enhance(rng.randint(10, 201) / 100.0)
+    pil = ImageEnhance.Sharpness(pil).enhance(rng.randint(0, 301) / 100.0)
+    return np.array(pil)
+
+
+def gaussian_augment(
+    img: np.ndarray, rng: np.random.RandomState, mean: float = 0.02, sigma: float = 0.03
+) -> np.ndarray:
+    """Additive per-pixel Gaussian noise (the reference's ``randomGaussian``,
+    preprocess.py:137-156, vectorised). The reference never calls it (its
+    call site is commented out, preprocess.py:119), so the train pipeline
+    does not either."""
+    img = np.asarray(img, dtype=np.float32)
+    noise = rng.normal(mean, sigma, size=img.shape).astype(np.float32)
+    return img + noise
+
+
+@dataclasses.dataclass
+class TrainSample:
+    imgs: np.ndarray
+    proj_matrices: dict[str, np.ndarray]
+    depth: dict[str, np.ndarray]
+    mask: dict[str, np.ndarray]
+    depth_values: np.ndarray
+    depth_interval: float
+    out_image: np.ndarray
+    out_cam: Any
+    name: str
+    vid: str
+
+
+def _pyramid(arr: np.ndarray, num_stages: int = 3) -> dict[str, np.ndarray]:
+    """The GT pyramid, OpenCV INTER_NEAREST downsampling
+    (cas_total_rscv.py:529-538)."""
+    import cv2
+
+    h, w = arr.shape
+    out = {}
+    for k in range(1, num_stages + 1):
+        s = 2 ** (num_stages - k)
+        if s == 1:
+            out[f"stage{k}"] = arr
+        else:
+            out[f"stage{k}"] = cv2.resize(arr, (w // s, h // s), interpolation=cv2.INTER_NEAREST)
+    return out
+
+
+def load_train_sample(
+    spec: SampleSpec,
+    mode: str = "train",
+    interval_scale: float = 1.0,
+    rng: np.random.RandomState | None = None,
+) -> TrainSample:
+    """Read one training or test sample: its views (colour-augmented from
+    ``rng`` in train mode), cameras in the corpus's dialect, GT depth and
+    mask pyramids."""
+    read_cam = _CAM_READERS[spec.set_name]
+    depth_image = read_gt_depth(spec.depth_path, spec.set_name)
+
+    images, projs = [], []
+    ref_cam: Camera | None = None
+    out_image = None
+    for view in range(spec.view_cnts):
+        img = read_image(spec.image_paths[view])
+        if mode == "train" and rng is not None:
+            img = color_augment(img, rng)
+        cam = read_cam(spec.cam_paths[view], interval_scale)
+        if view == 0:
+            ref_cam = cam
+            out_image = img
+        projs.append(proj_matrix(cam))
+        images.append(center_image(img))
+
+    imgs = np.stack(images)  # [V,H,W,3]
+    proj = np.stack(projs)  # [V,4,4]
+    depth_values = np.array(
+        [ref_cam.depth_start, ref_cam.depth_end, ref_cam.depth_interval], dtype=np.float32
+    )
+    mask = (
+        (depth_image >= ref_cam.depth_start) & (depth_image <= ref_cam.depth_end)
+    ).astype(np.float32)
+
+    return TrainSample(
+        imgs=imgs,
+        proj_matrices=stage_proj_matrices(proj),
+        depth=_pyramid(depth_image.astype(np.float32)),
+        mask=_pyramid(mask),
+        depth_values=depth_values,
+        depth_interval=float(ref_cam.depth_interval),
+        out_image=out_image,
+        out_cam=ref_cam,
+        name=spec.name,
+        vid=spec.vid,
+    )
+
+
+def batch_train_samples(samples: list[TrainSample]) -> dict[str, Any]:
+    """Collate samples into a batch of numpy arrays (a leading B axis)."""
+    return {
+        "imgs": np.stack([s.imgs for s in samples]),
+        "proj_matrices": {
+            k: np.stack([s.proj_matrices[k] for s in samples])
+            for k in samples[0].proj_matrices
+        },
+        "depth": {k: np.stack([s.depth[k] for s in samples]) for k in samples[0].depth},
+        "mask": {k: np.stack([s.mask[k] for s in samples]) for k in samples[0].mask},
+        "depth_values": np.stack([s.depth_values for s in samples]),
+        "depth_interval": np.array([s.depth_interval for s in samples], dtype=np.float32),
+    }
 
 
 @dataclasses.dataclass

@@ -1,5 +1,7 @@
-"""Synthetic aerial scenes and predict-source trees (counterpart of the
-predict part of adamvs_tpu/data/synthetic.py).
+"""Synthetic aerial scenes and the trees written from them (counterpart of
+adamvs_tpu/data/synthetic.py): a predict-source directory and the four
+training corpora's layouts (WHU_OMVS, WHU-MVS, DTU, BlendedMVS), each file
+byte for byte what the JAX writers write for the same scene.
 
 Scene model: a tilted plane ``z = a*x + b*y + h0`` textured with a smooth
 procedural RGB function, photographed by downward-looking cameras given in
@@ -20,6 +22,8 @@ import os
 import numpy as np
 
 from ..geom.camera import Camera, convert_photogrammetric_extrinsic, depth_sample_count
+from ..io.exr import write_exr_depth
+from ..io.pfm import write_pfm
 
 _TEXTURE_COMPONENTS = 24
 _TEXTURE_MAX_FREQ = 0.30  # rad / world unit; ~0.55 rad/px at GSD ≈ 1.85
@@ -245,4 +249,184 @@ def write_predict_source_tree(root: str, scene: SyntheticScene, workers: int = 1
             srcs = [j for j in range(n) if j != i]
             f.write(f"{i}\n")
             f.write(str(len(srcs)) + " " + " ".join(f"{j} {1.0}" for j in srcs) + "\n")
+    return root
+
+
+def _write_obliquewhu_cam_txt(path: str, view: SyntheticView) -> None:
+    """WHU_OMVS train cam dialect (cas_total_rscv.py:388-426): two header
+    tokens, Twc(XrightYup) 4x4 at tokens [2..17], K at [18..26],
+    start/end/interval at [27..29]."""
+    twc_mat = np.eye(4)
+    twc_mat[:3, :3] = view.rwc
+    twc_mat[:3, 3] = view.twc
+    cam = view.camera
+    toks = ["extrinsic", "Twc_XrightYup"]
+    toks += [repr(float(x)) for x in twc_mat.reshape(-1)]
+    toks += [repr(float(x)) for x in cam.K.reshape(-1)]
+    toks += [repr(float(cam.depth_start)), repr(float(cam.depth_end)), repr(float(cam.depth_interval))]
+    with open(path, "w") as f:
+        f.write(" ".join(toks) + "\n")
+
+
+def write_whu_omvs_tree(root: str, scene: SyntheticScene, scene_name: str = "009_53") -> str:
+    """Write a train/val tree in the WHU_OMVS layout (cas_total_rscv.py:209-267).
+
+    Every view serves as a reference with the remaining views as sources.
+    """
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "index.txt"), "w") as f:
+        f.write(scene_name + "\n")
+    sdir = os.path.join(root, scene_name)
+    for sub in ("images", "cams", "depths", "masks", "info"):
+        os.makedirs(os.path.join(sdir, sub), exist_ok=True)
+
+    n = len(scene.views)
+    for i, view in enumerate(scene.views):
+        Image.fromarray(view.image).save(os.path.join(sdir, "images", view.name + ".png"))
+        _write_obliquewhu_cam_txt(os.path.join(sdir, "cams", view.name + ".txt"), view)
+        write_exr_depth(os.path.join(sdir, "depths", view.name + ".exr"), view.depth)
+        Image.fromarray(view.mask).save(os.path.join(sdir, "masks", view.name + ".png"))
+
+    with open(os.path.join(sdir, "info", "image_path.txt"), "w") as f:
+        f.write(f"{n}\n")
+        for i, view in enumerate(scene.views):
+            f.write(f"{i} {view.name} {os.path.join(sdir, 'images', view.name + '.png')}\n")
+    with open(os.path.join(sdir, "info", "viewpair.txt"), "w") as f:
+        f.write(f"{n}\n")
+        for i in range(n):
+            srcs = [j for j in range(n) if j != i]
+            f.write(f"{i}\n")
+            f.write(str(len(srcs)) + " " + " ".join(f"{j} {1.0}" for j in srcs) + "\n")
+    return sdir
+
+
+def _write_dtu_cam_txt(path: str, view: SyntheticView, interval_count: int = 192) -> None:
+    """DTU dialect (cas_total_rscv.py:323-355): label, Tcw 4x4 at [1..16],
+    label, K at [18..26], start + interval at [27..28]."""
+    cam = view.camera
+    toks = ["extrinsic"]
+    toks += [repr(float(x)) for x in cam.tcw.reshape(-1)]
+    toks += ["intrinsic"]
+    toks += [repr(float(x)) for x in cam.K.reshape(-1)]
+    interval = (cam.depth_end - cam.depth_start) / interval_count
+    toks += [repr(float(cam.depth_start)), repr(float(interval))]
+    with open(path, "w") as f:
+        f.write(" ".join(toks) + "\n")
+
+
+def _write_blendedmvs_cam_txt(path: str, view: SyntheticView) -> None:
+    """BlendedMVS dialect (cas_total_rscv.py:357-386): start/interval/count/end
+    at tokens [27..30]."""
+    cam = view.camera
+    toks = ["extrinsic"]
+    toks += [repr(float(x)) for x in cam.tcw.reshape(-1)]
+    toks += ["intrinsic"]
+    toks += [repr(float(x)) for x in cam.K.reshape(-1)]
+    toks += [
+        repr(float(cam.depth_start)), repr(float(cam.depth_interval)),
+        repr(float(cam.depth_count)), repr(float(cam.depth_end)),
+    ]
+    with open(path, "w") as f:
+        f.write(" ".join(toks) + "\n")
+
+
+def _pair_file_with_scores(path: str, n: int) -> None:
+    with open(path, "w") as f:
+        f.write(f"{n}\n")
+        for i in range(n):
+            srcs = [j for j in range(n) if j != i]
+            f.write(f"{i}\n")
+            f.write(str(len(srcs)) + " " + " ".join(f"{j} {1.0}" for j in srcs) + "\n")
+
+
+def write_dtu_tree(root: str, scene: SyntheticScene, scan: str = "scan1") -> str:
+    """DTU layout (cas_total_rscv.py:110-162): Rectified/{scan}_train pngs with
+    7 light conditions, shared Cameras/, Depths/{scan}/*.pfm."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "index.txt"), "w") as f:
+        f.write(scan + "\n")
+    img_dir = os.path.join(root, "Rectified", f"{scan}_train")
+    cam_dir = os.path.join(root, "Cameras")
+    dep_dir = os.path.join(root, "Depths", scan)
+    for d in (img_dir, cam_dir, dep_dir):
+        os.makedirs(d, exist_ok=True)
+    n = len(scene.views)
+    _pair_file_with_scores(os.path.join(root, "pair.txt"), n)
+    for i, view in enumerate(scene.views):
+        for light in range(7):
+            Image.fromarray(view.image).save(
+                os.path.join(img_dir, f"rect_{i + 1:0>3}_{light}_r5000.png")
+            )
+        _write_dtu_cam_txt(os.path.join(cam_dir, f"{i:0>8}_cam.txt"), view)
+        write_pfm(os.path.join(dep_dir, f"depth_map_{i:0>4}.pfm"), view.depth)
+    return root
+
+
+def write_blendedmvs_tree(root: str, scene: SyntheticScene, sid: str = "5a0000") -> str:
+    """BlendedMVS layout (cas_total_rscv.py:164-207): per-scene blended_images/
+    jpgs, cams/ with pair.txt, rendered_depth_maps/ pfm."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "index.txt"), "w") as f:
+        f.write(sid + "\n")
+    sdir = os.path.join(root, sid)
+    for sub in ("blended_images", "cams", "rendered_depth_maps"):
+        os.makedirs(os.path.join(sdir, sub), exist_ok=True)
+    n = len(scene.views)
+    _pair_file_with_scores(os.path.join(sdir, "cams", "pair.txt"), n)
+    for i, view in enumerate(scene.views):
+        Image.fromarray(view.image).save(
+            os.path.join(sdir, "blended_images", f"{i:0>8}.jpg"), quality=98
+        )
+        _write_blendedmvs_cam_txt(os.path.join(sdir, "cams", f"{i:0>8}_cam.txt"), view)
+        write_pfm(os.path.join(sdir, "rendered_depth_maps", f"{i:0>8}.pfm"), view.depth)
+    return root
+
+
+def write_whu_mvs_tree(root: str, scene: SyntheticScene, block: str = "009_53") -> str:
+    """WHU-MVS layout (cas_total_rscv.py:43-108): Images/{block}/{view}/,
+    Cams/, Depths/ (16-bit png depths x64), root pair.txt without scores."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "index.txt"), "w") as f:
+        f.write(block + "\n")
+    n = len(scene.views)
+    with open(os.path.join(root, "pair.txt"), "w") as f:
+        f.write(f"{n}\n")
+        for i in range(n):
+            srcs = [j for j in range(n) if j != i]
+            f.write(f"{i}\n")
+            f.write(str(len(srcs)) + " " + " ".join(str(j) for j in srcs) + "\n")
+    fname = "000000"
+    for i, view in enumerate(scene.views):
+        img_dir = os.path.join(root, "Images", block, str(i))
+        cam_dir = os.path.join(root, "Cams", block, str(i))
+        dep_dir = os.path.join(root, "Depths", block, str(i))
+        for d in (img_dir, cam_dir, dep_dir):
+            os.makedirs(d, exist_ok=True)
+        Image.fromarray(view.image).save(os.path.join(img_dir, fname + ".png"))
+        # whu_mvs cam dialect (cas_total_rscv.py:273-321): Twc at [1..16],
+        # pera block [17..29] = f x0 y0 start end interval + location
+        twc_mat = np.eye(4)
+        twc_mat[:3, :3] = view.rwc
+        twc_mat[:3, 3] = view.twc
+        cam = view.camera
+        toks = ["extrinsic"]
+        toks += [repr(float(x)) for x in twc_mat.reshape(-1)]
+        toks += [
+            repr(float(cam.K[0, 0])), repr(float(cam.K[0, 2])), repr(float(cam.K[1, 2])),
+            repr(float(cam.depth_start)), repr(float(cam.depth_end)),
+            repr(float(cam.depth_interval)),
+        ]
+        toks += ["0"] * 7  # location block
+        with open(os.path.join(cam_dir, fname + ".txt"), "w") as f:
+            f.write(" ".join(toks) + "\n")
+        depth_png = np.clip(view.depth * 64.0, 0, 65535).astype(np.uint16)
+        Image.fromarray(depth_png).save(os.path.join(dep_dir, fname + ".png"))
     return root

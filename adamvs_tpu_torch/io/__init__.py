@@ -1,1 +1,2 @@
-"""Host-side file codecs of the predict path (numpy; PIL for images)."""
+"""Host-side file codecs: camera texts, images and GT depths (PIL, the port's
+EXR codec), PFM (numpy)."""

@@ -1,5 +1,18 @@
-"""Predict-source metadata text codecs (counterpart of the predict part of
+"""Camera and metadata text codecs (counterpart of
 adamvs_tpu/io/cams_text.py).
+
+The four training corpora's camera dialects (whitespace tokens, as the
+reference parsers read them):
+
+- WHU-MVS (cas_total_rscv.py:273-321): Twc 4x4 (XrightYup, [Rwc|twc]) at
+  tokens [1..16], then f, x0, y0, depth_start, depth_end, depth_interval and
+  a location block at [17..29];
+- DTU (cas_total_rscv.py:323-355): Tcw 4x4 at [1..16], K at [18..26], start
+  [27], interval [28], end = start + 192 intervals;
+- BlendedMVS (cas_total_rscv.py:357-386): Tcw at [1..16], K at [18..26],
+  start [27], interval [28], count [29], end [30];
+- WHU_OMVS (cas_total_rscv.py:388-426): Twc (XrightYup) at [2..17], K at
+  [18..26], start [27], end [28], interval [29].
 
 A predict-source directory (data_io.py:47-133) holds ``camera_info.txt``
 (CAMERA_ID W H PIXELSIZE fx fy cx cy k1..p2), ``image_info.txt`` (IMAGE_ID
@@ -14,6 +27,79 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from ..geom.camera import Camera, convert_photogrammetric_extrinsic, depth_sample_count
+
+
+def _tokens(path: str) -> list[str]:
+    with open(path) as f:
+        return f.read().split()
+
+
+def _mat4(words: list[str], start: int) -> np.ndarray:
+    return np.array([float(w) for w in words[start : start + 16]], dtype=np.float64).reshape(4, 4)
+
+
+def _mat3(words: list[str], start: int) -> np.ndarray:
+    return np.array([float(w) for w in words[start : start + 9]], dtype=np.float32).reshape(3, 3)
+
+
+def read_whu_cam(path: str, interval_scale: float = 1.0) -> Camera:
+    """WHU-MVS dialect: photogrammetric Twc (XrightYup) + f/x0/y0 block."""
+    words = _tokens(path)
+    twc = _mat4(words, 1)
+    tcw = convert_photogrammetric_extrinsic(twc[:3, :3], twc[:3, 3])
+    pera = [float(w) for w in words[17:30]]
+    f, x0, y0 = pera[0], pera[1], pera[2]
+    K = np.array([[f, 0, x0], [0, f, y0], [0, 0, 1]], dtype=np.float32)
+    start = np.float32(pera[3])
+    end = np.float32(pera[4])
+    interval = np.float32(pera[5] * interval_scale)
+    return Camera(
+        K=K, tcw=tcw, depth_start=float(start), depth_interval=float(interval),
+        depth_count=float(depth_sample_count(start, end, interval)), depth_end=float(end),
+    )
+
+
+def read_dtu_cam(path: str, interval_scale: float = 1.0) -> Camera:
+    words = _tokens(path)
+    tcw = _mat4(words, 1).astype(np.float32)
+    K = _mat3(words, 18)
+    start = np.float32(float(words[27]))
+    interval = np.float32(float(words[28]) * interval_scale)
+    end = np.float32(start + interval * 192)
+    return Camera(
+        K=K, tcw=tcw, depth_start=float(start), depth_interval=float(interval),
+        depth_count=float(depth_sample_count(start, end, interval)), depth_end=float(end),
+    )
+
+
+def read_blendedmvs_cam(path: str, interval_scale: float = 1.0) -> Camera:
+    words = _tokens(path)
+    tcw = _mat4(words, 1).astype(np.float32)
+    K = _mat3(words, 18)
+    start = np.float32(float(words[27]))
+    interval = np.float32(float(words[28]) * interval_scale)
+    count = np.float32(float(words[29]) / interval_scale)
+    end = np.float32(float(words[30]))
+    return Camera(
+        K=K, tcw=tcw, depth_start=float(start), depth_interval=float(interval),
+        depth_count=float(count), depth_end=float(end),
+    )
+
+
+def read_obliquewhu_cam(path: str, interval_scale: float = 1.0) -> Camera:
+    words = _tokens(path)
+    twc = _mat4(words, 2)
+    tcw = convert_photogrammetric_extrinsic(twc[:3, :3], twc[:3, 3])
+    K = _mat3(words, 18)
+    start = np.float32(float(words[27]))
+    end = np.float32(float(words[28]))
+    interval = np.float32(float(words[29]) * interval_scale)
+    return Camera(
+        K=K, tcw=tcw, depth_start=float(start), depth_interval=float(interval),
+        depth_count=float(depth_sample_count(start, end, interval)), depth_end=float(end),
+    )
 
 
 @dataclasses.dataclass

@@ -27,15 +27,23 @@ at 2x resolution (``up``), so the depth of stage k lands at the resolution
 of stage k+1. The JAX ``warp_impl`` choices all compute the exact bilinear
 sample, which K6/K7 computes; they differ only outside their band.
 
-Training (``train=True``, the JAX ``sweep_impl="fused"`` train branch,
-``use_fused_t``) runs the fused cascade under autograd, with BatchNorm in
-train mode (the caller's ``model.train()``): the volumes through the
-differentiable ``corr_sweep_volume_t`` and ``fused_sweep_volume_t`` (K1/K2
-forward, K5 backward), and each stage's ``AdaRedCell`` stepped over D in
-PyTorch, not K3, which has no backward. The gradient reaches the previous
-stage's depth through the regression's hypotheses and the visibility
-weights through the fused volume; only the sample positions carry none.
-The scan form is inference-only here.
+Training (``train=True``) runs under autograd with BatchNorm in train mode
+(the caller's ``model.train()``), stage 1's ``CostRegNet2D`` once per source
+view (each view's batch statistics, as JAX calls it), in two forms:
+
+- ``sweep_impl="fused"`` (the JAX ``use_fused_t`` branch): the volumes
+  through the differentiable ``corr_sweep_volume_t`` and
+  ``fused_sweep_volume_t`` (K1/K2 forward, K5 backward), and each stage's
+  ``AdaRedCell`` stepped over D in PyTorch, not K3, which has no backward;
+- ``sweep_impl="scan"`` (the JAX CLI's default, ``correlation_volume`` and
+  ``_AdaFuseStreamCell`` under ``nn.scan``): the scan form above, with
+  every sampler call differentiable (K6/K7 forward, K6/K7-bwd backward,
+  ``ops/warp_sample.py``). JAX recomputes each cell step in the backward
+  (``nn.remat``); here autograd keeps the steps' activations.
+
+The gradient reaches the previous stage's depth through the regression's
+hypotheses and the visibility weights through the fused volume or the
+weighted mean; only the sample positions carry none.
 
 Module names follow the reference PyTorch model (``feature``,
 ``DepthNet.{i}.reg``, ``DepthNet.{i}.reg_fuse``), so a reference state_dict
@@ -149,7 +157,7 @@ def fused_slice(ref: torch.Tensor, srcs: torch.Tensor, transforms: list, weights
     ref32 = ref.float()
     vsum = wsum = None
     for v, (rot, trans) in enumerate(transforms):
-        u, vv = _source_coords(rot, trans, hyp[:, None], h, w)
+        u, vv = _source_coords(rot, trans, hyp.detach()[:, None], h, w)
         warped = sample_bilinear(srcs[v], u, vv)[:, 0].float()
         w_v = weights[:, v, :, :, None]
         term = ref32 * warped * w_v
@@ -221,8 +229,6 @@ class AdaMVS(nn.Module):
                                      features)
         if not self.training:
             raise ValueError("train=True needs the module in train mode (model.train())")
-        if self.sweep_impl != "fused":
-            raise ValueError(f"training runs the fused form; sweep_impl is {self.sweep_impl!r}")
         return self._cascade(imgs, proj_matrices, depth_values, num_depth, True, features)
 
     def _cascade(self, imgs, proj_matrices, depth_values, num_depth, train: bool,

@@ -21,12 +21,23 @@ Two forms build the variance:
   float32. The JAX scan form accumulates them in the model dtype: in float32
   the two agree; in bf16 this form is the more exact.
 
-Training (``train=True``, the JAX ``use_fused_t`` branch) runs the fused form
-under autograd with BatchNorm in train mode (the caller's ``model.train()``):
-the differentiable ``var_sweep_volume_t`` (K4 forward, K5 backward), then
-``RedCell`` stepped over D into the online softmax. The gradient reaches the
-previous stage's depth through the hypotheses. The scan form is
-inference-only here.
+The regulariser runs in two forms chosen by ``reg_impl``:
+
+- ``"scan"``: ``RedCell`` stepped per hypothesis into the online softmax;
+- ``"precomp"`` (inference in the fused form only, JAX
+  ``red_precomp_depth``): ``red_precomp_depth`` over K4's volume, the
+  input-side convolutions batched over chunks of depths.
+
+Training (``train=True``) runs under autograd with BatchNorm in train mode
+(the caller's ``model.train()``), ``RedCell`` stepped over D into the online
+softmax, in either sweep form: ``"fused"`` (the JAX ``use_fused_t`` branch)
+through the differentiable ``var_sweep_volume_t`` (K4 forward, K5
+backward); ``"scan"`` (JAX ``_RedStreamCell``, the CLI's default) through
+``variance_slice``, whose sampler calls are differentiable (K6/K7 forward,
+K6/K7-bwd backward). ``reg_impl`` does not change training, as in JAX. The
+gradient reaches the previous stage's depth through the hypotheses. Stage
+1 sweeps min -> max in training too: the JAX model's documented deviation
+from the reference (adamvs_tpu/models/msrednet.py:26-35), kept.
 
 Module names follow the reference ``CascadeREDNet`` (``feature``,
 ``cost_regularization.{i}``), so a reference state_dict loads with
@@ -39,7 +50,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ..nn.blocks import group_norm1
 from ..nn.costreg import RedCell
 from ..nn.featurenet import RedFeatureNet
 from ..ops.regression import (
@@ -52,6 +65,10 @@ from ..ops.sampling import window_min_and_interval
 from ..ops.sweep_fuse import var_sweep_volume, var_sweep_volume_t
 from ..ops.warp_sample import plane_sweep_warp_sampled
 from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features
+
+REG_IMPLS = ("scan", "precomp")
+# depths per chunk of red_precomp_depth (the JAX default)
+PRECOMP_CHUNK = 8
 
 
 def variance_slice(ref, srcs, src_projs, ref_proj, hyp) -> torch.Tensor:
@@ -70,18 +87,100 @@ def variance_slice(ref, srcs, src_projs, ref_proj, hyp) -> torch.Tensor:
     return (sq / nv - m * m).to(ref.dtype).permute(0, 3, 1, 2).contiguous()
 
 
+def _x_side(gru, x):
+    """The x-halves of a ``GNConvGRUCell``'s two convolutions, which take
+    concat(x, h): the gate's and the candidate's input terms, biases
+    included."""
+    cin = x.shape[1]
+    return (F.conv2d(x, gru.gate_conv.weight[:, :cin], gru.gate_conv.bias, padding=1),
+            F.conv2d(x, gru.output_conv.weight[:, :cin], gru.output_conv.bias, padding=1))
+
+
+def _h_weights(gru) -> tuple:
+    """The h-halves (the last ``hidden`` input channels) of the two
+    convolutions' weights, contiguous."""
+    return tuple(conv.weight[:, -gru.hidden:].contiguous()
+                 for conv in (gru.gate_conv, gru.output_conv))
+
+
+def _gru_h_step(gru, wh, h, gx, cx):
+    """One ``GNConvGRUCell`` step from its x-side terms ``gx`` and ``cx``,
+    computed beforehand: only the h-side convolutions (weights ``wh``), the
+    three GroupNorms and the cell's elementwise math."""
+    gates = gx + F.conv2d(h, wh[0], padding=1)
+    r, u = torch.split(gates, gru.hidden, dim=1)
+    r = torch.sigmoid(group_norm1(r, gru.reset_gate_norm))
+    u = torch.sigmoid(group_norm1(u, gru.update_gate_norm))
+    o = torch.tanh(group_norm1(cx + F.conv2d(r * h, wh[1], padding=1), gru.output_norm))
+    return u * h + (1 - u) * o
+
+
+def red_precomp_depth(cell: RedCell, var_all: torch.Tensor, lo: torch.Tensor,
+                      step: torch.Tensor, chunk: int = PRECOMP_CHUNK) -> tuple:
+    """The ``RedCell`` recurrence over the variance volume ``var_all``
+    [D,B,C,h,w] into the online softmax over ``lo + d·step`` ([B,h,w]),
+    restructured as JAX ``red_precomp_depth`` (adamvs_tpu/models/msrednet.py:
+    122-249): each GRU convolution over concat(x, h) splits by linearity into
+    conv_x(x) + conv_h(h); per chunk of K depths (``chunk`` if it divides D,
+    else K = D) the encoder ``conv1..conv3`` and every x-side convolution run
+    once over the K·B slices, the depth steps run only the h-side
+    convolutions, GroupNorm (``group_norm1``, statistics over (C, h, w) per
+    slice) and the cell math, and the decoder (``upconv3..1``, the head
+    ``upconv2d``) runs once over the chunk's K·B states before its costs fold
+    into the softmax. Chunks bound the memory: JAX ran out of device memory
+    batching all of D at the bench's shapes. Inference only. Returns (depth,
+    confidence), each [B,h,w] float32."""
+    D, B, C, h, w = var_all.shape
+    K = chunk if D % chunk == 0 else D
+    grus = (cell.conv_gru1, cell.conv_gru2, cell.conv_gru3, cell.conv_gru4)
+    whs = [_h_weights(g) for g in grus]
+    states = list(cell.init_state(B, h, w, var_all.dtype, var_all.device))
+    acc = online_softmax_init((B, h, w), device=var_all.device)
+    for d0 in range(0, D, K):
+        x = -var_all[d0:d0 + K].reshape(K * B, C, h, w)
+        c1 = cell.conv1(x)
+        c2 = cell.conv2(c1)
+        c3 = cell.conv3(c2)
+        xs = [_x_side(gru, inp) for gru, inp in zip(grus, (x, c1, c2, c3))]
+        del x, c1, c2, c3
+        outs = [[], [], [], []]
+        for k in range(K):
+            for li, (gru, wh) in enumerate(zip(grus, whs)):
+                gx, cx = xs[li]
+                states[li] = _gru_h_step(gru, wh, states[li], gx[k * B:(k + 1) * B],
+                                         cx[k * B:(k + 1) * B])
+                outs[li].append(states[li])
+        del xs
+        r1, r2, r3, r4 = (torch.cat(o) for o in outs)
+        u3 = cell.upconv3(r4)
+        u2 = cell.upconv2(u3 + r3)
+        u1 = cell.upconv1(u2 + r2)
+        cost = cell.upconv2d(u1 + r1)[:, 0].float()  # [K*B,h,w]
+        del outs, r1, r2, r3, r4, u3, u2, u1
+        for k in range(K):
+            acc = online_softmax_update(acc, cost[k * B:(k + 1) * B], lo + float(d0 + k) * step)
+    return online_softmax_finalize(acc)
+
+
 class MSREDNet(nn.Module):
     """MS-REDNet cascade, inference and training. The working dtype is the parameters'
     dtype (``model.to(torch.bfloat16)`` runs the model in bf16)."""
 
     def __init__(self, ndepths=(48, 32, 8), depth_intervals_ratio=(4.0, 2.0, 1.0),
-                 base: int = 8, cr_base=(8, 8, 8), sweep_impl: str = "fused"):
+                 base: int = 8, cr_base=(8, 8, 8), sweep_impl: str = "fused",
+                 reg_impl: str = "scan"):
         super().__init__()
         if sweep_impl not in SWEEP_IMPLS:
             raise ValueError(f"sweep_impl must be one of {SWEEP_IMPLS}, got {sweep_impl!r}")
+        if reg_impl not in REG_IMPLS:
+            raise ValueError(f"reg_impl must be one of {REG_IMPLS}, got {reg_impl!r}")
+        if reg_impl == "precomp" and sweep_impl != "fused":
+            raise ValueError(f"reg_impl='precomp' runs over K4's volume and needs "
+                             f"sweep_impl='fused' (got {sweep_impl!r})")
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.sweep_impl = sweep_impl
+        self.reg_impl = reg_impl
         n = len(self.ndepths)
         self.feature = RedFeatureNet(base, num_stages=n)
         self.chans = (4 * base, 2 * base, base)[:n]
@@ -111,8 +210,6 @@ class MSREDNet(nn.Module):
                                      features)
         if not self.training:
             raise ValueError("train=True needs the module in train mode (model.train())")
-        if self.sweep_impl != "fused":
-            raise ValueError(f"training runs the fused form; sweep_impl is {self.sweep_impl!r}")
         return self._cascade(imgs, proj_matrices, depth_values, num_depth, True, features)
 
     def _cascade(self, imgs, proj_matrices, depth_values, num_depth, train: bool,
@@ -152,17 +249,20 @@ class MSREDNet(nn.Module):
                 step = resize_bilinear(step_f, h, w).contiguous()
 
             cell = self.cost_regularization[si]
-            state = cell.init_state(B, h, w, dtype, device)
-            acc = online_softmax_init((B, h, w), device=device)
             vol = (var_fn(ref, srcs, src_projs, ref_proj, lo, step, D)
                    if self.sweep_impl == "fused" else None)  # [D,B,C,h,w]
-            for d in range(D):
-                hyp = lo + float(d) * step
-                x = vol[d] if vol is not None else variance_slice(ref, srcs, src_projs, ref_proj,
-                                                                  hyp)
-                state, cost = cell(state, x)
-                acc = online_softmax_update(acc, cost[:, 0].float(), hyp)
-            depth, conf = online_softmax_finalize(acc)
+            if self.reg_impl == "precomp" and not train:
+                depth, conf = red_precomp_depth(cell, vol, lo, step)
+            else:
+                state = cell.init_state(B, h, w, dtype, device)
+                acc = online_softmax_init((B, h, w), device=device)
+                for d in range(D):
+                    hyp = lo + float(d) * step
+                    x = vol[d] if vol is not None else variance_slice(
+                        ref, srcs, src_projs, ref_proj, hyp)
+                    state, cost = cell(state, x)
+                    acc = online_softmax_update(acc, cost[:, 0].float(), hyp)
+                depth, conf = online_softmax_finalize(acc)
             outputs[key] = {"depth": depth, "photometric_confidence": conf}
             prev_depth = depth
 

@@ -12,6 +12,13 @@ Sampling runs in float32 and the result is in the feature dtype: a bf16
 feature map is sampled from its bf16 values with float32 weights and sums,
 as the JAX ``pallas2bf16`` operand mode does for a bf16 model.
 
+The gradient with respect to the features (the coordinates carry none, as
+the JAX warp stops them, ``adamvs_tpu/ops/warp.py:134-135``) is K6/K7-bwd,
+the second kernel of ``csrc/bilinear_sample.cu``: ``sample_bilinear`` on CUDA
+tensors is an autograd Function whose backward launches it
+(``sample_bilinear_bwd``). Its plain version is autograd through
+``ops/warp.py::bilinear_sample`` (``sample_bilinear_bwd_ref``).
+
 A wrapper takes the plain version for CPU tensors. For CUDA tensors it
 launches the kernel or raises.
 """
@@ -43,30 +50,53 @@ def sample_bilinear_ref(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) ->
     return bilinear_sample(feat.float(), u.float(), v.float()).to(feat.dtype)
 
 
+def sample_bilinear_bwd_ref(dout: torch.Tensor, u: torch.Tensor, v: torch.Tensor, H: int,
+                            W: int) -> torch.Tensor:
+    """Plain K6/K7-bwd: the gradient of ``sample_bilinear_ref`` with respect
+    to an [B,H,W,C] feature map for the cotangent ``dout`` [B,N,h,w,C], the
+    coordinates detached: autograd of ``ops/warp.py::bilinear_sample`` in
+    float32, cast to the dtype of ``dout``."""
+    B, C = dout.shape[0], dout.shape[-1]
+    with torch.enable_grad():
+        feat = torch.zeros((B, H, W, C), dtype=torch.float32, device=dout.device,
+                           requires_grad=True)
+        out = bilinear_sample(feat, u.detach().float(), v.detach().float())
+        (grad,) = torch.autograd.grad(out, feat, dout.float())
+    return grad.to(dout.dtype)
+
+
 @functools.cache
 def _entry():
     lib = build.load_library("bilinear_sample")
     return lib, build.bind(lib, "adamvs_bilinear_sample", n_ptr=4, n_int=8)
 
 
-def sample_bilinear(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K6/K7: [B,N,h,w,C] in the feature dtype (see ``sample_bilinear_ref``)."""
-    if feat.device.type == "cpu":
-        return sample_bilinear_ref(feat, u, v)
-    if feat.device.type != "cuda":
-        raise ValueError(f"sample_bilinear takes CUDA tensors, got {feat.device}")
+@functools.cache
+def _bwd_entry():
+    lib = build.load_library("bilinear_sample")
+    return lib, build.bind(lib, "adamvs_bilinear_sample_bwd", n_ptr=4, n_int=8)
+
+
+def _check_coords(B: int, u: torch.Tensor, v: torch.Tensor, device) -> None:
+    if u.ndim != 4 or u.shape[0] != B or u.shape != v.shape:
+        raise ValueError(f"u and v must be [B,N,h,w] alike, got {tuple(u.shape)} {tuple(v.shape)}")
+    if u.dtype != torch.float32 or v.dtype != torch.float32:
+        raise ValueError(f"u and v must be float32, got {u.dtype} {v.dtype}")
+    for t in (u, v):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous and on one device")
+
+
+def _launch(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K6/K7 on CUDA tensors; raises on what the kernel does not take."""
     B, H, W, C = feat.shape
     Cp = sample_width(C)
     if feat.dtype not in _DTYPE_CODE:
         raise ValueError(f"feat must be float32/bfloat16 [B,H,W,C], got {feat.dtype} "
                          f"{tuple(feat.shape)}")
-    if u.ndim != 4 or u.shape[0] != B or u.shape != v.shape:
-        raise ValueError(f"u and v must be [B,N,h,w] alike, got {tuple(u.shape)} {tuple(v.shape)}")
-    for t in (feat, u, v):
-        if t.device != feat.device or not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous and on one device")
-    if u.dtype != torch.float32 or v.dtype != torch.float32:
-        raise ValueError(f"u and v must be float32, got {u.dtype} {v.dtype}")
+    _check_coords(B, u, v, feat.device)
+    if not feat.is_contiguous():
+        raise ValueError("kernel inputs must be contiguous and on one device")
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned (its rows are read as 16-byte vectors)")
     N, h, w = u.shape[1:]
@@ -78,6 +108,66 @@ def sample_bilinear(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     build.check(lib, err, "sample_bilinear")
     sample_bilinear.launches += 1
     return out if Cp == C else out[..., :C].contiguous()
+
+
+def sample_bilinear_bwd(dout: torch.Tensor, u: torch.Tensor, v: torch.Tensor, H: int,
+                        W: int) -> torch.Tensor:
+    """K6/K7-bwd: the gradient [B,H,W,C] of ``sample_bilinear`` with respect
+    to its features, in the dtype of ``dout`` [B,N,h,w,C] (see
+    ``sample_bilinear_bwd_ref``). The kernel sums into a zeroed float32 map
+    with atomics; a ``dout`` that is no multiple of 8 channels wide is
+    zero-padded and the padding's gradient dropped."""
+    if dout.device.type == "cpu":
+        return sample_bilinear_bwd_ref(dout, u, v, H, W)
+    if dout.device.type != "cuda":
+        raise ValueError(f"sample_bilinear_bwd takes CUDA tensors, got {dout.device}")
+    if dout.dtype not in _DTYPE_CODE or dout.ndim != 5:
+        raise ValueError(f"dout must be float32/bfloat16 [B,N,h,w,C], got {dout.dtype} "
+                         f"{tuple(dout.shape)}")
+    B, N, h, w, C = dout.shape
+    _check_coords(B, u, v, dout.device)
+    if u.shape[1:] != (N, h, w):
+        raise ValueError(f"u {tuple(u.shape)} does not match dout {tuple(dout.shape)}")
+    Cp = sample_width(C)
+    dout = pad_channels(dout.contiguous(), Cp)
+    dfeat = torch.zeros((B, H, W, Cp), dtype=torch.float32, device=dout.device)
+    lib, fn = _bwd_entry()
+    err = fn(_DTYPE_CODE[dout.dtype], B, N, h, w, H, W, Cp, dout.data_ptr(), u.data_ptr(),
+             v.data_ptr(), dfeat.data_ptr(), torch.cuda.current_stream(dout.device).cuda_stream)
+    build.check(lib, err, "sample_bilinear_bwd")
+    sample_bilinear_bwd.launches += 1
+    dfeat = dfeat if Cp == C else dfeat[..., :C]
+    return dfeat.to(dout.dtype)
+
+
+sample_bilinear_bwd.launches = 0
+
+
+class _SampleBilinear(torch.autograd.Function):
+    """K6/K7 forward, K6/K7-bwd backward; no gradient for the coordinates."""
+
+    @staticmethod
+    def forward(ctx, feat, u, v):
+        ctx.save_for_backward(u, v)
+        ctx.hw = feat.shape[1:3]
+        return _launch(feat.contiguous(), u, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        u, v = ctx.saved_tensors
+        return sample_bilinear_bwd(dout, u, v, *ctx.hw), None, None
+
+
+def sample_bilinear(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K6/K7: [B,N,h,w,C] in the feature dtype (see ``sample_bilinear_ref``),
+    differentiable with respect to ``feat`` (K6/K7-bwd on the card)."""
+    if feat.device.type == "cpu":
+        return sample_bilinear_ref(feat, u.detach(), v.detach())
+    if feat.device.type != "cuda":
+        raise ValueError(f"sample_bilinear takes CUDA tensors, got {feat.device}")
+    if torch.is_grad_enabled() and feat.requires_grad:
+        return _SampleBilinear.apply(feat, u.detach(), v.detach())
+    return _launch(feat, u, v)
 
 
 sample_bilinear.launches = 0

@@ -12,10 +12,19 @@ loss is non-finite (``apply_updates_if_finite``); BatchNorm statistics take
 the step's values either way. The eval step runs the inference form (the
 model's kernels on the card), resizes the final depth to the final GT and
 computes the metrics.
+
+The Trainer keeps the JAX Trainer's records (adamvs_tpu/train/loop.py:
+139-200): ``metrics.jsonl``, ``train_record.txt`` and, when tensorboardX
+imports, TensorBoard events in the log directory: every record's scalars
+under ``{kind}/{name}`` and, with each train record, the images
+``train/depth_est``, ``train/depth_gt`` and ``train/errormap`` (the first
+sample, min-max normalised, the estimate resized to the GT's shape). Without
+tensorboardX, ``metrics.jsonl`` stays the record, as in JAX.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -112,6 +121,14 @@ class Trainer:
         self.eval_step = make_eval_step(loss_fn, dlossw, num_stages)
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = os.path.join(logdir, "metrics.jsonl")
+        # host seconds per train step: waiting for the batch, and the step itself
+        self.times: dict[str, list[float]] = {"data_s": [], "step_s": []}
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:  # optional, as in JAX: metrics.jsonl stays the record
+            self._tb = None
+        else:
+            self._tb = SummaryWriter(logdir)
 
     def resume(self) -> int:
         """Restore the latest checkpoint; returns the epoch to run next."""
@@ -129,19 +146,59 @@ class Trainer:
     def _record(self, kind: str, step: int, scalars: dict[str, float]):
         with open(self._jsonl, "a") as f:
             f.write(json.dumps({"kind": kind, "step": step, **scalars}) + "\n")
+        if self._tb is not None:
+            for k, val in scalars.items():
+                self._tb.add_scalar(f"{kind}/{k}", val, step)
+
+    def _record_images(self, kind: str, step: int, batch, depth_est: torch.Tensor):
+        """Depth, GT and error images of the first sample (the reference's
+        save_images, utils.py:127-147), each min-max normalised."""
+        if self._tb is None:
+            return
+        final = f"stage{len(batch['depth'])}"
+        gt = batch["depth"][final][0].float()
+        est = depth_est[0].float()
+        if est.shape != gt.shape:
+            est = resize_bilinear(est[None], gt.shape[0], gt.shape[1])[0]
+        err = (est - gt).abs() * batch["mask"][final][0].float()
+
+        def norm(img):
+            img = img.cpu().numpy()
+            lo, hi = float(img.min()), float(img.max())
+            return (img - lo) / max(hi - lo, 1e-6)
+
+        self._tb.add_image(f"{kind}/depth_est", norm(est)[None], step)
+        self._tb.add_image(f"{kind}/depth_gt", norm(gt)[None], step)
+        self._tb.add_image(f"{kind}/errormap", norm(err)[None], step)
+
+    def close(self):
+        """Flush and close the TensorBoard writer."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
     def train_epoch(self, epoch: int, batches) -> dict[str, float]:
         meter = AverageMeter()
-        for i, batch in enumerate(batches):
+        it = iter(batches)
+        for i in itertools.count():
+            t_wait = time.time()
+            batch = next(it, None)
+            if batch is None:
+                break
             t0 = time.time()
-            _, metrics, _ = self.train_step(self.state, to_device(batch, self.device))
+            batch = to_device(batch, self.device)
+            _, metrics, depth_est = self.train_step(self.state, batch)
             step = self.state.step
             scalars = {k: float(v) for k, v in metrics.items()}
             meter.update(scalars)
             if step % self.summary_freq == 0:
                 self._record("train", step, scalars)
+                self._record_images("train", step, batch, depth_est)
+            t1 = time.time()
+            self.times["data_s"].append(t0 - t_wait)
+            self.times["step_s"].append(t1 - t0)
             self.log(f"Epoch {epoch}, iter {i}, loss={scalars['loss']:.4f}, "
-                     f"time={time.time() - t0:.3f}s")
+                     f"time={t1 - t0:.3f}s, data={t0 - t_wait:.3f}s")
             if self.ckpt_step_freq and step % self.ckpt_step_freq == 0:
                 save_checkpoint(self.logdir, self.state, epoch, tag=f"step{step}")
         return meter.mean()

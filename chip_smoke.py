@@ -31,24 +31,33 @@ Phases, in order; any failure exits nonzero:
    small ragged shapes (batch 2, rotated views, samples behind the camera
    and outside the image), float32, then the sweeps and K5 at the widths
    they take by padding or channel groups (C 1, 2, 4, 64, 128) and the
-   sampler at C 1, 3, 4, 12, 64, 128, float32 and bfloat16, and K3 at every
+   sampler and its backward at C 1, 3, 4, 12, 64, 128, float32 and bfloat16
+   (the backward also through the autograd Function, from a strided view),
+   and K3 at every
    input width, base, head kind, D 1 and 5, 38x54 and 6x10, float32 and
    bfloat16; K2, K4, K5-fused and K5-var in float32 and bfloat16 under a
    blocky hypothesis window and where their source windows exceed shared
    memory (the direct branch, which the kernels' own counts must show); K2
    and K4 are timed over 10 runs, with the
    share of windows gathered directly and their times under rotated views
-   and a blocky window as information;
+   and a blocky window as information; K6/K7-bwd, the sampler's gradient,
+   against its plain version (relative L2) at the training stage shapes of
+   the scan form (96x192 C32 with 16 and 1 hypotheses per call, 192x384
+   C16, 384x768 C8), float32 and bfloat16, with one train step's calls
+   timed on the card, alone, by CUDA events and under autograd, beside the
+   bound and the input gradient of F.grid_sample;
 4. reference: AdaMVS (fused form with K3 and with the cell stepped, scan
-   form) and MS-REDNet (fused and scan forms) on a small frame
+   form) and MS-REDNet (fused, scan, and precomp on the card against the
+   stepped fused form on the CPU) on a small frame
    at base 8 and base 4 (stage 3 at C 4), kernels on the card against the
    plain path on the CPU, float32; then one
-   train step of each model on that frame, card against CPU (loss, gradient,
-   BatchNorm statistics);
+   train step of each model in its fused and its scan form on that frame,
+   card against CPU (loss, gradient, BatchNorm statistics);
 5. main paths, each with every launch counter set to 0 just before it and
    read just after: PredictEngine with seeded random weights in bfloat16 at
    full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map), on
-   MS-REDNet in its fused form (3 requests: K4 3 per map) and in its scan
+   MS-REDNet in its fused form and with the precomp regulariser (3 requests
+   each: K4 3 per map; its recurrence timed beside the stepped one) and in its scan
    form (2 requests: the sampler 4 x (48+32+8) = 352 per map), and in
    float32 on AdaMVS in its scan form, the predict CLI's default (2
    requests: the sampler 352 + 12 for stage 1's correlation blocks); the first
@@ -57,18 +66,28 @@ Phases, in order; any failure exits nonzero:
    torch.profiler for the card's busy time; then each model's layers are
    timed alone. Then the Trainer on the bench's training batch (384x768,
    V=5, float32) for AdaMVS (per train step K1 1, K2 3, K5-corr 1, K5-fused
-   3) and MS-REDNet (K4 3, K5-var 3): a warm-up and 5 timed steps with
-   finite losses and no skipped update, parameters and BatchNorm statistics
-   moved, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3; MS-REDNet: K4 3), and one
-   more traced step for the card's busy time and its top kernels; then one
-   step timed by phase (upload, forward, backward, update);
+   3) and MS-REDNet (K4 3, K5-var 3), and for both in the scan form (K6/K7
+   and K6/K7-bwd 364 per AdaMVS step, 352 per MS-REDNet step): a warm-up and
+   5 timed steps with finite losses and no skipped update, parameters and
+   BatchNorm statistics moved, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3;
+   MS-REDNet: K4 3; the scan forms K6/K7 364 and 352), and one more traced
+   step for the card's busy time and its top kernels; then one step timed
+   by phase (upload, forward, backward, update);
 6. cli: the port's predict command in this process on a synthetic tree of 6
    aerial frames at 5504x3712 (PNG), each the reference of one work item of
    5 views: at the JAX CLI's defaults (AdaMVS scan form, float32), in the
    fused bf16 form (K1 1, K2 3, K3 3 per forward), and in that form with the
    feature cache and batches of 2; the output files, their maps and camera
    text, the cached run against the uncached one and the cache's hits are
-   checked, and the per-item infer and save times logged;
+   checked, and the per-item infer and save times logged; then the train,
+   test and profile commands at their defaults (AdaMVS scan form, float32)
+   on a WHU_OMVS tree of 6 views at 384x768 written by the port's writer:
+   train 1 epoch, train to 2 epochs with --resume (it must resume and run
+   epoch 1 only), test (export files, finite PFMs at the GT's resolution),
+   profile (a trace file), and MS-REDNet train 1 epoch; launches per
+   command, per-step seconds and the loader's share, the records
+   (metrics.jsonl, train_record.txt, checkpoints, TensorBoard events where
+   tensorboardX imports);
 7. the kernels line (JSON; launches summed over phases 5 and 6), the card
    line, and the final JSON line.
 
@@ -123,6 +142,8 @@ TOL = {
     ("K3", torch.float32): 1e-4, ("K3", torch.bfloat16): 5e-2,  # bf16 stores of every GRU step
     ("K4", torch.float32): 1e-5, ("K4", torch.bfloat16): 8e-3,  # one bf16 rounding of the output
     ("K6/7", torch.float32): 1e-5, ("K6/7", torch.bfloat16): 8e-3,  # the same
+    # K6/7-bwd, relative L2: float32 atomic sums in varying order; bf16: one rounding
+    ("K6/7-bwd", torch.float32): 1e-5, ("K6/7-bwd", torch.bfloat16): 8e-3,
     # K5: float32 sums, atomics in varying order; bf16: one rounding of the gradient
     ("K5-corr", torch.float32): 1e-5, ("K5-corr", torch.bfloat16): 8e-3,
     ("K5-fused", torch.float32): 1e-5, ("K5-fused", torch.bfloat16): 8e-3,
@@ -130,9 +151,9 @@ TOL = {
 }
 K5 = ("K5-corr", "K5-fused", "K5-var")
 SWEEP_REPS = 10  # K2 and K4 move by up to 25 % between runs of 3
-KERNELS = ("K1", "K2", "K3", "K4", "K6/7") + K5
+KERNELS = ("K1", "K2", "K3", "K4", "K6/7") + K5 + ("K6/7-bwd",)
 # the dtype of the path a kernel serves, whose times and errors the kernels line reports
-MAIN_DTYPE = {"K5-corr": "f32", "K5-fused": "f32", "K5-var": "f32"}
+MAIN_DTYPE = {"K5-corr": "f32", "K5-fused": "f32", "K5-var": "f32", "K6/7-bwd": "f32"}
 REPLACES = {
     "K1": ("corr_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:611"),
     "K2": ("fused_sweep", "adamvs_tpu_torch/csrc/sweep_fuse.cu", "adamvs_tpu/ops/sweep_fuse.py:418"),
@@ -146,6 +167,11 @@ REPLACES = {
                  "adamvs_tpu/ops/sweep_fuse.py:786"),
     "K5-var": ("var_sweep_bwd", "adamvs_tpu_torch/csrc/sweep_bwd.cu",
                "adamvs_tpu/ops/sweep_fuse.py:832"),
+    # JAX has no Pallas backward of K6/K7: it differentiates the gather warp
+    "K6/7-bwd": ("bilinear_sample_bwd", "adamvs_tpu_torch/csrc/bilinear_sample.cu",
+                 "the gradient of adamvs_tpu/ops/warp_pallas2.py:178 (K6) and "
+                 "adamvs_tpu/ops/warp_pallas.py:89 (K7); JAX differentiates the gather warp, "
+                 "adamvs_tpu/ops/warp.py:134"),
 }
 # stage 1 of the AdaMVS scan form samples its correlation volume in blocks of 16
 # hypotheses, one sampler launch per block and source view
@@ -154,6 +180,8 @@ CORR_BLOCKS = (V - 1) * NDEPTHS[0] // 16
 PATHS = (
     ("adamvs", "adamvs", {}, 3, {"K1": 1, "K2": 3, "K3": 3}),
     ("msrednet_fused", "msrednet", {"sweep_impl": "fused"}, 3, {"K4": 3}),
+    ("msrednet_precomp", "msrednet", {"sweep_impl": "fused", "reg_impl": "precomp"}, 3,
+     {"K4": 3}),
     ("msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 2, {"K6/7": (V - 1) * sum(NDEPTHS)}),
     ("adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"}, 2,
      {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
@@ -162,13 +190,26 @@ PATHS = (
 PATH_DTYPE = {"adamvs_scan": torch.float32}
 # forms held card against CPU beside the paths
 REFERENCE_FORMS = (("adamvs_fused_regscan", "adamvs", {"sweep_impl": "fused", "reg_impl": "scan"}),)
-# (training path, model, train steps, launches per train step); each path ends
-# with one eval_epoch on the batch, whose launches are EVAL_LAUNCHES
+# per train step of the scan forms: every sampler call and its backward
+SCAN_STEP = {"adamvs": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS, "msrednet": (V - 1) * sum(NDEPTHS)}
+# (training path, model, model options, train steps, launches per train step, launches
+# of the eval step); each path ends with one eval_epoch on the batch
 TRAIN_PATHS = (
-    ("train_adamvs", "adamvs", 6, {"K1": 1, "K2": 3, "K5-corr": 1, "K5-fused": 3}),
-    ("train_msrednet", "msrednet", 6, {"K4": 3, "K5-var": 3}),
+    ("train_adamvs", "adamvs", {}, 6, {"K1": 1, "K2": 3, "K5-corr": 1, "K5-fused": 3},
+     {"K1": 1, "K2": 3, "K3": 3}),
+    ("train_msrednet", "msrednet", {"sweep_impl": "fused"}, 6, {"K4": 3, "K5-var": 3},
+     {"K4": 3}),
+    ("train_adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"}, 6,
+     {"K6/7": SCAN_STEP["adamvs"], "K6/7-bwd": SCAN_STEP["adamvs"]},
+     {"K6/7": SCAN_STEP["adamvs"]}),
+    ("train_msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 6,
+     {"K6/7": SCAN_STEP["msrednet"], "K6/7-bwd": SCAN_STEP["msrednet"]},
+     {"K6/7": SCAN_STEP["msrednet"]}),
 )
-EVAL_LAUNCHES = {"adamvs": {"K1": 1, "K2": 3, "K3": 3}, "msrednet": {"K4": 3}}
+# K6/K7-bwd at the training stage shapes, as a scan-form train step calls it: (stage,
+# hypotheses per call, calls per train step)
+SAMPLE_BWD_CASES = ((0, 16, CORR_BLOCKS), (0, 1, (V - 1) * NDEPTHS[0]),
+                    (1, 1, (V - 1) * NDEPTHS[1]), (2, 1, (V - 1) * NDEPTHS[2]))
 
 
 def wrappers() -> dict:
@@ -180,7 +221,7 @@ def wrappers() -> dict:
     return {"K1": sf.corr_sweep_volume, "K2": sf.fused_sweep_volume, "K3": rs.red_scan,
             "K4": sf.var_sweep_volume, "K6/7": ws.sample_bilinear,
             "K5-corr": sf.corr_sweep_volume_bwd, "K5-fused": sf.fused_sweep_volume_bwd,
-            "K5-var": sf.var_sweep_volume_bwd}
+            "K5-var": sf.var_sweep_volume_bwd, "K6/7-bwd": ws.sample_bilinear_bwd}
 
 
 def fail(msg: str) -> None:
@@ -494,6 +535,16 @@ def sample_bound(st: StageInputs, dtype) -> tuple[float, str]:
     return _bound(2 * hw * C * es + 2 * hw * 4, hw * (10 + 8 * C), F32_FLOPS)
 
 
+def sample_bwd_bound(st: StageInputs, N: int, dtype) -> tuple[float, str]:
+    """Least work of one K6/K7-bwd call (one source view, N hypotheses): the
+    cotangent, u and v read once and the feature gradient written once; per
+    sample the tap weights (10) and four length-C multiply-adds (8C)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    hw, C = st.h * st.w, st.C
+    n = hw * N
+    return _bound(n * C * es + 2 * n * 4 + hw * C * es, n * (10 + 8 * C), F32_FLOPS)
+
+
 def red_scan_work(st: StageInputs, dtype) -> tuple[float, float, float]:
     """(bytes, operations, a model of the bytes the kernel's design moves) of
     one K3 call. The least bytes read the volume and write the cost once; the
@@ -534,6 +585,24 @@ def _compare(tag: str, key, got: torch.Tensor, want: torch.Tensor) -> tuple[floa
     ok = rel <= TOL[key]
     log(f"[kernels] {tag}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, rel {rel:.3e}, "
         f"tol {TOL[key]:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{tag} disagrees with its plain version")
+    return err, rel
+
+
+def _compare_l2(tag: str, key, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """``got`` against ``want`` by relative L2 (limit ``TOL[key]``); returns
+    (max_abs_err, relative L2)."""
+    if got.shape != want.shape:
+        fail(f"{tag}: shape {tuple(got.shape)} vs plain {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{tag}: non-finite kernel output")
+    d = got.float() - want.float()
+    err = d.abs().max().item()
+    rel = (d.norm() / want.float().norm().clamp(min=1e-30)).item()
+    ok = rel <= TOL[key]
+    log(f"[kernels] {tag}: max_abs_err {err:.3e}, rel L2 {rel:.3e} (tol {TOL[key]:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{tag} disagrees with its plain version")
     return err, rel
@@ -688,6 +757,88 @@ def phase_kernels(reps: int = 3) -> dict:
     return res
 
 
+def phase_sample_bwd(res: dict, reps: int = 3) -> None:
+    """K6/K7-bwd against its plain version (autograd of the plain sampler) at
+    the training stage shapes as a scan-form train step calls it
+    (SAMPLE_BWD_CASES: 96x192 C32 with 16 hypotheses per call and with 1,
+    192x384 C16, 384x768 C8), in float32 and bfloat16, relative L2; in
+    float32 the calls of one train step back to back: the card's busy time
+    (``ms``, the wrapper's zeroing and cast included), the kernel alone, the
+    wall by CUDA events, the plain version's, the bound, and the gradient of
+    ``F.grid_sample`` (align_corners=False, zeros padding) with respect to its
+    input (``aten.grid_sampler_2d_backward``, one call per K6/K7-bwd call)."""
+    from adamvs_tpu_torch.ops import warp_sample as ws
+    from adamvs_tpu_torch.ops.warp import sweep_coords
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    k = "K6/7-bwd"
+    for si, N, calls in SAMPLE_BWD_CASES:
+        st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
+        d0 = (st.D - N) // 2
+        hyp = st.lo[:, None] + (d0 + torch.arange(N, device=DEV))[None, :, None, None] * st.step[:, None]
+        u, v = sweep_coords(st.srcs[0], st.src_projs[0], st.ref_proj, hyp)  # [1,N,h,w]
+        for dtype in (torch.float32, torch.bfloat16):
+            tn = "f32" if dtype == torch.float32 else "bf16"
+            dout = torch.randn((1, N, st.h, st.w, st.C), generator=gen, device=DEV).to(dtype)
+            kern = lambda: ws.sample_bilinear_bwd(dout, u, v, st.h, st.w)
+            plain = lambda: ws.sample_bilinear_bwd_ref(dout, u, v, st.h, st.w)
+            e = _compare_l2(f"{k} stage{si + 1} N{N} {tn}", (k, dtype), kern(), plain())
+            old = res[k]["err"].get(tn, (0.0, 0.0))
+            res[k]["err"][tn] = (max(old[0], e[0]), max(old[1], e[1]))
+            if dtype != torch.float32:
+                continue
+            # the library's yardstick: F.grid_sample's input gradient, NCHW, its grid
+            # normalised for align_corners=False and stacked over the N hypotheses
+            gx = (2.0 * u + 1.0) / st.w - 1.0
+            gy = (2.0 * v + 1.0) / st.h - 1.0
+            grid = torch.stack([gx, gy], dim=-1).reshape(1, N * st.h, st.w, 2)
+            gout = dout.permute(0, 4, 1, 2, 3).reshape(1, st.C, N * st.h, st.w).contiguous()
+            x = torch.zeros((1, st.C, st.h, st.w), device=DEV)
+
+            def lib():
+                return torch.ops.aten.grid_sampler_2d_backward(gout, x, grid, 0, 0, False,
+                                                                [True, False])[0]
+
+            lib_err = (lib().permute(0, 2, 3, 1) - plain()).abs().max().item()
+
+            def kcalls():
+                for _ in range(calls):
+                    kern()
+
+            def lcalls():
+                for _ in range(calls):
+                    lib()
+
+            wall = time_ms(kcalls, reps)
+            busy, top = device_profile(kcalls, top=6)
+            alone = sum(t for n, t, _ in top if "sample_bwd_kernel" in n)
+            lms = device_busy_ms(lcalls)
+            pms = time_ms(plain, 1) * calls
+            bms, by = sample_bwd_bound(st, N, dtype)
+            # the same calls as autograd makes them in a train step: each forward samples a
+            # view of the stacked sources, and the backward hands each view's gradient back
+            # into one gradient of the stack (the card's time of that backward, whose
+            # zeroing, view gradients and sums come on top of the kernels)
+            srcs = st.srcs.clone().requires_grad_()
+            with torch.enable_grad():
+                outs = [ws.sample_bilinear(srcs[i % (V - 1)], u, v) for i in range(calls)]
+            autograd_ms = device_busy_ms(lambda: torch.autograd.backward(
+                outs, [dout] * calls, retain_graph=True))
+            res[k]["stages"].append({
+                "stage": si + 1, "N": N, "calls_per_step": calls, "ms": busy,
+                "kernel_ms": alone, "wall_ms": wall, "autograd_ms": autograd_ms, "plain_ms": pms,
+                "bound_ms": bms * calls, "bound_by": by, "library_ms": lms})
+            log(f"[kernels] {k} stage{si + 1} N{N} f32, {calls} calls of a train step back to "
+                f"back: {busy:.3f} ms on the card, the kernel alone {alone:.3f} ms, wall "
+                f"{wall:.3f} ms, under autograd into one source stack {autograd_ms:.3f} ms on the "
+                f"card (plain {pms:.3f} ms, bound {bms * calls:.3f} ms by {by}; F.grid_sample "
+                f"backward {lms:.3f} ms on the card, its max_abs_err against the plain version "
+                f"{lib_err:.2e})")
+            del grid, gout, x, srcs, outs
+        del st, u, v, hyp
+        torch.cuda.empty_cache()
+
+
 def walk_counts(call) -> float:
     """The C-wide dot products (K1) or flushes (K5-corr) per sample walked of
     a corr call, from the kernel's own count."""
@@ -784,11 +935,27 @@ def phase_edges() -> None:
                 u, vv = sweep_coords(srcs[v], src_projs[v], ref_proj, hyp)  # [B,D,h,w]
                 _compare(f"K6/7 edge C{C} view {v}", ("K6/7", f32),
                          ws.sample_bilinear(srcs[v], u, vv), ws.sample_bilinear_ref(srcs[v], u, vv))
+                g = torch.randn((B, D, h, w, C), generator=gen, device=DEV)
+                _compare_l2(f"K6/7-bwd edge C{C} view {v}", ("K6/7-bwd", f32),
+                            ws.sample_bilinear_bwd(g, u, vv, h, w),
+                            ws.sample_bilinear_bwd_ref(g, u, vv, h, w))
             u = -3.0 + (w + 6.0) * torch.rand((B, 2, 17, 23), generator=gen, device=DEV)
             vv = -3.0 + (h + 6.0) * torch.rand((B, 2, 17, 23), generator=gen, device=DEV)
             u[:, :, :2] = -1e9
             _compare(f"K6/7 edge C{C} random coordinates", ("K6/7", f32),
                      ws.sample_bilinear(srcs[0], u, vv), ws.sample_bilinear_ref(srcs[0], u, vv))
+            g = torch.randn((B, 2, 17, 23, C), generator=gen, device=DEV)
+            _compare_l2(f"K6/7-bwd edge C{C} random coordinates", ("K6/7-bwd", f32),
+                        ws.sample_bilinear_bwd(g, u, vv, h, w),
+                        ws.sample_bilinear_bwd_ref(g, u, vv, h, w))
+            # through the autograd Function, from a view that is not contiguous
+            wide = torch.cat([srcs[1], srcs[0]], dim=-1).requires_grad_()
+            with torch.enable_grad():
+                (ws.sample_bilinear(wide[..., :C], u, vv).float() * g).sum().backward()
+            _compare_l2(f"K6/7-bwd edge C{C} autograd of a strided view", ("K6/7-bwd", f32),
+                        wide.grad[..., :C], ws.sample_bilinear_bwd_ref(g, u, vv, h, w))
+            if wide.grad[..., C:].abs().max().item() != 0.0:
+                fail(f"K6/7-bwd edge C{C}: gradient outside the sampled view")
         # the widths the kernels take by padding or channel groups (ops/sweep_fuse.py::
         # sweep_plan, ops/warp_sample.py::sample_width), float32 and bf16
         geo = (src_projs, ref_proj, lo, step, D)
@@ -820,6 +987,16 @@ def phase_edges() -> None:
                 f = feat.to(dtype)
                 _compare(f"K6/7 edge C{C} {tn}", ("K6/7", dtype), ws.sample_bilinear(f, u, vv),
                          ws.sample_bilinear_ref(f, u, vv))
+                g = torch.randn((B, D, h, w, C), generator=gen, device=DEV).to(dtype)
+                _compare_l2(f"K6/7-bwd edge C{C} {tn}", ("K6/7-bwd", dtype),
+                            ws.sample_bilinear_bwd(g, u, vv, h, w),
+                            ws.sample_bilinear_bwd_ref(g, u, vv, h, w))
+                # the autograd Function hands back the gradient of the unpadded width
+                f = f.clone().requires_grad_()
+                with torch.enable_grad():
+                    (ws.sample_bilinear(f, u, vv).float() * g.float()).sum().backward()
+                _compare_l2(f"K6/7-bwd edge C{C} {tn} autograd", ("K6/7-bwd", dtype), f.grad,
+                            ws.sample_bilinear_bwd_ref(g, u, vv, h, w))
         # K3 at every input width of AdaMVS base 8, both regulariser widths and head kinds,
         # one and five depth steps, at 38x54 (no multiple of any tile) and at 6x10 (smaller
         # than every tile of the bf16 kernel's phases), in float32 and bf16; then widths the
@@ -1005,6 +1182,8 @@ def phase_reference() -> None:
                             cr_base=(base,) * 3, **opts)
         path = f"{path} base {base}"
         cpu_model = copy.deepcopy(model).cpu()
+        if opts.get("reg_impl") == "precomp":
+            cpu_model.reg_impl = "scan"  # precomp on the card against the stepped form
         got = model(imgs.to(DEV), {k: p.to(DEV) for k, p in projs.items()}, dv.to(DEV),
                     num_depth=NUM_DEPTH)
         want = cpu_model(imgs, projs, dv, num_depth=NUM_DEPTH)
@@ -1110,10 +1289,9 @@ def train_batch(height: int, width: int, batch: int = 1) -> dict:
     }
 
 
-def _train_model(name: str, seed: int, device):
+def _train_model(name: str, opts: dict, seed: int, device):
     from adamvs_tpu_torch.models import build_model
 
-    opts = {"sweep_impl": "fused"} if name == "msrednet" else {}
     return build_model(name, seed=seed, device=device, ndepths=NDEPTHS,
                        depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, **opts)
 
@@ -1159,9 +1337,11 @@ class ReluReplay(torch.overrides.TorchFunctionMode):
 
 
 def phase_train_reference() -> None:
-    """One train step of each model on a 128x160 frame: the card (K1/K2/K4
-    forward, K5 backward) against the plain path on the CPU, float32, TF32
-    off, the CPU replaying the card's ReLU decisions (``ReluReplay``).
+    """One train step of each path of TRAIN_PATHS (each model in its fused
+    and scan forms) on a 128x160 frame: the card (K1/K2/K4 forward, K5
+    backward; the scan forms K6/K7 and K6/K7-bwd) against the plain path on
+    the CPU, float32, TF32 off, the CPU replaying the card's ReLU decisions
+    (``ReluReplay``).
     Limits: loss within 1e-4 relative, the whole gradient within 1e-3
     relative L2, BatchNorm statistics within 1e-4 (relative, absolute below
     1), the CPU's own decisions differing from the card's in at most
@@ -1170,8 +1350,8 @@ def phase_train_reference() -> None:
     from adamvs_tpu_torch.train.loop import to_device
 
     batch = train_batch(128, 160)
-    for name in ("adamvs", "msrednet"):
-        cpu = _train_model(name, 1, "cpu")
+    for path, name, opts, *_ in TRAIN_PATHS:
+        cpu = _train_model(name, opts, 1, "cpu")
         results = []
         record = ReluReplay()
         replay = ReluReplay(record.masks)
@@ -1193,16 +1373,16 @@ def phase_train_reference() -> None:
         serr = float(((sg - sc).abs() / sc.abs().clamp(min=1.0)).max())
         decisions = sum(m.numel() for m in record.masks)
         flip_share = replay.flips / max(decisions, 1)
-        log(f"[reference] train {name} 128x160: loss {lg:.6f} card vs {lc:.6f} cpu, rel err "
+        log(f"[reference] {path} 128x160: loss {lg:.6f} card vs {lc:.6f} cpu, rel err "
             f"{lerr:.2e} (limit 1e-4); gradient rel L2 {gerr:.2e} (limit 1e-3); BatchNorm "
             f"statistics err {serr:.2e} (limit 1e-4); the CPU took {replay.flips} of "
             f"{decisions} ReLU decisions from the card, {flip_share:.1e} (limit "
             f"{ReluReplay.MAX_FLIPS:.0e})")
         if replay.calls != record.calls or not decisions:
-            fail(f"train {name}: {record.calls} ReLU calls on the card, {replay.calls} on the CPU")
+            fail(f"{path}: {record.calls} ReLU calls on the card, {replay.calls} on the CPU")
         if not (lerr < 1e-4 and gerr < 1e-3 and serr < 1e-4
                 and flip_share <= ReluReplay.MAX_FLIPS):
-            fail(f"train {name}: the card's train step disagrees with the plain path on the CPU")
+            fail(f"{path}: the card's train step disagrees with the plain path on the CPU")
 
 
 def phase_train_paths() -> tuple[dict, list]:
@@ -1224,8 +1404,8 @@ def phase_train_paths() -> tuple[dict, list]:
     # the Trainer's records go to the port's build directory, which git ignores
     logroot = os.path.join(REPO, "adamvs_tpu_torch", "_build", "chip_smoke_train")
     shutil.rmtree(logroot, ignore_errors=True)
-    for path, name, steps, per_step in TRAIN_PATHS:
-        model = _train_model(name, 0, DEV)
+    for path, name, opts, steps, per_step, per_eval in TRAIN_PATHS:
+        model = _train_model(name, opts, 0, DEV)
         state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
         trainer = Trainer(state, model_loss(name), os.path.join(logroot, path), dlossw=DLOSSW,
                           num_stages=3, ckpt_step_freq=0, log_fn=lambda m: None, device=DEV)
@@ -1250,7 +1430,7 @@ def phase_train_paths() -> tuple[dict, list]:
         launches = {k: fn.launches for k, fn in counted.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         for k, n in launches.items():
-            want = steps * per_step.get(k, 0) + EVAL_LAUNCHES[name].get(k, 0)
+            want = steps * per_step.get(k, 0) + per_eval.get(k, 0)
             if n != want:
                 fail(f"{path}: {k} launched {n} times over {steps} train steps and one eval, "
                      f"expected {want}")
@@ -1270,7 +1450,7 @@ def phase_train_paths() -> tuple[dict, list]:
                  "params": len(params), "eval": val,
                  "phases_ms": train_phase_times(state, model_loss(name), batch)}
         stats.append(entry)
-        log(f"[main] {path} {TRAIN_H}x{TRAIN_W} V={V} ndepths {NDEPTHS} f32: "
+        log(f"[main] {path} {TRAIN_H}x{TRAIN_W} V={V} ndepths {NDEPTHS} f32 {opts}: "
             f"{entry['ms_per_step']:.1f} ms per train step (median {entry['median_ms']:.1f}; timed "
             f"{', '.join(f'{t:.1f}' for t in times[1:])}; warm-up {times[0]:.1f}), peak "
             f"{peak:.2f} GiB, {moved} of {len(params)} parameters and all {len(bn)} BatchNorm "
@@ -1420,6 +1600,159 @@ def phase_cli() -> tuple[dict, list]:
     return total, stats
 
 
+# The training commands' fixture: a WHU_OMVS tree of CLI_TRAIN_VIEWS views at the training
+# crop's size, each view the reference of one sample of V views.
+CLI_TRAIN_VIEWS = 6
+
+
+def _check_train_logdir(run: str, logdir: str, epochs: int) -> dict:
+    """The records a train command leaves in ``logdir``: metrics.jsonl with
+    train and val records (the last val's abs_depth_error finite),
+    train_record.txt with one line per epoch, one end-of-epoch .ckpt per
+    epoch, and TensorBoard event files where tensorboardX imports. Returns
+    the last val record."""
+    names = sorted(os.listdir(logdir))
+    recs = [json.loads(ln) for ln in open(os.path.join(logdir, "metrics.jsonl"))]
+    vals = [r for r in recs if r["kind"] == "val"]
+    if not any(r["kind"] == "train" for r in recs) or len(vals) != epochs:
+        fail(f"cli {run}: metrics.jsonl holds {len(recs)} records, {len(vals)} val of {epochs}")
+    if not np.isfinite(vals[-1]["abs_depth_error"]):
+        fail(f"cli {run}: non-finite abs_depth_error {vals[-1]}")
+    with open(os.path.join(logdir, "train_record.txt")) as f:
+        if len(f.read().splitlines()) != epochs:
+            fail(f"cli {run}: train_record.txt does not hold {epochs} lines")
+    for e in range(epochs):
+        if not any(n.startswith(f"model_{e:06d}_") and n.endswith(".ckpt") for n in names):
+            fail(f"cli {run}: no checkpoint of epoch {e} in {names}")
+    try:
+        import tensorboardX  # noqa: F401
+        tb = True
+    except ImportError:
+        tb = False
+    events = [n for n in names if n.startswith("events.out.tfevents")]
+    if tb and not events:
+        fail(f"cli {run}: tensorboardX imports but no event file was written")
+    log(f"[cli] {run}: {len(recs)} records in metrics.jsonl, val abs_depth_error "
+        f"{vals[-1]['abs_depth_error']:.3f}; tensorboardX {'present' if tb else 'absent'}, "
+        f"{len(events)} event files; files {names}")
+    return vals[-1]
+
+
+def phase_cli_train() -> tuple[dict, list]:
+    """The port's train, test and profile commands (``adamvs_tpu_torch.cli
+    .main``) in this process on a WHU_OMVS tree written by the port's
+    writer (CLI_TRAIN_VIEWS views at 384x768), at their defaults (AdaMVS scan
+    form, float32, V=5, ndepths 48/32/8) with ``--summary_freq 1``: train one
+    epoch; train to 2 epochs with ``--resume``, which must resume and run
+    epoch 1 only; test (the export files, PFMs at the GT's resolution,
+    finite); profile (a trace file); train MS-REDNet one epoch. Each command
+    has every launch counter set to 0 just before it and read just after.
+    Returns (launches summed over the commands, per-command statistics)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from adamvs_tpu_torch.cli import main as cli_main
+    from adamvs_tpu_torch.data.synthetic import make_scene, write_whu_omvs_tree
+    from adamvs_tpu_torch.io.pfm import read_pfm
+
+    counted = wrappers()
+    total = dict.fromkeys(KERNELS, 0)
+    stats = []
+    n = CLI_TRAIN_VIEWS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
+        t0 = time.perf_counter()
+        scene = make_scene(num_views=n, height=TRAIN_H, width=TRAIN_W, seed=0, focal=800.0,
+                           fly_height=400.0, plane=(0.2, -0.16, 0.0), baseline=20.0, tilt=0.05,
+                           workers=min(8, os.cpu_count() or 1))
+        tree = os.path.join(tmp, "whu_omvs")
+        write_whu_omvs_tree(tree, scene)
+        log(f"[cli] training fixture: WHU_OMVS tree of {n} views {TRAIN_H}x{TRAIN_W}, depths "
+            f"[{scene.depth_start}, {scene.depth_end}] step {scene.depth_interval}, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        logs = {m: os.path.join(tmp, f"logs_{m}") for m in ("adamvs", "msrednet")}
+        trace = os.path.join(tmp, "trace")
+        a, m = SCAN_STEP["adamvs"], SCAN_STEP["msrednet"]
+        train_a = ["train", "--trainpath", tree, "--logdir", logs["adamvs"], "--summary_freq", "1"]
+        # (run, argv, launches: n train steps with their backward and n eval steps)
+        runs = (
+            ("train", train_a + ["--epochs", "1"], {"K6/7": 2 * n * a, "K6/7-bwd": n * a}),
+            ("resume", train_a + ["--epochs", "2", "--resume"],
+             {"K6/7": 2 * n * a, "K6/7-bwd": n * a}),
+            ("test", ["test", "--testpath", tree, "--logdir", logs["adamvs"]], {"K6/7": n * a}),
+            ("profile", ["profile", "--testpath", tree, "--warmup", "1", "--iters", "2",
+                         "--trace_dir", trace], {"K6/7": 3 * a}),
+            ("train_msrednet", ["train", "--model", "msrednet", "--trainpath", tree, "--logdir",
+                                logs["msrednet"], "--summary_freq", "1", "--epochs", "1"],
+             {"K6/7": 2 * n * m, "K6/7-bwd": n * m}),
+        )
+        for run, argv, want in runs:
+            for fn in counted.values():
+                fn.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                result = cli_main(argv + ["--device", DEV])
+            wall = time.perf_counter() - t0
+            out = buf.getvalue()
+            launches = {k: fn.launches for k, fn in counted.items()}
+            for k, c in launches.items():
+                if c != want.get(k, 0):
+                    fail(f"cli {run}: {k} launched {c} times, expected {want.get(k, 0)}")
+                total[k] += c
+            entry = {"run": run, "argv": argv, "wall_s": wall, "launches": launches}
+            if argv[0] == "train":
+                epochs = int(argv[argv.index("--epochs") + 1])
+                epoch_lines = re.findall(r"^Epoch (\d+), iter", out, re.M)
+                if run == "resume":
+                    if "resuming from" not in out or set(epoch_lines) != {"1"}:
+                        fail(f"cli {run}: no 'resuming from', or epochs {set(epoch_lines)} ran")
+                elif set(epoch_lines) != {"0"}:
+                    fail(f"cli {run}: epochs {set(epoch_lines)} ran")
+                if len(epoch_lines) != n:
+                    fail(f"cli {run}: {len(epoch_lines)} train steps logged, expected {n}")
+                step_s, data_s = result.times["step_s"], result.times["data_s"]
+                entry.update(step_s=step_s, data_s=data_s,
+                             loader_share=sum(data_s) / (sum(data_s) + sum(step_s)),
+                             val=_check_train_logdir(run, argv[argv.index("--logdir") + 1], epochs))
+                log(f"[cli] {run}: {n} steps, per step {statistics.mean(step_s):.3f} s (first "
+                    f"{step_s[0]:.3f}, then {statistics.mean(step_s[1:]):.3f}), waiting for the "
+                    f"loader {statistics.mean(data_s):.3f} s per step ({entry['loader_share']:.1%} "
+                    f"of the epoch's train loop)")
+            elif run == "test":
+                if "final:" not in out:
+                    fail("cli test: no 'final:' line")
+                out_root = os.path.join(tree, "depths_whu_omvs", "images")
+                names = [f"view_{i:03d}" for i in range(n)]
+                files = sorted(os.path.relpath(os.path.join(d, f), out_root)
+                               for d, _, fs in os.walk(out_root) for f in fs)
+                expect = sorted([f"{v}{x}" for v in names for x in ("_init.pfm", "_prob.pfm", ".jpg")]
+                                + [f"color/{v}{x}" for v in names for x in ("_init.png", "_prob.png")])
+                if files != expect:
+                    fail(f"cli test: export files {files}")
+                for v in names:
+                    for x in ("_init.pfm", "_prob.pfm"):
+                        arr = read_pfm(os.path.join(out_root, v + x))[0]
+                        if arr.shape != (TRAIN_H, TRAIN_W) or not np.isfinite(arr).all():
+                            fail(f"cli test {v}{x}: shape {arr.shape}, finite "
+                                 f"{np.isfinite(arr).all()}")
+                entry["final"] = result
+                log(f"[cli] test: {n} samples exported, PFMs {TRAIN_H}x{TRAIN_W} finite; final "
+                    f"abs_depth_error {result['abs_depth_error']:.3f}")
+            elif run == "profile":
+                size = os.path.getsize(result) if os.path.exists(result) else 0
+                if not size:
+                    fail(f"cli profile: no trace at {result}")
+                entry["trace_bytes"] = size
+                log(f"[cli] profile: trace of {size} bytes; "
+                    + "; ".join(ln for ln in out.splitlines() if ln.startswith(("warmup", "profile"))))
+            stats.append(entry)
+            log(f"[cli] {run} ({' '.join(argv)}): "
+                f"{wall:.1f} s wall, launches {launches}")
+            torch.cuda.empty_cache()
+    return total, stats
+
+
 def train_phase_times(state, loss_fn, batch) -> dict:
     """Milliseconds of one more train step's phases, host clock with a
     synchronise after each: the upload of the batch, the forward with the
@@ -1456,7 +1789,7 @@ def msrednet_layer_times(model, opts: dict) -> dict:
     from zero states (and the card's busy time in it, from a trace), and the
     online softmax over D. Beside them, one GroupNorm(1) at the level-1 state's shape, as PyTorch's module computes it
     and as the port does (``group_norm1``)."""
-    from adamvs_tpu_torch.models.msrednet import variance_slice
+    from adamvs_tpu_torch.models.msrednet import red_precomp_depth, variance_slice
     from adamvs_tpu_torch.nn.blocks import group_norm1
     from adamvs_tpu_torch.ops.regression import (online_softmax_finalize, online_softmax_init,
                                                  online_softmax_update)
@@ -1503,6 +1836,10 @@ def msrednet_layer_times(model, opts: dict) -> dict:
 
             out[f"redcell_{tag}"] = time_ms(recurrence, 5)
             out[f"redcell_busy_{tag}"] = device_busy_ms(recurrence)
+            if opts.get("reg_impl") == "precomp":
+                precomp = lambda: red_precomp_depth(cell, vol, st.lo, st.step)
+                out[f"precomp_{tag}"] = time_ms(precomp, 3)
+                out[f"precomp_busy_{tag}"] = device_busy_ms(precomp)
             gn = cell.conv_gru1.output_norm
             hx = torch.randn((1, cell.base, st.h, st.w), generator=gen, device=DEV).to(dt)
             out[f"groupnorm_module_{tag}"] = time_ms(lambda: gn(hx), 3)
@@ -1518,7 +1855,7 @@ def msrednet_layer_times(model, opts: dict) -> dict:
             out[f"online_softmax_{tag}"] = time_ms(softmax, 3)
             del st, ref, srcs, vol, cost, hx
             torch.cuda.empty_cache()
-    log(f"[main] msrednet {opts['sweep_impl']} layers (ms): "
+    log(f"[main] msrednet {opts} layers (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
     return out
 
@@ -1828,6 +2165,7 @@ def main() -> None:
     phase_build()
     res = phase_kernels()
     phase_k5(res)
+    phase_sample_bwd(res)
     phase_edges()
     phase_sweep_windows()
     phase_reference()
@@ -1835,10 +2173,11 @@ def main() -> None:
     launches, main_stats = phase_main_path()
     train_launches, train_stats = phase_train_paths()
     cli_launches, cli_stats = phase_cli()
-    line = kernels_line(res, {k: n + train_launches[k] + cli_launches[k]
+    cli_train_launches, cli_train_stats = phase_cli_train()
+    line = kernels_line(res, {k: n + train_launches[k] + cli_launches[k] + cli_train_launches[k]
                               for k, n in launches.items()})
     line["main_path"] = main_stats + train_stats
-    line["cli"] = cli_stats
+    line["cli"] = cli_stats + cli_train_stats
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

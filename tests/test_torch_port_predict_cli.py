@@ -137,8 +137,9 @@ def test_cli_runs_every_form(case, tmp_path, flags):
 
 @pytest.mark.parametrize("flags,item", [
     (("--sweep_impl", "fused", "--reg_impl", "precomp"), "AdaMVS reg_impl=precomp"),
-    (("--model", "msrednet", "--sweep_impl", "fused", "--reg_impl", "precomp"),
-     'MS-REDNet reg_impl="precomp"'),
+    # MS-REDNet precomp runs (tests/test_torch_port_precomp.py); row bands do not
+    (("--model", "msrednet", "--sweep_impl", "fused", "--reg_impl", "precomp", "--tiles", "2"),
+     "parallel paths"),
     (("--warp_impl", "pallas2bf16"), "bf16 sampling for a float32 model"),
     (("--tiles", "2"), "parallel paths"),
     (("--distributed",), "parallel paths"),

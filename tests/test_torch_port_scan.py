@@ -179,8 +179,9 @@ def test_form_arguments_are_checked():
         AdaMVS(**CFG, sweep_impl="fusedf32")
     with pytest.raises(ValueError, match="reg_impl"):
         AdaMVS(**CFG, reg_impl="precomp")
-    model = AdaMVS(**CFG, **FORMS["scan"]).train()
+    # the scan form trains (tests/test_torch_port_scan_train.py), in train mode only
+    model = AdaMVS(**CFG, **FORMS["scan"]).eval()
     imgs = torch.zeros(1, 3, 64, 64, 3)
     projs = {k: _t(v) for k, v in _projs(1, 3, 64, 64).items()}
-    with pytest.raises(ValueError, match="training runs the fused form"):
+    with pytest.raises(ValueError, match="needs the module in train mode"):
         model(imgs, projs, torch.tensor([[DMIN, DMAX, 1.0]]), train=True)

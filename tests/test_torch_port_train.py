@@ -271,10 +271,12 @@ def train_step_case(request):
     return _train_step_case(request.param)
 
 
-def _train_step_case(name):
+def _train_step_case(name, opts=None):
     """One train step of family ``name`` in JAX and in the port, from the
-    same weights and batch."""
-    port_cls, jcls, importer, opts = FAMILIES[name]
+    same weights and batch; the port's model takes ``opts`` (its form) in
+    place of the family's."""
+    port_cls, jcls, importer, family_opts = FAMILIES[name]
+    opts = family_opts if opts is None else opts
     batch = _scene()
     port = port_cls(**CFG, **opts)
     # A ReLU input within float32 rounding of 0 takes opposite sides in the
