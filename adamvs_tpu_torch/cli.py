@@ -12,8 +12,12 @@ Every command runs on the CUDA card unless ``--device`` names another device
 ``--device cpu`` it raises. Checkpoints are the reference-layout ``.ckpt``
 files of ``train/checkpoint.py``, not orbax directories. ``profile`` writes
 a ``torch.profiler`` Chrome trace (``trace.json``) under ``--trace_dir``.
-``--distributed``, ``--data_parallel`` other than 1, ``--tiles`` above 1
-and ``train --compute_dtype bf16`` are not ported yet (ROADMAP.md queue 1).
+``--compute_dtype bf16`` trains with float32 master weights and bf16
+compute (flax's ``dtype=bf16``): parameters, optimizer state and checkpoints
+stay float32, so a checkpoint of a bf16 run loads into a float32 one and the
+other way round; ``test``, ``profile`` and ``predict`` cast the parameters to
+bf16 once. ``--distributed``, ``--data_parallel`` other than 1 and
+``--tiles`` above 1 are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ def _add_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--share_cr", action="store_true")
     p.add_argument("--warp_impl", default="gather", choices=list(WARP_IMPLS),
                    help="every choice samples exactly, through the port's bilinear "
-                        "sampler kernel; pallas2bf16 needs --compute_dtype bf16")
+                        "sampler kernel; pallas2bf16 with --compute_dtype f32 rounds the scan "
+                        "form's source features to bf16 and samples them into float32")
     p.add_argument("--sweep_impl", default="scan", choices=list(SWEEP_IMPLS),
                    help="scan: per-hypothesis warps inside the recurrence; fused: one "
                         "plane-sweep kernel per stage (fusedf32 is the same in the port, "
@@ -57,12 +62,12 @@ def _add_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--reg_impl", default="scan", choices=["scan", "pallas", "precomp"],
                    help="scan: the recurrent regulariser stepped per depth slice; pallas "
                         "(adamvs, needs --sweep_impl fused): the whole recurrence in one "
-                        "kernel per stage; precomp (msrednet, needs --sweep_impl fused): "
-                        "the input-side convolutions batched over chunks of depths. pallas "
+                        "kernel per stage; precomp (needs --sweep_impl fused): the "
+                        "input-side convolutions batched over chunks of depths. pallas "
                         "and precomp are inference forms: training steps the regulariser")
     p.add_argument("--compute_dtype", default="f32", choices=["f32", "bf16"],
-                   help="bf16 inference; train takes f32 only (bf16 training is not "
-                        "ported yet)")
+                   help="bf16: train with float32 master weights and bf16 compute; "
+                        "test, profile and predict in bf16")
     p.add_argument("--distributed", action="store_true",
                    help="multi-host runs are not ported yet")
     p.add_argument("--device", default="cuda",
@@ -97,14 +102,14 @@ def _data_config(args, **kw) -> DataConfig:
                       interval_scale=args.interval_scale, batch_size=args.batch_size, **kw)
 
 
-def _build(args, mc: ModelConfig):
-    """(device, model) of an evaluating or training command."""
+def _build(args, mc: ModelConfig, train: bool = False):
+    """(device, model) of an evaluating or (``train``) a training command."""
     from .device import resolve_device
 
     if args.distributed:
         raise not_ported("--distributed", PARALLEL)
     device = resolve_device(args.device)
-    return device, mc.build(device=device, seed=0)
+    return device, mc.build(device=device, seed=0, train=train)
 
 
 def cmd_train(args):
@@ -118,8 +123,6 @@ def cmd_train(args):
 
     if args.data_parallel != 1:
         raise not_ported("--data_parallel other than 1", PARALLEL)
-    if args.compute_dtype != "f32":
-        raise not_ported("train --compute_dtype bf16", "bf16 mixed-precision training")
     data = _data_config(args, trainpath=args.trainpath, testpath=args.testpath or args.trainpath,
                         num_workers=args.num_workers)
     mc = _model_config(args)
@@ -132,7 +135,7 @@ def cmd_train(args):
     train_specs = build_sample_list(data.trainpath, data.set_name, data.view_num)
     test_specs = build_sample_list(data.testpath, data.set_name, data.view_num)
     steps_per_epoch = max(1, len(train_specs) // data.batch_size)
-    device, model = _build(args, mc)
+    device, model = _build(args, mc, train=True)
     milestones, gamma = parse_lrepochs(tc.lrepochs)
     state = create_train_state(
         model, make_optimizer(model.parameters(), lr=tc.lr, weight_decay=tc.wd),

@@ -2,9 +2,10 @@
 adamvs_tpu/config.py).
 
 ``ModelConfig`` holds the JAX CLI's model flags with the same validity rules
-(config.py:61-74) and builds the port's model. Flag values the JAX package
-takes but the port has not ported yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them. ``DataConfig``, ``TrainConfig`` and
+(config.py:61-74) and builds the port's model. Flags the JAX package takes
+but the port has not ported yet (the parallel paths' flags, refused in
+``cli.py``) raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them (``not_ported``). ``DataConfig``, ``TrainConfig`` and
 ``PredictConfig`` hold the other commands' flags with the JAX defaults.
 """
 
@@ -41,23 +42,26 @@ class ModelConfig:
     share_cr: bool = False
     base_channels: int = 8
     # every choice is the exact bilinear sample through K6/K7 in the port;
-    # the JAX choices differ only outside their band
+    # the JAX choices differ only outside their band. pallas2bf16 on a float32
+    # model rounds the scan form's sources to bf16 and samples into float32
     warp_impl: str = "gather"  # gather | banded | pallas | pallas2 | pallas2bf16
     # scan: per-depth warp inside the recurrence; fused/fusedf32: one sweep
     # kernel per stage (the port's sweeps sample exactly in float32, so
     # fusedf32 is fused)
     sweep_impl: str = "scan"
     # scan: the regulariser stepped per depth slice; adamvs 'pallas': K3 over
-    # the fused volume; msrednet 'precomp': red_precomp_depth over K4's volume
-    # (AdaMVS precomp is not ported)
+    # the fused volume; 'precomp': the recurrence over chunks of depths of the
+    # fused volume (ada_precomp_depth, red_precomp_depth)
     reg_impl: str = "scan"
     dtype: str = "f32"  # f32 | bf16
 
-    def build(self, device=None, seed: int = 0):
-        """The port's model in this config's dtype with weights drawn from
-        ``seed`` (``models.build_model``), on ``device`` (CUDA unless given).
-        Raises ``ValueError`` for a combination the JAX package rejects and
-        ``NotImplementedError`` for one the port has not ported."""
+    def build(self, device=None, seed: int = 0, train: bool = False):
+        """The port's model computing in this config's dtype with weights
+        drawn from ``seed`` (``models.build_model``), on ``device`` (CUDA
+        unless given). For inference (``train=False``) the parameters are
+        cast to the compute dtype; for training they stay float32, the
+        master weights of a bf16 run, as flax keeps them. Raises
+        ``ValueError`` for a combination the JAX package rejects."""
         from .models import build_model
 
         if self.model not in REG_IMPLS:
@@ -79,15 +83,16 @@ class ModelConfig:
                 f"reg_impl={self.reg_impl!r} requires sweep_impl "
                 f"'fused'/'fusedf32' (got {self.sweep_impl!r})"
             )
-        if self.reg_impl == "precomp" and self.model == "adamvs":
-            raise not_ported("reg_impl='precomp' (adamvs)", "the rest, AdaMVS reg_impl=precomp")
-        if self.warp_impl == "pallas2bf16" and self.dtype == "f32":
-            raise not_ported("warp_impl='pallas2bf16' with a float32 model",
-                             "bf16 sampling for a float32 model")
         if self.model == "msrednet" and self.share_cr:
             raise NotImplementedError(
                 "share_cr is broken in the reference (msrednet.py:271) and unsupported here")
-        return build_model(self.model, seed=seed, device=device, dtype=DTYPES[self.dtype],
+        dtype = DTYPES[self.dtype]
+        # pallas2bf16 samples bf16 sources; a bf16 model's are bf16 already
+        sample_dtype = (torch.bfloat16 if self.warp_impl == "pallas2bf16"
+                        and dtype == torch.float32 else None)
+        return build_model(self.model, seed=seed, device=device,
+                           dtype=torch.float32 if train else dtype, compute_dtype=dtype,
+                           sample_dtype=sample_dtype,
                            ndepths=self.ndepths, depth_intervals_ratio=self.depth_intervals_ratio,
                            base=self.base_channels, cr_base=self.cr_base_chs,
                            sweep_impl="scan" if self.sweep_impl == "scan" else "fused",

@@ -29,7 +29,14 @@
 // sample, where a TPU kernel zeroes taps outside its band.
 //
 // Layouts: feat [B,H,W,C] float32 or bfloat16, u/v [B,N,h,w] float32,
-// out [B,N,h,w,C] in the feature dtype.
+// out [B,N,h,w,C] in the feature dtype, or float32 from bfloat16 features:
+// the JAX pallas2bf16 mode on a float32 model rounds the features to bf16,
+// samples them with float32 sums and returns float32
+// (adamvs_tpu/ops/warp_pallas2.py:190-194, 221-222). That form is the same
+// kernel with its output type a template parameter of its own; it reads half
+// the bytes of the float32 form and writes as many. Its backward is the
+// float32 form of K6/K7-bwd below (the cotangent is float32), whose
+// gradient the wrapper rounds to bf16 once.
 //
 // K6/K7-bwd, the gradient of the same function with respect to feat, is the
 // second entry below (adamvs_bilinear_sample_bwd). JAX has no Pallas
@@ -55,11 +62,14 @@ namespace {
 using adamvs::Row;
 
 constexpr int kThreads = 128;
+// the forward's dtype code of bfloat16 features sampled into float32 (codes 0
+// and 1, adamvs::kFloat32 and kBFloat16, sample into the feature dtype)
+constexpr int kBFloat16ToFloat32 = 2;
 
-template <typename T, int CB>
+template <typename T, typename To, int CB>
 __global__ void __launch_bounds__(kThreads)
 sample_kernel(const T* __restrict__ feat, const float* __restrict__ u, const float* __restrict__ v,
-              T* __restrict__ out, int N, int hw, int H, int W, int C) {
+              To* __restrict__ out, int N, int hw, int H, int W, int C) {
   const int pix = blockIdx.x * kThreads + threadIdx.x;
   if (pix >= hw) return;
   const int bn = blockIdx.y;  // b * N + n
@@ -78,27 +88,27 @@ sample_kernel(const T* __restrict__ feat, const float* __restrict__ u, const flo
       for (int c = 0; c < CB; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(vals[c], t.w[k]));
     }
   }
-  Row<T, CB>::store(out + i * C + c0, acc);
+  Row<To, CB>::store(out + i * C + c0, acc);
 }
 
-template <typename T, int CB>
+template <typename T, typename To, int CB>
 int launch(int B, int N, int hw, int H, int W, int C, const void* feat, const void* u,
            const void* v, void* out, cudaStream_t s) {
   const dim3 grid((hw + kThreads - 1) / kThreads, B * N, C / CB);
-  sample_kernel<T, CB><<<grid, kThreads, 0, s>>>(
+  sample_kernel<T, To, CB><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(feat), static_cast<const float*>(u), static_cast<const float*>(v),
-      static_cast<T*>(out), N, hw, H, W, C);
+      static_cast<To*>(out), N, hw, H, W, C);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The widest channel group that divides C (a multiple of 8).
-template <typename T>
+template <typename T, typename To>
 int for_channels(int C, int B, int N, int hw, int H, int W, const void* feat, const void* u,
                  const void* v, void* out, cudaStream_t s) {
   if (C <= 0 || C % 8) return adamvs::kBadChannels;
-  if (C % 32 == 0) return launch<T, 32>(B, N, hw, H, W, C, feat, u, v, out, s);
-  if (C % 16 == 0) return launch<T, 16>(B, N, hw, H, W, C, feat, u, v, out, s);
-  return launch<T, 8>(B, N, hw, H, W, C, feat, u, v, out, s);
+  if (C % 32 == 0) return launch<T, To, 32>(B, N, hw, H, W, C, feat, u, v, out, s);
+  if (C % 16 == 0) return launch<T, To, 16>(B, N, hw, H, W, C, feat, u, v, out, s);
+  return launch<T, To, 8>(B, N, hw, H, W, C, feat, u, v, out, s);
 }
 
 // K6/K7-bwd: dfeat [B,H,W,C] float32 (zeroed by the caller) += the
@@ -152,15 +162,19 @@ int for_channels_bwd(int C, int B, int N, int hw, int H, int W, const void* dout
 
 }  // namespace
 
-// K6/K7 on features of C channels, a multiple of 8. Returns 0 or the launch
-// error.
+// K6/K7 on features of C channels, a multiple of 8: float32 into float32
+// (dtype 0), bfloat16 into bfloat16 (1) or bfloat16 into float32 (2).
+// Returns 0 or the launch error.
 extern "C" int adamvs_bilinear_sample(int dtype, int B, int N, int h, int w, int H, int W, int C,
                                       const void* feat, const void* u, const void* v, void* out,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == adamvs::kFloat32) return for_channels<float>(C, B, N, h * w, H, W, feat, u, v, out, s);
+  if (dtype == adamvs::kFloat32)
+    return for_channels<float, float>(C, B, N, h * w, H, W, feat, u, v, out, s);
   if (dtype == adamvs::kBFloat16)
-    return for_channels<__nv_bfloat16>(C, B, N, h * w, H, W, feat, u, v, out, s);
+    return for_channels<__nv_bfloat16, __nv_bfloat16>(C, B, N, h * w, H, W, feat, u, v, out, s);
+  if (dtype == kBFloat16ToFloat32)
+    return for_channels<__nv_bfloat16, float>(C, B, N, h * w, H, W, feat, u, v, out, s);
   return adamvs::kBadDtype;
 }
 

@@ -15,12 +15,17 @@ LOSSES = {"adamvs": cas_mvs_vis_loss, "msrednet": cas_rednet_loss}
 
 
 def build_model(name: str = "adamvs", seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32, **kwargs) -> torch.nn.Module:
+                dtype: torch.dtype = torch.float32, compute_dtype: torch.dtype | None = None,
+                **kwargs) -> torch.nn.Module:
     """The model ``name`` ("adamvs" or "msrednet") in eval mode with weights
-    drawn from ``seed``, on ``device`` (CUDA unless given) in ``dtype``."""
+    drawn from ``seed``, on ``device`` (CUDA unless given), its parameters in
+    ``dtype``, computing in ``compute_dtype`` (``dtype`` unless given). Mixed
+    precision training, as flax's ``dtype=bf16`` with float32 parameters:
+    ``dtype=torch.float32, compute_dtype=torch.bfloat16``. Inference in bf16
+    casts the parameters once: ``dtype=torch.bfloat16``."""
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r} (choose one of {sorted(MODELS)})")
-    model = MODELS[name](**kwargs)
+    model = MODELS[name](compute_dtype=compute_dtype or dtype, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device=resolve_device(device), dtype=dtype).eval()
 

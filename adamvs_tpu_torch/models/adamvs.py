@@ -11,6 +11,9 @@ Inference computes what the JAX model's inference branches compute
 - ``sweep_impl="fused"``, ``reg_impl="scan"`` (JAX ``_AdaRegIdxStreamCell``):
   K1 and K2 as above, then the cell stepped over the volume's depth slices
   (``red_scan_ref``'s stepping) into an online softmax;
+- ``sweep_impl="fused"``, ``reg_impl="precomp"`` (JAX ``ada_precomp_depth``):
+  K1 and K2 as above, then the recurrence restructured over chunks of depths
+  (``ada_precomp_depth``) into an online softmax;
 - ``sweep_impl="scan"``, ``reg_impl="scan"`` (the JAX CLI's default,
   ``correlation_volume`` and ``_AdaFuseStreamCell``): stage 1's correlation
   in depth blocks and every stage's per-hypothesis visibility-weighted mean
@@ -44,6 +47,15 @@ view (each view's batch statistics, as JAX calls it), in two forms:
 The gradient reaches the previous stage's depth through the regression's
 hypotheses and the visibility weights through the fused volume or the
 weighted mean; only the sample positions carry none.
+
+The compute dtype ``compute_dtype`` is flax's ``dtype``, one rule whatever
+the parameters' dtype: with float32 parameters and ``compute_dtype=torch.bfloat16`` the
+model trains as the JAX model with ``dtype=bf16`` does (every layer in bf16
+from float32 parameters, float32 gradients; ``nn/blocks.py``), while the
+softmaxes, depths, confidences and the scan forms' sums stay float32.
+``sample_dtype`` (JAX ``warp_impl="pallas2bf16"`` on a float32 model): the
+scan forms round the source features to it once per stage and sample them
+into float32 (K6/K7's bf16-in, float32-out form).
 
 Module names follow the reference PyTorch model (``feature``,
 ``DepthNet.{i}.reg``, ``DepthNet.{i}.reg_fuse``), so a reference state_dict
@@ -80,7 +92,9 @@ from ..ops.warp_sample import plane_sweep_warp_sampled, sample_bilinear
 # cost up-sampling by stage: stages 1 and 2 emit at 2x, stage 3 does not
 _UP_BY_STAGE = (True, True, False)
 SWEEP_IMPLS = ("fused", "scan")
-REG_IMPLS = ("pallas", "scan")
+REG_IMPLS = ("pallas", "scan", "precomp")
+# depths per chunk of ada_precomp_depth (the JAX default)
+PRECOMP_CHUNK = 8
 # hypotheses per sampler launch of the scan form's stage-1 correlation (the JAX
 # model's default warp_block)
 CORR_BLOCK = 16
@@ -134,14 +148,17 @@ def correlation_volume(ref_feat: torch.Tensor, src_feat: torch.Tensor, src_proj:
     """Channel-mean correlation volume [B,h,w,D] of ``ref_feat`` [B,h,w,C]
     against ``src_feat`` [B,h,w,C] warped to the fronto-parallel planes
     ``hyp`` [B,D], built ``block`` hypotheses at a time (one K6/K7 launch
-    each) so the [B,D,h,w,C] warp never exists at full D; float32."""
+    each) so the [B,D,h,w,C] warp never exists at full D; float32. The
+    samples come in the dtype of ``ref_feat`` (``src_feat`` may be held in
+    another, ``AdaMVS.sample_dtype``)."""
     B, h, w, _ = ref_feat.shape
     D = hyp.shape[1]
     if D % block != 0:
         block = D
     ref = ref_feat.float()[:, None]
     out = [(ref * plane_sweep_warp_sampled(src_feat, src_proj, ref_proj, hyp[:, d0:d0 + block],
-                                            grid_hw=(h, w)).float()).mean(dim=-1)
+                                            grid_hw=(h, w), out_dtype=ref_feat.dtype).float()
+            ).mean(dim=-1)
            for d0 in range(0, D, block)]  # [B,block,h,w] each
     return torch.cat(out, dim=1).permute(0, 2, 3, 1)
 
@@ -152,18 +169,68 @@ def fused_slice(ref: torch.Tensor, srcs: torch.Tensor, transforms: list, weights
     [B,h,w] (``_AdaFuseStreamCell``): ``sum_v ref * warped_v * w_v / (1e-5 +
     sum_v w_v)`` over the sources ``srcs`` [Vs,B,h,w,C], each warped through
     K6/K7 with its ``warp_transform`` (rot, trans) from ``transforms``;
-    ``weights`` [B,Vs,h,w]. Float32 [B,h,w,C]."""
+    ``weights`` [B,Vs,h,w]. The samples come in the dtype of ``ref`` (``srcs``
+    may be held in another, ``AdaMVS.sample_dtype``). Float32 [B,h,w,C]."""
     h, w = hyp.shape[1:]
     ref32 = ref.float()
     vsum = wsum = None
     for v, (rot, trans) in enumerate(transforms):
         u, vv = _source_coords(rot, trans, hyp.detach()[:, None], h, w)
-        warped = sample_bilinear(srcs[v], u, vv)[:, 0].float()
-        w_v = weights[:, v, :, :, None]
+        warped = sample_bilinear(srcs[v], u, vv, out_dtype=ref.dtype)[:, 0].float()
+        w_v = weights[:, v, :, :, None].float()
         term = ref32 * warped * w_v
         vsum = term if vsum is None else vsum + term
         wsum = 1e-5 + w_v if wsum is None else wsum + w_v
     return vsum / wsum
+
+
+def ada_precomp_depth(cell: AdaRedCell, fused: torch.Tensor, lo_acc: torch.Tensor,
+                      step_acc: torch.Tensor, chunk: int = PRECOMP_CHUNK) -> tuple:
+    """The ``AdaRedCell`` recurrence over K2's volume ``fused`` [D,B,C,h,w]
+    into the online softmax over ``lo_acc + d·step_acc`` (the hypotheses at
+    the cost's resolution), restructured as JAX ``ada_precomp_depth``
+    (adamvs_tpu/models/adamvs.py:218-330): per chunk of K depths (``chunk`` if
+    it divides D, else K = D) the entry conv and the x-halves of GRU1's gate
+    and candidate convolutions (biases included) run once over the K·B
+    slices; each depth step runs GRU1's h-side convolutions and cell math,
+    the stride-2 conv and GRU2; then the up-deconv with the skip and the head
+    run once over the chunk's K·B states before their costs fold into the
+    softmax. GRU1's convolutions take concat(x, h), so their x-halves are the
+    first ``b`` input channels of the weight. Inference only. Returns (depth,
+    confidence), each float32 at the cost's resolution."""
+    D, B, C, h, w = fused.shape
+    K = chunk if D % chunk == 0 else D
+    b = cell.base
+    g1 = cell.conv_gru1
+    dt = fused.dtype
+    kg, kc = g1.conv_gates[0].weight.to(dt), g1.convc[0].weight.to(dt)
+    bg, bc = g1.conv_gates[0].bias.to(dt), g1.convc[0].bias.to(dt)
+    kgx, kgh = kg[:, :b], kg[:, b:].contiguous()
+    kcx, kch = kc[:, :b], kc[:, b:].contiguous()
+    h1, h2 = cell.init_state(B, h, w, dt, fused.device)
+    acc = online_softmax_init(tuple(lo_acc.shape), device=fused.device)
+    for d0 in range(0, D, K):
+        c1 = cell.conv1(fused[d0:d0 + K].reshape(K * B, C, h, w))
+        g1x = F.conv2d(c1, kgx, bg, padding=1)
+        c1x = F.conv2d(c1, kcx, bc, padding=1)
+        del c1
+        r1s, r2s = [], []
+        for k in range(K):
+            gates = g1x[k * B:(k + 1) * B] + F.conv2d(h1, kgh, padding=1)
+            r, u = torch.sigmoid(gates[:, :b]), torch.sigmoid(gates[:, b:])
+            cand = torch.tanh(c1x[k * B:(k + 1) * B] + F.conv2d(r * h1, kch, padding=1))
+            h1 = u * h1 + (1 - u) * cand
+            h2 = cell.conv_gru2(h2, cell.conv2(h1))
+            r1s.append(h1)
+            r2s.append(h2)
+        del g1x, c1x
+        u1 = F.relu(cell.upconv1(torch.cat(r2s)) + torch.cat(r1s))
+        cost = cell.upconv2d(u1)[:, 0].float()  # [K*B,oh,ow]
+        del r1s, r2s, u1
+        for k in range(K):
+            acc = online_softmax_update(acc, cost[k * B:(k + 1) * B],
+                                        lo_acc + float(d0 + k) * step_acc)
+    return online_softmax_finalize(acc)
 
 
 class _DepthNet(nn.Module):
@@ -175,22 +242,27 @@ class _DepthNet(nn.Module):
 
 
 class AdaMVS(nn.Module):
-    """Ada-MVS cascade, inference and training. The working dtype is the parameters'
-    dtype (``model.to(torch.bfloat16)`` runs the model in bf16). ``sweep_impl``
-    and ``reg_impl`` choose the inference form (module docstring); the pair
-    ("scan", "pallas") does not exist, as in the JAX model."""
+    """Ada-MVS cascade, inference and training, computing in ``compute_dtype``
+    (``build_model(dtype=torch.bfloat16)`` casts the parameters too, for
+    inference); ``sample_dtype`` rounds the scan forms' sources before
+    sampling (module docstring). ``sweep_impl`` and ``reg_impl`` choose the
+    inference form; the pairs ("scan", "pallas") and ("scan", "precomp") do
+    not exist, as in the JAX model."""
 
     def __init__(self, ndepths=(48, 32, 8), depth_intervals_ratio=(4.0, 2.0, 1.0),
                  base: int = 8, cr_base=(8, 8, 8), sweep_impl: str = "fused",
-                 reg_impl: str = "pallas"):
+                 reg_impl: str = "pallas", compute_dtype: torch.dtype = torch.float32,
+                 sample_dtype: torch.dtype | None = None):
         super().__init__()
         if sweep_impl not in SWEEP_IMPLS:
             raise ValueError(f"sweep_impl must be one of {SWEEP_IMPLS}, got {sweep_impl!r}")
         if reg_impl not in REG_IMPLS:
             raise ValueError(f"reg_impl must be one of {REG_IMPLS}, got {reg_impl!r}")
-        if reg_impl == "pallas" and sweep_impl != "fused":
-            raise ValueError(f"reg_impl='pallas' runs K3 over the fused sweep's volume and "
+        if reg_impl != "scan" and sweep_impl != "fused":
+            raise ValueError(f"reg_impl={reg_impl!r} runs over the fused sweep's volume and "
                              f"needs sweep_impl='fused' (got {sweep_impl!r})")
+        self.compute_dtype = compute_dtype
+        self.sample_dtype = sample_dtype
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.sweep_impl = sweep_impl
@@ -233,7 +305,7 @@ class AdaMVS(nn.Module):
 
     def _cascade(self, imgs, proj_matrices, depth_values, num_depth, train: bool,
                  features) -> dict:
-        dtype = self.feature.out1.weight.dtype
+        dtype = self.compute_dtype
         dmin, dmax, interval = parse_depth_values(depth_values.float(), num_depth)
         if features is None:
             B, V = imgs.shape[:2]
@@ -256,6 +328,8 @@ class AdaMVS(nn.Module):
             f = f.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)  # [B,V,h,w,C]
             ref = f[:, 0].contiguous()
             srcs = f[:, 1:].transpose(0, 1).contiguous()  # [Vs,B,h,w,C]
+            # the scan form's sources, rounded once per stage (JAX prepare_warp_sources)
+            srcs_w = srcs.to(self.sample_dtype) if scan and self.sample_dtype else srcs
             projs = proj_matrices[key].float()
             ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
 
@@ -266,18 +340,20 @@ class AdaMVS(nn.Module):
                 hyp0 = uniform_depth_samples(torch.stack([dmin, dmax], dim=1), D)  # [B,D]
                 if scan:
                     corr = torch.stack([
-                        correlation_volume(ref, srcs[v], src_projs[v], ref_proj, hyp0,
+                        correlation_volume(ref, srcs_w[v], src_projs[v], ref_proj, hyp0,
                                            CORR_BLOCK).permute(0, 3, 1, 2)
                         for v in range(Vs)]).to(dtype)
                 else:
                     corr = corr_fn(ref, srcs, src_projs, ref_proj, lo, step, D).to(dtype)
                 if train:  # per view, so BatchNorm takes each view's batch statistics
-                    logits = torch.cat([net.reg(corr[v]) for v in range(Vs)]).float()
+                    logits = torch.cat([net.reg(corr[v]) for v in range(Vs)])
                 else:
-                    logits = net.reg(corr.reshape(Vs * B, D, h, w)).float()
+                    logits = net.reg(corr.reshape(Vs * B, D, h, w))
+                # in the compute dtype, as JAX's softmax of the bf16 logits; the
+                # confidences stay in it (the visibility weights), the depth is float32
                 prob = torch.softmax(logits, dim=1)  # rows v*B + b
                 conf = prob.amax(dim=1).reshape(Vs, B, h, w)
-                pdepth = (prob * hyp0.repeat(Vs, 1)[:, :, None, None]).sum(dim=1)
+                pdepth = (prob.float() * hyp0.repeat(Vs, 1)[:, :, None, None]).sum(dim=1)
                 pair_conf = conf.transpose(0, 1).contiguous()  # [B,Vs,h,w]
                 pair_results = tuple(pdepth.reshape(Vs, B, h, w))
                 weights = pair_conf
@@ -289,7 +365,7 @@ class AdaMVS(nn.Module):
 
             cell = net.reg_fuse
             if scan:
-                depth, conf = self._scan_stage(cell, ref, srcs, src_projs, ref_proj, weights,
+                depth, conf = self._scan_stage(cell, ref, srcs_w, src_projs, ref_proj, weights,
                                                lo, step, D)
             else:
                 fused = fused_fn(ref, srcs, weights, src_projs, ref_proj, lo, step, D)
@@ -299,6 +375,10 @@ class AdaMVS(nn.Module):
                     oh, ow = cost.shape[2:]  # [D,B,oh,ow]
                     depth, conf = softmax_regression(
                         cost, resize_bilinear(lo, oh, ow), resize_bilinear(step, oh, ow))
+                elif self.reg_impl == "precomp":
+                    oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
+                    depth, conf = ada_precomp_depth(cell, fused, resize_bilinear(lo, oh, ow),
+                                                    resize_bilinear(step, oh, ow))
                 else:
                     depth, conf = self._stepped_stage(cell, fused, lo, step)
             outputs[key] = {

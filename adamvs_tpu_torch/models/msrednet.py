@@ -39,6 +39,14 @@ gradient reaches the previous stage's depth through the hypotheses. Stage
 1 sweeps min -> max in training too: the JAX model's documented deviation
 from the reference (adamvs_tpu/models/msrednet.py:26-35), kept.
 
+The compute dtype ``compute_dtype`` is flax's ``dtype``, one rule whatever
+the parameters' dtype: float32 parameters with ``compute_dtype=torch.bfloat16`` train as
+the JAX model with ``dtype=bf16`` does (``nn/blocks.py``); the softmax,
+depths and confidences stay float32. ``sample_dtype`` (JAX
+``warp_impl="pallas2bf16"`` on a float32 model) rounds the scan form's
+sources to it once per stage and samples them into float32. ``arch_mode``
+chooses the feature net's ``unet`` or ``fpn`` form.
+
 Module names follow the reference ``CascadeREDNet`` (``feature``,
 ``cost_regularization.{i}``), so a reference state_dict loads with
 ``load_state_dict``. ``share_cr`` is rejected by the JAX model too and is
@@ -73,13 +81,15 @@ PRECOMP_CHUNK = 8
 
 def variance_slice(ref, srcs, src_projs, ref_proj, hyp) -> torch.Tensor:
     """The scan form's variance at one hypothesis ``hyp`` [B,h,w]: ref
-    [B,h,w,C] and the Vs sources warped through K6/K7, summed in float32;
-    returns [B,C,h,w] in the feature dtype."""
+    [B,h,w,C] and the Vs sources warped through K6/K7 (sampled into the
+    dtype of ``ref``; ``srcs`` may be held in another), summed in float32;
+    returns [B,C,h,w] in the dtype of ``ref``."""
     nv = srcs.shape[0] + 1
     s = ref.float()
     sq = s * s
     for v in range(srcs.shape[0]):
-        warped = plane_sweep_warp_sampled(srcs[v], src_projs[v], ref_proj, hyp[:, None])[:, 0]
+        warped = plane_sweep_warp_sampled(srcs[v], src_projs[v], ref_proj, hyp[:, None],
+                                          out_dtype=ref.dtype)[:, 0]
         warped = warped.float()
         s = s + warped
         sq = sq + warped * warped
@@ -92,14 +102,14 @@ def _x_side(gru, x):
     concat(x, h): the gate's and the candidate's input terms, biases
     included."""
     cin = x.shape[1]
-    return (F.conv2d(x, gru.gate_conv.weight[:, :cin], gru.gate_conv.bias, padding=1),
-            F.conv2d(x, gru.output_conv.weight[:, :cin], gru.output_conv.bias, padding=1))
+    return tuple(F.conv2d(x, conv.weight[:, :cin].to(x.dtype), conv.bias.to(x.dtype), padding=1)
+                 for conv in (gru.gate_conv, gru.output_conv))
 
 
-def _h_weights(gru) -> tuple:
+def _h_weights(gru, dtype) -> tuple:
     """The h-halves (the last ``hidden`` input channels) of the two
-    convolutions' weights, contiguous."""
-    return tuple(conv.weight[:, -gru.hidden:].contiguous()
+    convolutions' weights, contiguous, in ``dtype``."""
+    return tuple(conv.weight[:, -gru.hidden:].to(dtype).contiguous()
                  for conv in (gru.gate_conv, gru.output_conv))
 
 
@@ -133,7 +143,7 @@ def red_precomp_depth(cell: RedCell, var_all: torch.Tensor, lo: torch.Tensor,
     D, B, C, h, w = var_all.shape
     K = chunk if D % chunk == 0 else D
     grus = (cell.conv_gru1, cell.conv_gru2, cell.conv_gru3, cell.conv_gru4)
-    whs = [_h_weights(g) for g in grus]
+    whs = [_h_weights(g, var_all.dtype) for g in grus]
     states = list(cell.init_state(B, h, w, var_all.dtype, var_all.device))
     acc = online_softmax_init((B, h, w), device=var_all.device)
     for d0 in range(0, D, K):
@@ -163,12 +173,16 @@ def red_precomp_depth(cell: RedCell, var_all: torch.Tensor, lo: torch.Tensor,
 
 
 class MSREDNet(nn.Module):
-    """MS-REDNet cascade, inference and training. The working dtype is the parameters'
-    dtype (``model.to(torch.bfloat16)`` runs the model in bf16)."""
+    """MS-REDNet cascade, inference and training, computing in
+    ``compute_dtype`` (``build_model(dtype=torch.bfloat16)`` casts the
+    parameters too, for inference); ``sample_dtype`` rounds the scan form's
+    sources before sampling (module docstring)."""
 
     def __init__(self, ndepths=(48, 32, 8), depth_intervals_ratio=(4.0, 2.0, 1.0),
                  base: int = 8, cr_base=(8, 8, 8), sweep_impl: str = "fused",
-                 reg_impl: str = "scan"):
+                 reg_impl: str = "scan", arch_mode: str = "unet",
+                 compute_dtype: torch.dtype = torch.float32,
+                 sample_dtype: torch.dtype | None = None):
         super().__init__()
         if sweep_impl not in SWEEP_IMPLS:
             raise ValueError(f"sweep_impl must be one of {SWEEP_IMPLS}, got {sweep_impl!r}")
@@ -177,13 +191,15 @@ class MSREDNet(nn.Module):
         if reg_impl == "precomp" and sweep_impl != "fused":
             raise ValueError(f"reg_impl='precomp' runs over K4's volume and needs "
                              f"sweep_impl='fused' (got {sweep_impl!r})")
+        self.compute_dtype = compute_dtype
+        self.sample_dtype = sample_dtype
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.sweep_impl = sweep_impl
         self.reg_impl = reg_impl
         n = len(self.ndepths)
-        self.feature = RedFeatureNet(base, num_stages=n)
-        self.chans = (4 * base, 2 * base, base)[:n]
+        self.feature = RedFeatureNet(base, num_stages=n, arch_mode=arch_mode)
+        self.chans = self.feature.out_channels()
         self.cost_regularization = nn.ModuleList(RedCell(self.chans[i], cr_base[i])
                                                  for i in range(n))
 
@@ -214,7 +230,7 @@ class MSREDNet(nn.Module):
 
     def _cascade(self, imgs, proj_matrices, depth_values, num_depth, train: bool,
                  features) -> dict:
-        dtype = self.feature.out1.weight.dtype
+        dtype = self.compute_dtype
         dmin, dmax, interval = parse_depth_values(depth_values.float(), num_depth)
         if features is None:
             B, V, H, W = imgs.shape[:4]
@@ -235,6 +251,8 @@ class MSREDNet(nn.Module):
             f = f.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)  # [B,V,h,w,C]
             ref = f[:, 0].contiguous()
             srcs = f[:, 1:].transpose(0, 1).contiguous()  # [Vs,B,h,w,C]
+            if self.sweep_impl == "scan" and self.sample_dtype:
+                srcs = srcs.to(self.sample_dtype)  # once per stage (JAX prepare_warp_sources)
             projs = proj_matrices[key].float()
             ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
             if prev_depth is None:

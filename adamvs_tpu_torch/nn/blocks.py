@@ -15,10 +15,19 @@ state_dict loads as it is:
   candidate before their activations (``group_norm1``);
 - ``DeConvFuse``: deconv x2, concat skip, ConvBlock.
 
-A conv is ``nn.Conv2d(padding=(k-1)//2)``; a stride-2 transposed conv is
-``nn.ConvTranspose2d(3, stride=2, padding=1, output_padding=1)``. The
+A conv is ``Conv2d(padding=(k-1)//2)``; a stride-2 transposed conv is
+``ConvTranspose2d(3, stride=2, padding=1, output_padding=1)``. The
 JAX package's shift-einsum convolutions (nn/fastconv.py) are a TPU
 workaround with the same semantics and are not ported.
+
+Mixed precision is flax's ``dtype=bf16`` with float32 parameters: every
+block computes in the dtype of its input. ``Conv2d`` and ``ConvTranspose2d``
+cast their weight and bias to the input's dtype at each call, so float32
+parameters serve a bf16 forward and receive float32 gradients (a weight used
+at every depth step gets the float32 sum of its per-step gradients, as the
+cast's transpose sums them in flax). The casts are no-ops for a model whose
+parameters were cast to its compute dtype (bf16 inference).
+BatchNorm and GroupNorm reduce in float32 and return the input's dtype.
 """
 
 from __future__ import annotations
@@ -33,13 +42,35 @@ BN_EPS = 1e-5
 GN_EPS = 1e-5
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the dtype of its input: weight and bias are cast to
+    it at the call."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in the dtype of its input: weight and bias are
+    cast to it at the call."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm as the JAX package keeps it (flax ``BatchNorm``, momentum 0.9
     there, 0.1 here). In train mode it normalises with the batch mean and
     biased variance, as ``nn.BatchNorm2d`` does, and moves the running
     variance toward that same biased variance, where ``nn.BatchNorm2d`` takes
     the unbiased one (n/(n-1), n the pixels per channel in the batch). In
-    eval mode it is ``nn.BatchNorm2d``. The state_dict names are its."""
+    eval mode it is ``nn.BatchNorm2d``. A bf16 input with float32 parameters
+    is normalised from float32 statistics and returned in bf16, as flax's
+    ``BatchNorm(dtype=bf16)`` does; the running statistics stay in their
+    own dtype. The state_dict names are its."""
 
     def forward(self, x):
         if not self.training:
@@ -57,7 +88,7 @@ class ConvBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, padding=(kernel - 1) // 2, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride, padding=(kernel - 1) // 2, bias=False)
         self.bn = BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x):
@@ -69,7 +100,7 @@ class DeconvBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv = nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
+        self.conv = ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
                                        bias=False)
         self.bn = BatchNorm2d(cout, eps=BN_EPS)
 
@@ -82,7 +113,7 @@ class ConvReLU(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3, stride, padding=1, bias=False)
+        self.conv = Conv2d(cin, cout, 3, stride, padding=1, bias=False)
 
     def forward(self, x):
         return F.relu(self.conv(x))
@@ -93,7 +124,7 @@ class ConvTransReLU(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv = nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
+        self.conv = ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
                                        bias=False)
 
     def forward(self, x):
@@ -106,8 +137,8 @@ class ConvGRUCell(nn.Module):
     def __init__(self, cin: int, hidden: int):
         super().__init__()
         self.hidden = hidden
-        self.conv_gates = nn.Sequential(nn.Conv2d(cin + hidden, 2 * hidden, 3, padding=1))
-        self.convc = nn.Sequential(nn.Conv2d(cin + hidden, hidden, 3, padding=1))
+        self.conv_gates = nn.Sequential(Conv2d(cin + hidden, 2 * hidden, 3, padding=1))
+        self.convc = nn.Sequential(Conv2d(cin + hidden, hidden, 3, padding=1))
 
     def forward(self, h, x):
         gates = self.conv_gates(torch.cat([x, h], dim=1))
@@ -142,10 +173,10 @@ class GNConvGRUCell(nn.Module):
     def __init__(self, cin: int, hidden: int):
         super().__init__()
         self.hidden = hidden
-        self.gate_conv = nn.Conv2d(cin + hidden, 2 * hidden, 3, padding=1)
+        self.gate_conv = Conv2d(cin + hidden, 2 * hidden, 3, padding=1)
         self.reset_gate_norm = nn.GroupNorm(1, hidden, eps=GN_EPS)
         self.update_gate_norm = nn.GroupNorm(1, hidden, eps=GN_EPS)
-        self.output_conv = nn.Conv2d(cin + hidden, hidden, 3, padding=1)
+        self.output_conv = Conv2d(cin + hidden, hidden, 3, padding=1)
         self.output_norm = nn.GroupNorm(1, hidden, eps=GN_EPS)
 
     def forward(self, h, x):

@@ -17,13 +17,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import (BN_EPS, BatchNorm2d, ConvBlock, ConvGRUCell, ConvReLU, ConvTransReLU,
-                     GNConvGRUCell)
+from .blocks import (BN_EPS, BatchNorm2d, Conv2d, ConvBlock, ConvGRUCell, ConvReLU,
+                     ConvTranspose2d, ConvTransReLU, GNConvGRUCell)
 
 
 def _up(c: int) -> nn.Sequential:
     return nn.Sequential(
-        nn.ConvTranspose2d(c, c, 3, stride=2, padding=1, output_padding=1, bias=False),
+        ConvTranspose2d(c, c, 3, stride=2, padding=1, output_padding=1, bias=False),
         BatchNorm2d(c, eps=BN_EPS),
         nn.ReLU(),
     )
@@ -45,7 +45,7 @@ class CostRegNet2D(nn.Module):
         self.conv7 = _up(c)
         self.conv9 = _up(c)
         self.conv11 = _up(c)
-        self.prob = nn.Conv2d(c, c, 3, padding=1)
+        self.prob = Conv2d(c, c, 3, padding=1)
 
     def forward(self, x):
         c0 = self.conv0(x)
@@ -74,11 +74,11 @@ class AdaRedCell(nn.Module):
         self.conv_gru1 = ConvGRUCell(b, b)
         self.conv2 = ConvReLU(b, 2 * b, stride=2)
         self.conv_gru2 = ConvGRUCell(2 * b, 2 * b)
-        self.upconv1 = nn.ConvTranspose2d(2 * b, b, 3, stride=2, padding=1, output_padding=1)
+        self.upconv1 = ConvTranspose2d(2 * b, b, 3, stride=2, padding=1, output_padding=1)
         if up:
-            self.upconv2d = nn.ConvTranspose2d(b, 1, 3, stride=2, padding=1, output_padding=1)
+            self.upconv2d = ConvTranspose2d(b, 1, 3, stride=2, padding=1, output_padding=1)
         else:
-            self.upconv2d = nn.Conv2d(b, 1, 3, padding=1)
+            self.upconv2d = Conv2d(b, 1, 3, padding=1)
 
     def forward(self, state, x):
         h1, h2 = state
@@ -120,7 +120,7 @@ class RedCell(nn.Module):
         self.upconv3 = ConvTransReLU(8 * b, 4 * b)
         self.upconv2 = ConvTransReLU(4 * b, 2 * b)
         self.upconv1 = ConvTransReLU(2 * b, b)
-        self.upconv2d = nn.ConvTranspose2d(b, 1, 3, padding=1)
+        self.upconv2d = ConvTranspose2d(b, 1, 3, padding=1)
 
     def forward(self, state, cost):
         h1, h2, h3, h4 = state

@@ -6,8 +6,11 @@ from one trunk (``conv0``..``conv2``) and two ``DeConvFuse`` up steps:
 - ``AdaFeatureNet``: each output level concatenates two SPP branches (k×k
   average pool with stride k, 1x1 ConvBlock, bilinear upsampling back) with
   the level's features, then a 1x1 conv without bias;
-- ``RedFeatureNet`` (MS-REDNet, ``arch_mode="unet"``): a 1x1 conv without
-  bias on each level's features.
+- ``RedFeatureNet`` (MS-REDNet): ``arch_mode="unet"``, a 1x1 conv without
+  bias on each level's features; ``arch_mode="fpn"``, no up steps: the
+  coarsest trunk level (4b channels) is upsampled 2x by nearest neighbour and
+  added to a 1x1 lateral conv with bias of the next trunk level, twice, and a
+  3x3 conv without bias gives each finer output.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import ConvBlock, DeConvFuse
+from .blocks import Conv2d, ConvBlock, DeConvFuse
 
 
 def _resize_bilinear(x, h: int, w: int):
@@ -52,17 +55,17 @@ class AdaFeatureNet(nn.Module):
         _trunk(self, b)
         self.branch1_1 = _SPPBranch(4 * b, 2 * b, 4)
         self.branch1_2 = _SPPBranch(4 * b, 2 * b, 8)
-        self.out1 = nn.Conv2d(8 * b, 4 * b, 1, bias=False)
+        self.out1 = Conv2d(8 * b, 4 * b, 1, bias=False)
         if num_stages >= 2:
             self.deconv1 = DeConvFuse(4 * b, 2 * b)
             self.branch2_1 = _SPPBranch(2 * b, b, 4)
             self.branch2_2 = _SPPBranch(2 * b, b, 8)
-            self.out2 = nn.Conv2d(4 * b, 2 * b, 1, bias=False)
+            self.out2 = Conv2d(4 * b, 2 * b, 1, bias=False)
         if num_stages >= 3:
             self.deconv2 = DeConvFuse(2 * b, b)
             self.branch3_1 = _SPPBranch(b, b // 2, 4)
             self.branch3_2 = _SPPBranch(b, b // 2, 8)
-            self.out3 = nn.Conv2d(2 * b, b, 1, bias=False)
+            self.out3 = Conv2d(2 * b, b, 1, bias=False)
 
     def forward(self, x) -> dict[str, torch.Tensor]:
         c0 = self.conv0(x)
@@ -81,26 +84,54 @@ class AdaFeatureNet(nn.Module):
 
 
 class RedFeatureNet(nn.Module):
-    """MS-REDNet feature U-Net in its ``unet`` form."""
+    """MS-REDNet feature net in its ``unet`` or ``fpn`` form
+    (adamvs_tpu/nn/featurenet.py:107-163). The ``fpn`` submodules carry the
+    reference FeatureNet's FPN names (``inner1``, ``inner2`` lateral convs,
+    ``out2``, ``out3``); with two stages ``out2`` gives b channels, as
+    there."""
 
-    def __init__(self, base: int = 8, num_stages: int = 3):
+    ARCH_MODES = ("unet", "fpn")
+
+    def __init__(self, base: int = 8, num_stages: int = 3, arch_mode: str = "unet"):
         super().__init__()
+        if arch_mode not in self.ARCH_MODES:
+            raise ValueError(f"arch_mode must be one of {self.ARCH_MODES}, got {arch_mode!r}")
         b = base
         self.num_stages = num_stages
+        self.arch_mode = arch_mode
         _trunk(self, b)
-        self.out1 = nn.Conv2d(4 * b, 4 * b, 1, bias=False)
+        self.out1 = Conv2d(4 * b, 4 * b, 1, bias=False)
+        if arch_mode == "fpn":
+            if num_stages >= 2:
+                self.inner1 = Conv2d(2 * b, 4 * b, 1)
+                self.out2 = Conv2d(4 * b, 2 * b if num_stages == 3 else b, 3, padding=1,
+                                   bias=False)
+            if num_stages >= 3:
+                self.inner2 = Conv2d(b, 4 * b, 1)
+                self.out3 = Conv2d(4 * b, b, 3, padding=1, bias=False)
+            return
         if num_stages >= 2:
             self.deconv1 = DeConvFuse(4 * b, 2 * b)
-            self.out2 = nn.Conv2d(2 * b, 2 * b, 1, bias=False)
+            self.out2 = Conv2d(2 * b, 2 * b, 1, bias=False)
         if num_stages >= 3:
             self.deconv2 = DeConvFuse(2 * b, b)
-            self.out3 = nn.Conv2d(b, b, 1, bias=False)
+            self.out3 = Conv2d(b, b, 1, bias=False)
+
+    def out_channels(self) -> tuple[int, ...]:
+        """The channels of stage 1, 2, ... (``out1``, ``out2``, ...)."""
+        return tuple(getattr(self, f"out{i + 1}").out_channels for i in range(self.num_stages))
 
     def forward(self, x) -> dict[str, torch.Tensor]:
         c0 = self.conv0(x)
         c1 = self.conv1(c0)
         intra = self.conv2(c1)
         out = {"stage1": self.out1(intra)}
+        if self.arch_mode == "fpn":
+            for i, lateral in enumerate((c1, c0)[:self.num_stages - 1]):
+                up = F.interpolate(intra, scale_factor=2, mode="nearest")
+                intra = up + getattr(self, f"inner{i + 1}")(lateral)
+                out[f"stage{i + 2}"] = getattr(self, f"out{i + 2}")(intra)
+            return out
         if self.num_stages >= 2:
             intra = self.deconv1(c1, intra)
             out["stage2"] = self.out2(intra)

@@ -10,7 +10,11 @@ kernel is exact everywhere, as ``ops/warp.py::bilinear_sample`` is.
 
 Sampling runs in float32 and the result is in the feature dtype: a bf16
 feature map is sampled from its bf16 values with float32 weights and sums,
-as the JAX ``pallas2bf16`` operand mode does for a bf16 model.
+as the JAX ``pallas2bf16`` operand mode does for a bf16 model. With
+``out_dtype=torch.float32`` a bf16 map is sampled into float32 instead, as
+``pallas2bf16`` does for a float32 model whose features it rounds to bf16
+(adamvs_tpu/ops/warp_pallas2.py:190-194, 221-222); the TPU kernel's bf16
+rounding of the hat weights inside its matmul is a TPU artefact, not copied.
 
 The gradient with respect to the features (the coordinates carry none, as
 the JAX warp stops them, ``adamvs_tpu/ops/warp.py:134-135``) is K6/K7-bwd,
@@ -33,6 +37,9 @@ from ..kernels import build
 from .warp import bilinear_sample, pad_channels, sweep_coords
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's forms by (feature dtype, output dtype)
+_SAMPLE_CODE = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+                (torch.bfloat16, torch.float32): 2}
 
 
 def sample_width(C: int) -> int:
@@ -44,10 +51,12 @@ def sample_width(C: int) -> int:
     return -(-C // 8) * 8
 
 
-def sample_bilinear_ref(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def sample_bilinear_ref(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain K6/K7: ``feat`` [B,H,W,C] sampled at (u, v) [B,N,h,w] with zeros
-    padding, in float32, cast to the feature dtype: [B,N,h,w,C]."""
-    return bilinear_sample(feat.float(), u.float(), v.float()).to(feat.dtype)
+    padding, in float32, cast to ``out_dtype`` (the feature dtype unless
+    given): [B,N,h,w,C]."""
+    return bilinear_sample(feat.float(), u.float(), v.float()).to(out_dtype or feat.dtype)
 
 
 def sample_bilinear_bwd_ref(dout: torch.Tensor, u: torch.Tensor, v: torch.Tensor, H: int,
@@ -87,13 +96,16 @@ def _check_coords(B: int, u: torch.Tensor, v: torch.Tensor, device) -> None:
             raise ValueError("kernel inputs must be contiguous and on one device")
 
 
-def _launch(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _launch(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
     """K6/K7 on CUDA tensors; raises on what the kernel does not take."""
     B, H, W, C = feat.shape
     Cp = sample_width(C)
-    if feat.dtype not in _DTYPE_CODE:
-        raise ValueError(f"feat must be float32/bfloat16 [B,H,W,C], got {feat.dtype} "
-                         f"{tuple(feat.shape)}")
+    code = _SAMPLE_CODE.get((feat.dtype, out_dtype))
+    if code is None:
+        raise ValueError(f"feat must be float32/bfloat16 [B,H,W,C] sampled into its own dtype "
+                         f"or bfloat16 into float32, got {feat.dtype} {tuple(feat.shape)} into "
+                         f"{out_dtype}")
     _check_coords(B, u, v, feat.device)
     if not feat.is_contiguous():
         raise ValueError("kernel inputs must be contiguous and on one device")
@@ -101,9 +113,9 @@ def _launch(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tenso
         raise ValueError("feat must be 16-byte aligned (its rows are read as 16-byte vectors)")
     N, h, w = u.shape[1:]
     feat = pad_channels(feat, Cp)
-    out = torch.empty((B, N, h, w, Cp), dtype=feat.dtype, device=feat.device)
+    out = torch.empty((B, N, h, w, Cp), dtype=out_dtype, device=feat.device)
     lib, fn = _entry()
-    err = fn(_DTYPE_CODE[feat.dtype], B, N, h, w, H, W, Cp, feat.data_ptr(), u.data_ptr(),
+    err = fn(code, B, N, h, w, H, W, Cp, feat.data_ptr(), u.data_ptr(),
              v.data_ptr(), out.data_ptr(), torch.cuda.current_stream(feat.device).cuda_stream)
     build.check(lib, err, "sample_bilinear")
     sample_bilinear.launches += 1
@@ -147,34 +159,42 @@ class _SampleBilinear(torch.autograd.Function):
     """K6/K7 forward, K6/K7-bwd backward; no gradient for the coordinates."""
 
     @staticmethod
-    def forward(ctx, feat, u, v):
+    def forward(ctx, feat, u, v, out_dtype):
         ctx.save_for_backward(u, v)
-        ctx.hw = feat.shape[1:3]
-        return _launch(feat.contiguous(), u, v)
+        ctx.hw, ctx.dtype = feat.shape[1:3], feat.dtype
+        return _launch(feat.contiguous(), u, v, out_dtype)
 
     @staticmethod
     def backward(ctx, dout):
         u, v = ctx.saved_tensors
-        return sample_bilinear_bwd(dout, u, v, *ctx.hw), None, None
+        # the bf16-in, float32-out form's gradient is its float32 instance, rounded once
+        return sample_bilinear_bwd(dout, u, v, *ctx.hw).to(ctx.dtype), None, None, None
 
 
-def sample_bilinear(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K6/K7: [B,N,h,w,C] in the feature dtype (see ``sample_bilinear_ref``),
-    differentiable with respect to ``feat`` (K6/K7-bwd on the card)."""
+def sample_bilinear(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """K6/K7: [B,N,h,w,C] in ``out_dtype``, the feature dtype unless given
+    (see ``sample_bilinear_ref``; on the card a bf16 map samples into bf16 or
+    float32, a float32 map into float32), differentiable with respect to
+    ``feat`` (K6/K7-bwd on the card)."""
+    out_dtype = out_dtype or feat.dtype
     if feat.device.type == "cpu":
-        return sample_bilinear_ref(feat, u.detach(), v.detach())
+        return sample_bilinear_ref(feat, u.detach(), v.detach(), out_dtype)
     if feat.device.type != "cuda":
         raise ValueError(f"sample_bilinear takes CUDA tensors, got {feat.device}")
     if torch.is_grad_enabled() and feat.requires_grad:
-        return _SampleBilinear.apply(feat, u.detach(), v.detach())
-    return _launch(feat, u, v)
+        return _SampleBilinear.apply(feat, u.detach(), v.detach(), out_dtype)
+    return _launch(feat, u, v, out_dtype)
 
 
 sample_bilinear.launches = 0
 
 
-def plane_sweep_warp_sampled(src, src_proj, ref_proj, depth, grid_hw=None) -> torch.Tensor:
+def plane_sweep_warp_sampled(src, src_proj, ref_proj, depth, grid_hw=None,
+                             out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``ops/warp.py::plane_sweep_warp`` with the sampling through K6/K7:
     the coordinates in plain PyTorch, as the JAX wrappers compute them in XLA
-    (warp_pallas2.py:339-342). Returns [B,D,H,W,C] in the feature dtype."""
-    return sample_bilinear(src, *sweep_coords(src, src_proj, ref_proj, depth, grid_hw))
+    (warp_pallas2.py:339-342). Returns [B,D,H,W,C] in ``out_dtype``, the
+    feature dtype unless given."""
+    return sample_bilinear(src, *sweep_coords(src, src_proj, ref_proj, depth, grid_hw),
+                           out_dtype=out_dtype)

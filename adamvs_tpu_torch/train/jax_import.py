@@ -83,9 +83,11 @@ def _reg_fuse_plan(up: bool) -> list[tuple[str, str, str]]:
     ]
 
 
-def _red_feature_plan() -> list[tuple[str, str, str]]:
-    """MS-REDNet feature net (``arch_mode="unet"``): (PyTorch prefix, flax
-    path under 'feature', kind)."""
+def _red_feature_plan(arch_mode: str = "unet") -> list[tuple[str, str, str]]:
+    """MS-REDNet feature net: (PyTorch prefix, flax path under 'feature',
+    kind). In the ``fpn`` form the flax convs come in the order of their
+    calls (adamvs_tpu/nn/featurenet.py:144-163): out1, then per finer level
+    its lateral conv (``inner``) and its output conv."""
     plan = []
     trunk = [
         ("conv0.0", "ConvBlock_0"), ("conv0.1", "ConvBlock_1"),
@@ -95,6 +97,10 @@ def _red_feature_plan() -> list[tuple[str, str, str]]:
     for t, f in trunk:
         plan.append((f"{t}.conv", f"{f}/FastConv_0", "conv"))
         plan.append((f"{t}.bn", f"{f}/BatchNorm_0", "bn"))
+    if arch_mode == "fpn":
+        return plan + [("out1", "FastConv_0", "conv"), ("inner1", "FastConv_1", "conv"),
+                       ("out2", "FastConv_2", "conv"), ("inner2", "FastConv_3", "conv"),
+                       ("out3", "FastConv_4", "conv")]
     for t, f in [("deconv1", "DeConvFuse_0"), ("deconv2", "DeConvFuse_1")]:
         plan.append((f"{t}.deconv.conv", f"{f}/DeconvBlock_0/FastConvTranspose_0", "convt"))
         plan.append((f"{t}.deconv.bn", f"{f}/DeconvBlock_0/BatchNorm_0", "bn"))
@@ -187,10 +193,15 @@ def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.
 
 def from_jax_msrednet_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """The port ``MSREDNet`` state_dict holding the weights of a JAX
-    ``MSREDNet`` ``{"params", "batch_stats"}`` tree."""
+    ``MSREDNet`` ``{"params", "batch_stats"}`` tree, its feature net in the
+    ``unet`` or (no ``DeConvFuse`` up steps, more than one stage) the ``fpn``
+    form: ``MSREDNet(arch_mode=...)`` of the port loads it."""
     params, stats = variables["params"], variables.get("batch_stats", {})
+    feature = params["feature"]
+    fpn = "DeConvFuse_0" not in feature and "FastConv_1" in feature
     sd: dict = OrderedDict()
-    _apply_plan(params["feature"], stats.get("feature", {}), "feature.", _red_feature_plan(), sd)
+    _apply_plan(feature, stats.get("feature", {}), "feature.",
+                _red_feature_plan("fpn" if fpn else "unet"), sd)
     i = 0
     while f"reg{i + 1}" in params:
         _apply_plan(params[f"reg{i + 1}"], {}, f"cost_regularization.{i}.", _red_reg_plan(), sd)

@@ -19,13 +19,15 @@ Phases, in order; any failure exits nonzero:
    of the inference paths (2752x1856 frames, V=5, ndepths 48/32/8, base 8),
    in float32 with TF32 off and in bfloat16, with their times (CUDA events,
    median) and, for K6/K7, F.grid_sample's; for K1 also the kernel's own
-   time (a trace) and the dot products per sample its walk computed; for K3
+   time (a trace) and the dot products per sample its walk computed; for
+   K6/K7 also its bf16-in, float32-out form (pallas2bf16 on a float32
+   model), compared and timed per scan map; for K3
    its TFLOP/s, the bytes its phases move, the card's time in each phase (a
    trace) and its bf16 error against the float32 plain version
    (information); then K5, the backward of the sweeps in its three modes
    (corr, fused, var), against the autograd VJP of the plain volumes at the
    training stage shapes (384x768 crop), float32 and bfloat16, timed in
-   float32 with the forward's geometry handed in, as the training forms
+   both with the forward's geometry handed in, as the training forms
    call it, and with its own, beside the kernel's own time, the geometry's
    and the zeroing's (K5-corr also its flushes per sample); then all of them again at
    small ragged shapes (batch 2, rotated views, samples behind the camera
@@ -33,6 +35,7 @@ Phases, in order; any failure exits nonzero:
    they take by padding or channel groups (C 1, 2, 4, 64, 128) and the
    sampler and its backward at C 1, 3, 4, 12, 64, 128, float32 and bfloat16
    (the backward also through the autograd Function, from a strided view),
+   and its bf16-in, float32-out form with its gradient there,
    and K3 at every
    input width, base, head kind, D 1 and 5, 38x54 and 6x10, float32 and
    bfloat16; K2, K4, K5-fused and K5-var in float32 and bfloat16 under a
@@ -46,30 +49,42 @@ Phases, in order; any failure exits nonzero:
    C16, 384x768 C8), float32 and bfloat16, with one train step's calls
    timed on the card, alone, by CUDA events and under autograd, beside the
    bound and the input gradient of F.grid_sample;
-4. reference: AdaMVS (fused form with K3 and with the cell stepped, scan
-   form) and MS-REDNet (fused, scan, and precomp on the card against the
-   stepped fused form on the CPU) on a small frame
-   at base 8 and base 4 (stage 3 at C 4), kernels on the card against the
-   plain path on the CPU, float32; then one
+4. reference: AdaMVS (fused form with K3 and with the cell stepped,
+   precomp on the card against the stepped form on the CPU, scan form, and
+   the scan form with bf16 sampling of a float32 model) and MS-REDNet
+   (fused, scan, precomp on the card against the stepped fused form on the
+   CPU, and the fused form with the fpn feature net) on a small frame at
+   base 8 and base 4 (stage 3 at C 4; the forms of BASE8_ONLY at base 8), kernels
+   on the card against the plain path on the CPU, float32; then one float32
    train step of each model in its fused and its scan form on that frame,
-   card against CPU (loss, gradient, BatchNorm statistics);
+   card against CPU (loss, gradient, BatchNorm statistics); then one bf16
+   train step (float32 master weights) of each model in its fused form,
+   card against CPU, each module's gradient within twice its noise on the
+   CPU under a jitter of the weights by about 4 float32 steps;
 5. main paths, each with every launch counter set to 0 just before it and
    read just after: PredictEngine with seeded random weights in bfloat16 at
    full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map), on
    MS-REDNet in its fused form and with the precomp regulariser (3 requests
-   each: K4 3 per map; its recurrence timed beside the stepped one) and in its scan
+   each: K4 3 per map; its recurrence timed per stage beside the stepped
+   one, which the fused path times with the layers around it) and in its scan
    form (2 requests: the sampler 4 x (48+32+8) = 352 per map), and in
    float32 on AdaMVS in its scan form, the predict CLI's default (2
-   requests: the sampler 352 + 12 for stage 1's correlation blocks); the first
-   request of each is a warm-up; outputs must be finite with confidence in
+   requests: the sampler 352 + 12 for stage 1's correlation blocks); AdaMVS
+   with reg_impl="precomp" (3 requests) and with the cell stepped (2), bf16,
+   K1 1 and K2 3 per map; the AdaMVS scan form in float32 with
+   warp_impl="pallas2bf16" (2 requests: the sampler's bf16-in, float32-out
+   form 364 per map); the first request of each is a warm-up; outputs must be finite with confidence in
    (0, 1]; one more request, after the counts are read, is traced with
    torch.profiler for the card's busy time; then each model's layers are
    timed alone. Then the Trainer on the bench's training batch (384x768,
    V=5, float32) for AdaMVS (per train step K1 1, K2 3, K5-corr 1, K5-fused
    3) and MS-REDNet (K4 3, K5-var 3), and for both in the scan form (K6/K7
-   and K6/K7-bwd 364 per AdaMVS step, 352 per MS-REDNet step): a warm-up and
-   5 timed steps with finite losses and no skipped update, parameters and
-   BatchNorm statistics moved, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3;
+   and K6/K7-bwd 364 per AdaMVS step, 352 per MS-REDNet step); then the
+   same four in bf16 with float32 master weights (bench.py --mode train's
+   defaults for the fused forms; the MS-REDNet scan form times 3 steps): a
+   warm-up and 5 timed steps with finite losses and no skipped update,
+   parameters and BatchNorm statistics moved, parameters and optimizer
+   state still float32, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3;
    MS-REDNet: K4 3; the scan forms K6/K7 364 and 352), and one more traced
    step for the card's busy time and its top kernels; then one step timed
    by phase (upload, forward, backward, update);
@@ -84,8 +99,10 @@ Phases, in order; any failure exits nonzero:
    on a WHU_OMVS tree of 6 views at 384x768 written by the port's writer:
    train 1 epoch, train to 2 epochs with --resume (it must resume and run
    epoch 1 only), test (export files, finite PFMs at the GT's resolution),
-   profile (a trace file), and MS-REDNet train 1 epoch; launches per
-   command, per-step seconds and the loader's share, the records
+   profile (a trace file), and MS-REDNet train 1 epoch; then train 1 epoch
+   with --compute_dtype bf16 (a float32 checkpoint), and test on it with
+   --compute_dtype bf16 and in float32; launches per command, per-step
+   seconds and the loader's share, the records
    (metrics.jsonl, train_record.txt, checkpoints, TensorBoard events where
    tensorboardX imports);
 7. the kernels line (JSON; launches summed over phases 5 and 6), the card
@@ -142,8 +159,12 @@ TOL = {
     ("K3", torch.float32): 1e-4, ("K3", torch.bfloat16): 5e-2,  # bf16 stores of every GRU step
     ("K4", torch.float32): 1e-5, ("K4", torch.bfloat16): 8e-3,  # one bf16 rounding of the output
     ("K6/7", torch.float32): 1e-5, ("K6/7", torch.bfloat16): 8e-3,  # the same
+    # bf16 features sampled into float32 (pallas2bf16 on a float32 model): float32 output
+    ("K6/7", "bf16->f32"): 1e-5,
     # K6/7-bwd, relative L2: float32 atomic sums in varying order; bf16: one rounding
     ("K6/7-bwd", torch.float32): 1e-5, ("K6/7-bwd", torch.bfloat16): 8e-3,
+    # the bf16->f32 form's gradient: the float32 cotangent's, rounded once to bf16
+    ("K6/7-bwd", "bf16->f32"): 8e-3,
     # K5: float32 sums, atomics in varying order; bf16: one rounding of the gradient
     ("K5-corr", torch.float32): 1e-5, ("K5-corr", torch.bfloat16): 8e-3,
     ("K5-fused", torch.float32): 1e-5, ("K5-fused", torch.bfloat16): 8e-3,
@@ -185,11 +206,24 @@ PATHS = (
     ("msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 2, {"K6/7": (V - 1) * sum(NDEPTHS)}),
     ("adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"}, 2,
      {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
+    # AdaMVS reg_impl="precomp", beside the fused form with K3 (adamvs) and with the cell
+    # stepped (adamvs_fused_regscan), bf16
+    ("adamvs_precomp", "adamvs", {"sweep_impl": "fused", "reg_impl": "precomp"}, 3,
+     {"K1": 1, "K2": 3}),
+    ("adamvs_fused_regscan", "adamvs", {"sweep_impl": "fused", "reg_impl": "scan"}, 2,
+     {"K1": 1, "K2": 3}),
+    # the AdaMVS scan form in float32 with warp_impl="pallas2bf16": the sources rounded to
+    # bf16 and sampled into float32 (K6/K7's bf16-in, float32-out form)
+    ("adamvs_scan_pallas2bf16", "adamvs",
+     {"sweep_impl": "scan", "reg_impl": "scan", "sample_dtype": torch.bfloat16}, 2,
+     {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
 )
-# the dtype of each path: bf16, but the AdaMVS scan form at the predict CLI's default
-PATH_DTYPE = {"adamvs_scan": torch.float32}
-# forms held card against CPU beside the paths
-REFERENCE_FORMS = (("adamvs_fused_regscan", "adamvs", {"sweep_impl": "fused", "reg_impl": "scan"}),)
+# paths held card against CPU at base 8 only (phase_reference)
+BASE8_ONLY = ("adamvs_precomp", "adamvs_scan_pallas2bf16")
+# forms held card against CPU beside the paths: MS-REDNet with the fpn feature net
+REFERENCE_FORMS = (("msrednet_fpn", "msrednet", {"sweep_impl": "fused", "arch_mode": "fpn"}),)
+# the dtype of each path: bf16, but the AdaMVS scan forms at the predict CLI's default
+PATH_DTYPE = {"adamvs_scan": torch.float32, "adamvs_scan_pallas2bf16": torch.float32}
 # per train step of the scan forms: every sampler call and its backward
 SCAN_STEP = {"adamvs": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS, "msrednet": (V - 1) * sum(NDEPTHS)}
 # (training path, model, model options, train steps, launches per train step, launches
@@ -205,7 +239,22 @@ TRAIN_PATHS = (
     ("train_msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 6,
      {"K6/7": SCAN_STEP["msrednet"], "K6/7-bwd": SCAN_STEP["msrednet"]},
      {"K6/7": SCAN_STEP["msrednet"]}),
+    # bf16 mixed precision, float32 master weights: bench.py --mode train's defaults
+    # (bench.py:397, 410: sweep_impl fused, dtype bf16), then the CLI's default form
+    ("train_adamvs_bf16", "adamvs", {"compute_dtype": torch.bfloat16}, 6,
+     {"K1": 1, "K2": 3, "K5-corr": 1, "K5-fused": 3}, {"K1": 1, "K2": 3, "K3": 3}),
+    ("train_msrednet_bf16", "msrednet", {"sweep_impl": "fused", "compute_dtype": torch.bfloat16},
+     6, {"K4": 3, "K5-var": 3}, {"K4": 3}),
+    ("train_adamvs_scan_bf16", "adamvs",
+     {"sweep_impl": "scan", "reg_impl": "scan", "compute_dtype": torch.bfloat16}, 6,
+     {"K6/7": SCAN_STEP["adamvs"], "K6/7-bwd": SCAN_STEP["adamvs"]},
+     {"K6/7": SCAN_STEP["adamvs"]}),
+    ("train_msrednet_scan_bf16", "msrednet", {"sweep_impl": "scan", "compute_dtype": torch.bfloat16},
+     4, {"K6/7": SCAN_STEP["msrednet"], "K6/7-bwd": SCAN_STEP["msrednet"]},
+     {"K6/7": SCAN_STEP["msrednet"]}),
 )
+# the fused bf16 train paths held card against CPU with the noise-calibrated check
+TRAIN_REFERENCE_BF16 = ("train_adamvs_bf16", "train_msrednet_bf16")
 # K6/K7-bwd at the training stage shapes, as a scan-form train step calls it: (stage,
 # hypotheses per call, calls per train step)
 SAMPLE_BWD_CASES = ((0, 16, CORR_BLOCKS), (0, 1, (V - 1) * NDEPTHS[0]),
@@ -274,22 +323,29 @@ def device_busy_ms(fn) -> float:
 
 def device_profile(fn, top: int = 0) -> tuple[float, list]:
     """(``device_busy_ms`` of ``fn``, the ``top`` kernel names by their
-    summed device time as [name, ms, launches]). A trace that shows no
-    device time at all (the profiler has returned such traces now and then)
-    is taken again, up to 3 traces in all."""
+    summed device time as [name, ms, launches]), from the profiler's raw
+    device events (kernels, copies, fills): building its per-event Python
+    records (``key_averages``) takes tens of seconds for the ~100k launches
+    of a scan-form request or step. A trace that shows no device time at all
+    (the profiler has returned such traces now and then) is taken again, up
+    to 3 traces in all."""
     for attempt in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in events) / 1e3
+        by_name: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+                ms, n = by_name.get(e.name(), (0.0, 0))
+                by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        busy = sum(ms for ms, _ in by_name.values())
         if busy > 0.0:
             break
         log(f"[profile] trace {attempt + 1} of 3 showed no device time")
     else:
         fail("the profiler traced no device time")
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return busy, [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in events[:top]]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return busy, [[name[:80], ms, n] for name, (ms, n) in ranked]
 
 
 def phase_device() -> str:
@@ -525,14 +581,16 @@ def sweep_bwd_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
     return _bound(nbytes, flops, F32_FLOPS)
 
 
-def sample_bound(st: StageInputs, dtype) -> tuple[float, str]:
+def sample_bound(st: StageInputs, dtype, out_dtype=None) -> tuple[float, str]:
     """Least work of one K6/K7 call (one source view, one hypothesis slice):
-    the source, u and v read once and the samples written once; per sample
-    the floors (2), fractions and complements (4) and tap weights (4), and
-    four length-C multiply-adds (8C)."""
+    the source (in ``dtype``), u and v read once and the samples (in
+    ``out_dtype``, ``dtype`` unless given) written once; per sample the
+    floors (2), fractions and complements (4) and tap weights (4), and four
+    length-C multiply-adds (8C)."""
     es = torch.tensor([], dtype=dtype).element_size()
+    eo = torch.tensor([], dtype=out_dtype or dtype).element_size()
     hw, C = st.h * st.w, st.C
-    return _bound(2 * hw * C * es + 2 * hw * 4, hw * (10 + 8 * C), F32_FLOPS)
+    return _bound(hw * C * (es + eo) + 2 * hw * 4, hw * (10 + 8 * C), F32_FLOPS)
 
 
 def sample_bwd_bound(st: StageInputs, N: int, dtype) -> tuple[float, str]:
@@ -717,6 +775,28 @@ def phase_kernels(reps: int = 3) -> dict:
                         f"{wlib6:.3f} ms, its max_abs_err against the plain version "
                         f"{lib_err:.2e})")
                     del nchw, grid
+                    # the bf16-in, float32-out form (pallas2bf16 on a float32 model): the same
+                    # calls of one scan map, against the plain version on the same bf16 sources
+                    f32 = torch.float32
+                    record("K6/7", "bf16->f32", _compare(
+                        f"K6/7 stage{si + 1} bf16->f32 ({V - 1} views)", ("K6/7", "bf16->f32"),
+                        torch.cat([ws.sample_bilinear(srcs[v], *uv[v], out_dtype=f32)
+                                   for v in range(V - 1)]),
+                        torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v], out_dtype=f32)
+                                   for v in range(V - 1)])))
+
+                    def k6f():
+                        for i in range(calls):
+                            ws.sample_bilinear(srcs[i % (V - 1)], *uv[i % (V - 1)], out_dtype=f32)
+
+                    msf, wallf = device_busy_ms(k6f), time_ms(k6f, 3)
+                    bmsf, byf = sample_bound(st, dtype, f32)
+                    res["K6/7"]["stages"][-1].update(
+                        bf16_to_f32_ms=msf, bf16_to_f32_wall_ms=wallf,
+                        bf16_to_f32_bound_ms=bmsf * calls, bf16_to_f32_bound_by=byf)
+                    log(f"[kernels] K6/7 stage{si + 1} bf16->f32, {calls} calls back to back: "
+                        f"{msf:.3f} ms on the card, wall {wallf:.3f} ms (bound "
+                        f"{bmsf * calls:.3f} ms by {byf})")
             for k, (ms, pms, (bms, by)) in timing.items():
                 res[k]["stages"].append({"stage": si + 1, "ms": ms, "plain_ms": pms,
                                          "bound_ms": bms, "bound_by": by})
@@ -997,6 +1077,19 @@ def phase_edges() -> None:
                     (ws.sample_bilinear(f, u, vv).float() * g.float()).sum().backward()
                 _compare_l2(f"K6/7-bwd edge C{C} {tn} autograd", ("K6/7-bwd", dtype), f.grad,
                             ws.sample_bilinear_bwd_ref(g, u, vv, h, w))
+            # bf16 sources sampled into float32, and the gradient of that form: the float32
+            # cotangent's, rounded once to the sources' bf16
+            f = feat.to(torch.bfloat16).requires_grad_()
+            g = torch.randn((B, D, h, w, C), generator=gen, device=DEV)
+            with torch.enable_grad():
+                out = ws.sample_bilinear(f, u, vv, out_dtype=f32)
+                (out * g).sum().backward()
+            _compare(f"K6/7 edge C{C} bf16->f32", ("K6/7", "bf16->f32"), out,
+                     ws.sample_bilinear_ref(f.detach(), u, vv, out_dtype=f32))
+            _compare_l2(f"K6/7-bwd edge C{C} bf16->f32 autograd", ("K6/7-bwd", "bf16->f32"),
+                        f.grad, ws.sample_bilinear_bwd_ref(g, u, vv, h, w).to(torch.bfloat16))
+            if f.grad.dtype != torch.bfloat16 or out.dtype != f32:
+                fail(f"K6/7 edge C{C} bf16->f32: dtypes {out.dtype} {f.grad.dtype}")
         # K3 at every input width of AdaMVS base 8, both regulariser widths and head kinds,
         # one and five depth steps, at 38x54 (no multiple of any tile) and at 6x10 (smaller
         # than every tile of the bf16 kernel's phases), in float32 and bf16; then widths the
@@ -1158,15 +1251,28 @@ def phase_k5(res: dict, reps: int = 3) -> None:
                         f"{bms:.3f} ms by {by})"
                         + (f"; {entry['flushes_per_sample']:.3f} flushes per sample walked "
                            f"(information, no limit)" if mode == "corr" else ""))
+                else:  # bf16, as the bf16 train paths call it
+                    ms = time_ms(lambda: kern(geom=geom), reps)
+                    bms, by = sweep_bwd_bound(fwd, st, dtype)
+                    _, top = device_profile(lambda: kern(geom=geom), top=8)
+                    kms = sum(t for n, t, _ in top if "bwd" in n and "kernel" in n)
+                    res[k]["stages"][-1].update(bf16_ms=ms, bf16_kernel_ms=kms,
+                                                bf16_bound_ms=bms, bf16_bound_by=by,
+                                                bf16_rel_err=err[1])
+                    log(f"[kernels] {k} stage{si + 1} bf16: {ms:.3f} ms with the forward's "
+                        f"geometry; the kernel alone {kms:.3f} ms on the card (bound {bms:.3f} ms "
+                        f"by {by})")
                 del ref, srcs, g
         del st, geo, wn, geom
         torch.cuda.empty_cache()
 
 
 def phase_reference() -> None:
-    """Each path's model, and each of REFERENCE_FORMS, on a small frame at
-    base 8 and at base 4: kernels on the card against the plain path on the
-    CPU, float32."""
+    """Each path's model on a small frame at base 8 and at base 4, and each
+    of REFERENCE_FORMS at base 8, in float32 (the bf16 paths too, so the
+    limits hold to float32 rounding): kernels on the card against the plain
+    path on the CPU; the precomp forms on the card against the stepped form
+    on the CPU."""
     from adamvs_tpu_torch.models import build_model
 
     h, w = 128, 160
@@ -1176,8 +1282,10 @@ def phase_reference() -> None:
     dv = torch.tensor([[DMIN, DMAX]])
     # base 8 (the main paths'), and base 4, whose stage 3 features have C 4 (the
     # sweeps and the sampler pad them)
-    forms = [p[:3] for p in PATHS] + list(REFERENCE_FORMS)
-    for (path, name, opts), base in [(f, b) for b in (BASE, 4) for f in forms]:
+    # BASE8_ONLY at base 8 only: at base 4 they run the kernels the other forms run there
+    forms = [(p[:3], b) for b in (BASE, 4) for p in PATHS if b == BASE or p[0] not in BASE8_ONLY]
+    forms += [(f, BASE) for f in REFERENCE_FORMS]
+    for (path, name, opts), base in forms:
         model = build_model(name, seed=1, device=DEV, ndepths=NDEPTHS, base=base,
                             cr_base=(base,) * 3, **opts)
         path = f"{path} base {base}"
@@ -1215,6 +1323,7 @@ def phase_main_path() -> tuple[dict, list]:
     total = dict.fromkeys(KERNELS, 0)
     stats = []
     for path, name, opts, requests, per_map in PATHS:
+        t_path = time.perf_counter()
         dtype = PATH_DTYPE.get(path, torch.bfloat16)
         model = build_model(name, seed=0, device=DEV, dtype=dtype, ndepths=NDEPTHS,
                             depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, **opts)
@@ -1245,14 +1354,16 @@ def phase_main_path() -> tuple[dict, list]:
             total[k] += n
         # one more request, traced, after the counts were read: the card's busy time in
         # it (and for the scan form, whose layers are not timed alone, its top kernels)
-        busy, top = device_profile(lambda: engine.predict_sample(sample),
-                                   top=8 if path == "adamvs_scan" else 0)
-        if path == "adamvs_scan":
+        scan = name == "adamvs" and opts.get("sweep_impl") == "scan"
+        busy, top = device_profile(lambda: engine.predict_sample(sample), top=8 if scan else 0)
+        if scan:
             layers = {}
             log(f"[main] {path} top kernels of the traced request (ms on the card, launches): "
                 + "; ".join(f"{k} {ms:.2f} x{n}" for k, ms, n in top))
-        elif name == "adamvs":
+        elif path == "adamvs":
             layers = layer_times(model, sample)
+        elif name == "adamvs":
+            layers = {}  # the regulariser forms beside adamvs: the same layers around them
         else:
             layers = msrednet_layer_times(model, opts)
         entry = {"path": path, "dtype": str(dtype), "ms_per_map": statistics.mean(times[1:]),
@@ -1266,6 +1377,7 @@ def phase_main_path() -> tuple[dict, list]:
             f"request {busy:.1f} ms ({busy / entry['ms_per_map']:.0%} of the mean)")
         del model, engine
         torch.cuda.empty_cache()
+        log(f"[time] {path}: {time.perf_counter() - t_path:.1f} s")
     return total, stats
 
 
@@ -1351,6 +1463,8 @@ def phase_train_reference() -> None:
 
     batch = train_batch(128, 160)
     for path, name, opts, *_ in TRAIN_PATHS:
+        if "compute_dtype" in opts:
+            continue  # the bf16 paths: phase_train_reference_bf16
         cpu = _train_model(name, opts, 1, "cpu")
         results = []
         record = ReluReplay()
@@ -1385,14 +1499,126 @@ def phase_train_reference() -> None:
             fail(f"{path}: the card's train step disagrees with the plain path on the CPU")
 
 
+def _module_of(param: str) -> str:
+    """The top-level module of a parameter: ``feature``, AdaMVS's
+    ``DepthNet.i.reg`` and ``DepthNet.i.reg_fuse``, MS-REDNet's
+    ``cost_regularization.i``."""
+    parts = param.split(".")
+    return ".".join(parts[:3] if parts[0] == "DepthNet" else
+                    parts[:2] if parts[0] == "cost_regularization" else parts[:1])
+
+
+def _bf16_step(model, dev: str, batch, name: str, mode) -> tuple[float, dict, torch.Tensor]:
+    """(loss, {parameter: float32 gradient on the CPU}, BatchNorm statistics)
+    of one train step of ``model`` on ``dev`` under the ReLU ``mode``."""
+    from adamvs_tpu_torch.models import model_loss
+    from adamvs_tpu_torch.train.loop import to_device
+
+    model.train()
+    b = to_device(batch, torch.device(dev))
+    with mode:
+        out = model(b["imgs"], b["proj_matrices"], b["depth_values"], train=True)
+        loss, _ = model_loss(name)(out, b["depth"], b["mask"], DLOSSW)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    if not all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.parameters()):
+        fail(f"{name} bf16 step: parameters or gradients not float32")
+    stats = torch.cat([t.flatten().float().cpu() for n, t in model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))])
+    return float(loss.detach()), grads, stats
+
+
+def _rel_l2(a: dict, b: dict, keys) -> float:
+    x = torch.cat([a[k].flatten().double() for k in keys])
+    y = torch.cat([b[k].flatten().double() for k in keys])
+    return float((x - y).norm() / y.norm())
+
+
+def phase_train_reference_bf16() -> list:
+    """One bf16 train step (float32 master weights) of each path of
+    TRAIN_REFERENCE_BF16 on a 128x160 frame, the card against the plain path
+    on the CPU, the CPU replaying the card's ReLU decisions. A bf16 gradient
+    is chaotic (multiplying the float32 weights by 1 + 2^-22 n, about 4
+    float32 steps, moves it by tenths in the feature net), so each top-level
+    module's gradient is held within twice its noise: the largest distance
+    over 3 such draws on the CPU against the CPU's step (all on the card's
+    ReLU branch). Limits: that; the whole gradient, the card's bf16 against
+    the CPU's float32, within 1.5 times the CPU's own bf16-vs-float32
+    distance; the loss within 2e-3 relative; BatchNorm statistics within
+    max(2 max|CPU bf16 - CPU float32|, 1e-3). The share of ReLU decisions
+    the CPU took from the card is reported. Returns the per-path records."""
+    batch = train_batch(128, 160)
+    records = []
+    for path, name, opts, *_ in TRAIN_PATHS:
+        if path not in TRAIN_REFERENCE_BF16:
+            continue
+        t0 = time.perf_counter()
+        cpu = _train_model(name, opts, 1, "cpu")
+        record = ReluReplay()
+        lg, gg, sg = _bf16_step(copy.deepcopy(cpu).to(DEV), DEV, batch, name, record)
+        replay = ReluReplay(record.masks)
+        lc, gc, sc = _bf16_step(copy.deepcopy(cpu), "cpu", batch, name, replay)
+        f32 = copy.deepcopy(cpu)
+        f32.compute_dtype = torch.float32
+        l32, g32, s32 = _bf16_step(f32, "cpu", batch, name, ReluReplay(record.masks))
+        noise = []
+        for draw in range(3):
+            jit = copy.deepcopy(cpu)
+            gen = torch.Generator().manual_seed(draw)
+            with torch.no_grad():
+                for p in jit.parameters():
+                    p.mul_(1 + 2.0 ** -22 * torch.randn(p.shape, generator=gen))
+            noise.append(_bf16_step(jit, "cpu", batch, name, ReluReplay(record.masks))[1])
+        modules = sorted({_module_of(n) for n in gg})
+        rows, ok = [], True
+        for m in modules:
+            keys = [n for n in gg if _module_of(n) == m]
+            err = _rel_l2(gg, gc, keys)
+            ncpu = max(_rel_l2(d, gc, keys) for d in noise)
+            ok = ok and err <= 2 * ncpu
+            rows.append({"module": m, "err": err, "noise_cpu": ncpu, "limit": 2 * ncpu,
+                         "bf16_vs_f32_cpu": _rel_l2(gc, g32, keys)})
+        lerr = abs(lg - lc) / abs(lc)
+        serr, slimit = (sg - sc).abs().max().item(), max(2 * (sc - s32).abs().max().item(), 1e-3)
+        decisions = sum(m.numel() for m in record.masks)
+        flip_share = replay.flips / max(decisions, 1)
+        whole = _rel_l2(gc, g32, list(gg))
+        card_whole = _rel_l2(gg, g32, list(gg))
+        log(f"[reference] {path} 128x160 bf16, float32 master weights: loss {lg:.6f} card vs "
+            f"{lc:.6f} cpu, rel err {lerr:.2e} (limit 2e-3; the CPU's float32 step {l32:.6f}); "
+            f"BatchNorm statistics err {serr:.2e} (limit {slimit:.2e}); the CPU took "
+            f"{replay.flips} of {decisions} ReLU decisions from the card ({flip_share:.1e}, "
+            f"information); the whole gradient, card's bf16 vs the CPU's float32, "
+            f"{card_whole:.3f} relative L2 (limit 1.5 x {whole:.3f}, the CPU's bf16 vs its "
+            f"float32); {time.perf_counter() - t0:.1f} s")
+        for r in rows:
+            log(f"[reference] {path} {r['module']}: gradient card vs cpu {r['err']:.4f} relative "
+                f"L2, noise on the cpu {r['noise_cpu']:.4f}, limit {r['limit']:.4f}; cpu bf16 vs "
+                f"f32 {r['bf16_vs_f32_cpu']:.4f}")
+        if replay.calls != record.calls or not decisions:
+            fail(f"{path}: {record.calls} ReLU calls on the card, {replay.calls} on the CPU")
+        if not (ok and card_whole <= 1.5 * whole and lerr <= 2e-3 and serr <= slimit):
+            fail(f"{path}: the card's bf16 train step disagrees with the plain path on the CPU")
+        records.append({"path": path, "loss_rel_err": lerr, "stats_err": serr,
+                        "stats_limit": slimit, "relu_flip_share": flip_share,
+                        "bf16_vs_f32_cpu": whole, "card_bf16_vs_f32_cpu": card_whole,
+                        "modules": rows})
+        del cpu, f32, noise
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_train_paths() -> tuple[dict, list]:
     """Every path of TRAIN_PATHS through the Trainer on the bench's training
-    batch (384x768, V=5, ndepths 48/32/8, base 8, float32, batch 1, RMSprop
-    lr 1e-3): a warm-up step and the timed steps, then one eval_epoch on the
-    batch (K1-K3 or K4 in float32), with all launch counters set to 0 just
-    before and read just after; then one more, traced, train step for the
-    card's busy time and its top kernels, and one more timed by phase.
-    Returns (launches summed over the paths, per-path statistics)."""
+    batch (384x768, V=5, ndepths 48/32/8, base 8, batch 1, RMSprop lr 1e-3;
+    float32, or bf16 compute with float32 master weights): a warm-up step and
+    the timed steps, then one eval_epoch on the batch (K1-K3 or K4 in the
+    path's compute dtype), with all launch counters set to 0 just before and
+    read just after; the parameters and the optimizer's state must still be
+    float32; then one more, traced, train step for the card's busy time and
+    its top kernels, and one more timed by phase. Returns (launches summed
+    over the paths, per-path statistics)."""
     from adamvs_tpu_torch.models import model_loss
     from adamvs_tpu_torch.train.loop import Trainer
     from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
@@ -1405,6 +1631,7 @@ def phase_train_paths() -> tuple[dict, list]:
     logroot = os.path.join(REPO, "adamvs_tpu_torch", "_build", "chip_smoke_train")
     shutil.rmtree(logroot, ignore_errors=True)
     for path, name, opts, steps, per_step, per_eval in TRAIN_PATHS:
+        t_path = time.perf_counter()
         model = _train_model(name, opts, 0, DEV)
         state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
         trainer = Trainer(state, model_loss(name), os.path.join(logroot, path), dlossw=DLOSSW,
@@ -1442,6 +1669,12 @@ def phase_train_paths() -> tuple[dict, list]:
         if moved < 0.9 * len(params) or not all(not torch.equal(before[k], after[k]) for k in bn):
             fail(f"{path}: {moved} of {len(params)} parameters moved, BatchNorm statistics "
                  f"{'moved' if bn else 'absent'}")
+        if not all(p.dtype == torch.float32 for p in model.parameters()):
+            fail(f"{path}: parameters are not float32 after training")
+        opt_state = [t for st_ in state.optimizer.state.values() for t in st_.values()
+                     if torch.is_tensor(t) and t.is_floating_point()]
+        if not all(t.dtype == torch.float32 for t in opt_state):
+            fail(f"{path}: optimizer state is not float32")
         busy, top = device_profile(lambda: trainer.train_epoch(0, [batch]), top=10)
         entry = {"path": path, "ms_per_step": statistics.mean(times[1:]),
                  "median_ms": statistics.median(times[1:]), "timed_ms": times[1:],
@@ -1450,7 +1683,9 @@ def phase_train_paths() -> tuple[dict, list]:
                  "params": len(params), "eval": val,
                  "phases_ms": train_phase_times(state, model_loss(name), batch)}
         stats.append(entry)
-        log(f"[main] {path} {TRAIN_H}x{TRAIN_W} V={V} ndepths {NDEPTHS} f32 {opts}: "
+        dt = "bf16 (float32 master weights)" if "compute_dtype" in opts else "f32"
+        log(f"[main] {path} {TRAIN_H}x{TRAIN_W} V={V} ndepths {NDEPTHS} {dt} "
+            f"{ {k: v for k, v in opts.items() if k != 'compute_dtype'} }: "
             f"{entry['ms_per_step']:.1f} ms per train step (median {entry['median_ms']:.1f}; timed "
             f"{', '.join(f'{t:.1f}' for t in times[1:])}; warm-up {times[0]:.1f}), peak "
             f"{peak:.2f} GiB, {moved} of {len(params)} parameters and all {len(bn)} BatchNorm "
@@ -1463,6 +1698,7 @@ def phase_train_paths() -> tuple[dict, list]:
             + "; ".join(f"{n} {ms:.2f} x{c}" for n, ms, c in top))
         del model, state, trainer
         torch.cuda.empty_cache()
+        log(f"[time] {path}: {time.perf_counter() - t_path:.1f} s")
     return total, stats
 
 
@@ -1645,8 +1881,11 @@ def phase_cli_train() -> tuple[dict, list]:
     form, float32, V=5, ndepths 48/32/8) with ``--summary_freq 1``: train one
     epoch; train to 2 epochs with ``--resume``, which must resume and run
     epoch 1 only; test (the export files, PFMs at the GT's resolution,
-    finite); profile (a trace file); train MS-REDNet one epoch. Each command
-    has every launch counter set to 0 just before it and read just after.
+    finite); profile (a trace file); train MS-REDNet one epoch; train one
+    epoch with ``--compute_dtype bf16`` (its parameters and checkpoint must
+    be float32), then test that checkpoint with ``--compute_dtype bf16`` and
+    in float32. Each command has every launch counter set to 0 just before it
+    and read just after.
     Returns (launches summed over the commands, per-command statistics)."""
     import contextlib
     import io
@@ -1655,6 +1894,7 @@ def phase_cli_train() -> tuple[dict, list]:
     from adamvs_tpu_torch.cli import main as cli_main
     from adamvs_tpu_torch.data.synthetic import make_scene, write_whu_omvs_tree
     from adamvs_tpu_torch.io.pfm import read_pfm
+    from adamvs_tpu_torch.train.checkpoint import latest_checkpoint
 
     counted = wrappers()
     total = dict.fromkeys(KERNELS, 0)
@@ -1670,7 +1910,7 @@ def phase_cli_train() -> tuple[dict, list]:
         log(f"[cli] training fixture: WHU_OMVS tree of {n} views {TRAIN_H}x{TRAIN_W}, depths "
             f"[{scene.depth_start}, {scene.depth_end}] step {scene.depth_interval}, written in "
             f"{time.perf_counter() - t0:.1f} s")
-        logs = {m: os.path.join(tmp, f"logs_{m}") for m in ("adamvs", "msrednet")}
+        logs = {m: os.path.join(tmp, f"logs_{m}") for m in ("adamvs", "msrednet", "bf16")}
         trace = os.path.join(tmp, "trace")
         a, m = SCAN_STEP["adamvs"], SCAN_STEP["msrednet"]
         train_a = ["train", "--trainpath", tree, "--logdir", logs["adamvs"], "--summary_freq", "1"]
@@ -1685,6 +1925,15 @@ def phase_cli_train() -> tuple[dict, list]:
             ("train_msrednet", ["train", "--model", "msrednet", "--trainpath", tree, "--logdir",
                                 logs["msrednet"], "--summary_freq", "1", "--epochs", "1"],
              {"K6/7": 2 * n * m, "K6/7-bwd": n * m}),
+            # bf16 mixed precision: float32 master weights, a float32 checkpoint that the
+            # bf16 and the float32 test commands both load
+            ("train_bf16", ["train", "--trainpath", tree, "--logdir", logs["bf16"], "--summary_freq",
+                            "1", "--epochs", "1", "--compute_dtype", "bf16"],
+             {"K6/7": 2 * n * a, "K6/7-bwd": n * a}),
+            ("test_bf16", ["test", "--testpath", tree, "--logdir", logs["bf16"], "--compute_dtype",
+                           "bf16"], {"K6/7": n * a}),
+            ("test_f32_of_bf16", ["test", "--testpath", tree, "--logdir", logs["bf16"]],
+             {"K6/7": n * a}),
         )
         for run, argv, want in runs:
             for fn in counted.values():
@@ -1711,6 +1960,14 @@ def phase_cli_train() -> tuple[dict, list]:
                     fail(f"cli {run}: epochs {set(epoch_lines)} ran")
                 if len(epoch_lines) != n:
                     fail(f"cli {run}: {len(epoch_lines)} train steps logged, expected {n}")
+                if "--compute_dtype" in argv:
+                    ckpt = torch.load(latest_checkpoint(argv[argv.index("--logdir") + 1]),
+                                      map_location="cpu", weights_only=True)
+                    kinds = {t.dtype for t in ckpt["model"].values()} | {
+                        p.dtype for p in result.state.model.parameters()}
+                    if not kinds <= {torch.float32, torch.int64}:
+                        fail(f"cli {run}: parameters or checkpoint of dtypes {kinds}")
+                    entry["checkpoint_dtypes"] = sorted(str(k) for k in kinds)
                 step_s, data_s = result.times["step_s"], result.times["data_s"]
                 entry.update(step_s=step_s, data_s=data_s,
                              loader_share=sum(data_s) / (sum(data_s) + sum(step_s)),
@@ -1719,9 +1976,9 @@ def phase_cli_train() -> tuple[dict, list]:
                     f"{step_s[0]:.3f}, then {statistics.mean(step_s[1:]):.3f}), waiting for the "
                     f"loader {statistics.mean(data_s):.3f} s per step ({entry['loader_share']:.1%} "
                     f"of the epoch's train loop)")
-            elif run == "test":
+            elif argv[0] == "test":
                 if "final:" not in out:
-                    fail("cli test: no 'final:' line")
+                    fail(f"cli {run}: no 'final:' line")
                 out_root = os.path.join(tree, "depths_whu_omvs", "images")
                 names = [f"view_{i:03d}" for i in range(n)]
                 files = sorted(os.path.relpath(os.path.join(d, f), out_root)
@@ -1737,7 +1994,7 @@ def phase_cli_train() -> tuple[dict, list]:
                             fail(f"cli test {v}{x}: shape {arr.shape}, finite "
                                  f"{np.isfinite(arr).all()}")
                 entry["final"] = result
-                log(f"[cli] test: {n} samples exported, PFMs {TRAIN_H}x{TRAIN_W} finite; final "
+                log(f"[cli] {run}: {n} samples exported, PFMs {TRAIN_H}x{TRAIN_W} finite; final "
                     f"abs_depth_error {result['abs_depth_error']:.3f}")
             elif run == "profile":
                 size = os.path.getsize(result) if os.path.exists(result) else 0
@@ -1788,7 +2045,9 @@ def msrednet_layer_times(model, opts: dict) -> dict:
     them the stage's 4 x D sampler calls alone), the RedCell recurrence over D
     from zero states (and the card's busy time in it, from a trace), and the
     online softmax over D. Beside them, one GroupNorm(1) at the level-1 state's shape, as PyTorch's module computes it
-    and as the port does (``group_norm1``)."""
+    and as the port does (``group_norm1``). With ``reg_impl="precomp"`` only
+    ``red_precomp_depth`` per stage (and its busy time): the layers around it
+    are msrednet_fused's, timed in the same run."""
     from adamvs_tpu_torch.models.msrednet import red_precomp_depth, variance_slice
     from adamvs_tpu_torch.nn.blocks import group_norm1
     from adamvs_tpu_torch.ops.regression import (online_softmax_finalize, online_softmax_init,
@@ -1801,8 +2060,10 @@ def msrednet_layer_times(model, opts: dict) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(3)
     x = torch.randn((V, 3, H, W), generator=gen, device=DEV).to(dt)
     out = {}
+    only_precomp = opts.get("reg_impl") == "precomp"
     with torch.no_grad():
-        out["feature_net"] = time_ms(lambda: model.feature(x), 3)
+        if not only_precomp:
+            out["feature_net"] = time_ms(lambda: model.feature(x), 3)
         del x
         for si in range(3):
             st = StageInputs(si, gen)
@@ -1810,6 +2071,15 @@ def msrednet_layer_times(model, opts: dict) -> dict:
             tag = f"stage{si + 1}"
             fused = lambda: var_sweep_volume(ref, srcs, st.src_projs, st.ref_proj, st.lo, st.step,
                                              st.D)
+            cell = model.cost_regularization[si]
+            if only_precomp:
+                vol = fused()
+                precomp = lambda: red_precomp_depth(cell, vol, st.lo, st.step)
+                out[f"precomp_{tag}"] = time_ms(precomp, 3)
+                out[f"precomp_busy_{tag}"] = device_busy_ms(precomp)
+                del st, ref, srcs, vol
+                torch.cuda.empty_cache()
+                continue
             if opts["sweep_impl"] == "fused":
                 out[f"variance_{tag}"] = time_ms(fused, 3)
             else:
@@ -1827,7 +2097,6 @@ def msrednet_layer_times(model, opts: dict) -> dict:
                 out[f"sampler_{tag}"] = time_ms(sampler, 3)
                 del coords
             vol = fused()
-            cell = model.cost_regularization[si]
 
             def recurrence():
                 state = cell.init_state(1, st.h, st.w, dt, DEV)
@@ -1836,10 +2105,6 @@ def msrednet_layer_times(model, opts: dict) -> dict:
 
             out[f"redcell_{tag}"] = time_ms(recurrence, 5)
             out[f"redcell_busy_{tag}"] = device_busy_ms(recurrence)
-            if opts.get("reg_impl") == "precomp":
-                precomp = lambda: red_precomp_depth(cell, vol, st.lo, st.step)
-                out[f"precomp_{tag}"] = time_ms(precomp, 3)
-                out[f"precomp_busy_{tag}"] = device_busy_ms(precomp)
             gn = cell.conv_gru1.output_norm
             hx = torch.randn((1, cell.base, st.h, st.w), generator=gen, device=DEV).to(dt)
             out[f"groupnorm_module_{tag}"] = time_ms(lambda: gn(hx), 3)
@@ -2161,22 +2426,30 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    smi = phase_device()
-    phase_build()
-    res = phase_kernels()
-    phase_k5(res)
-    phase_sample_bwd(res)
-    phase_edges()
-    phase_sweep_windows()
-    phase_reference()
-    phase_train_reference()
-    launches, main_stats = phase_main_path()
-    train_launches, train_stats = phase_train_paths()
-    cli_launches, cli_stats = phase_cli()
-    cli_train_launches, cli_train_stats = phase_cli_train()
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    smi = timed(phase_device)
+    timed(phase_build)
+    res = timed(phase_kernels)
+    timed(phase_k5, res)
+    timed(phase_sample_bwd, res)
+    timed(phase_edges)
+    timed(phase_sweep_windows)
+    timed(phase_reference)
+    timed(phase_train_reference)
+    bf16_reference = timed(phase_train_reference_bf16)
+    launches, main_stats = timed(phase_main_path)
+    train_launches, train_stats = timed(phase_train_paths)
+    cli_launches, cli_stats = timed(phase_cli)
+    cli_train_launches, cli_train_stats = timed(phase_cli_train)
     line = kernels_line(res, {k: n + train_launches[k] + cli_launches[k] + cli_train_launches[k]
                               for k, n in launches.items()})
     line["main_path"] = main_stats + train_stats
+    line["train_reference_bf16"] = bf16_reference
     line["cli"] = cli_stats + cli_train_stats
     print(smi)
     print(json.dumps(line))

@@ -136,11 +136,13 @@ def test_cli_runs_every_form(case, tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--sweep_impl", "fused", "--reg_impl", "precomp"), "AdaMVS reg_impl=precomp"),
+    # AdaMVS precomp and pallas2bf16 on a float32 model run (tests/test_torch_port_flags.py);
+    # row bands and several hosts do not
+    (("--sweep_impl", "fused", "--reg_impl", "precomp", "--tiles", "2"), "parallel paths"),
     # MS-REDNet precomp runs (tests/test_torch_port_precomp.py); row bands do not
     (("--model", "msrednet", "--sweep_impl", "fused", "--reg_impl", "precomp", "--tiles", "2"),
      "parallel paths"),
-    (("--warp_impl", "pallas2bf16"), "bf16 sampling for a float32 model"),
+    (("--warp_impl", "pallas2bf16", "--distributed"), "parallel paths"),
     (("--tiles", "2"), "parallel paths"),
     (("--distributed",), "parallel paths"),
 ], ids=["adamvs_precomp", "msrednet_precomp", "pallas2bf16_f32", "tiles", "distributed"])

@@ -178,7 +178,10 @@ def test_form_arguments_are_checked():
     with pytest.raises(ValueError, match="sweep_impl"):
         AdaMVS(**CFG, sweep_impl="fusedf32")
     with pytest.raises(ValueError, match="reg_impl"):
-        AdaMVS(**CFG, reg_impl="precomp")
+        AdaMVS(**CFG, reg_impl="stepped")
+    # precomp runs over the fused sweep's volume (tests/test_torch_port_flags.py)
+    with pytest.raises(ValueError, match="needs sweep_impl='fused'"):
+        AdaMVS(**CFG, sweep_impl="scan", reg_impl="precomp")
     # the scan form trains (tests/test_torch_port_scan_train.py), in train mode only
     model = AdaMVS(**CFG, **FORMS["scan"]).eval()
     imgs = torch.zeros(1, 3, 64, 64, 3)

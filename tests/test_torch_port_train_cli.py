@@ -204,7 +204,8 @@ def test_msrednet_trains_through_the_command(tmp_path, synthetic_scene):
 @pytest.mark.parametrize("argv,item", [
     (["train", "--data_parallel", "2"], "parallel paths"),
     (["train", "--distributed"], "parallel paths"),
-    (["train", "--compute_dtype", "bf16"], "bf16 mixed-precision training"),
+    # bf16 training runs (tests/test_torch_port_bf16_train.py); data parallelism does not
+    (["train", "--compute_dtype", "bf16", "--data_parallel", "2"], "parallel paths"),
     (["test", "--distributed"], "parallel paths"),
 ], ids=["data_parallel", "distributed", "bf16", "test_distributed"])
 def test_unported_train_flags_raise(tmp_path, synthetic_scene, argv, item):
