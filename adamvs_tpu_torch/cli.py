@@ -16,8 +16,16 @@ a ``torch.profiler`` Chrome trace (``trace.json``) under ``--trace_dir``.
 compute (flax's ``dtype=bf16``): parameters, optimizer state and checkpoints
 stay float32, so a checkpoint of a bf16 run loads into a float32 one and the
 other way round; ``test``, ``profile`` and ``predict`` cast the parameters to
-bf16 once. ``--distributed``, ``--data_parallel`` other than 1 and
-``--tiles`` above 1 are not ported yet (ROADMAP.md queue 1).
+bf16 once.
+
+``--distributed`` joins the process group (``parallel/distributed.py``: the
+JAX CLI's ``JAX_COORDINATOR``/``NUM_PROCESSES``/``PROCESS_ID``, else
+torchrun's variables; ``nccl`` on the card, ``gloo`` with ``--device cpu``),
+one process per card. ``train --data_parallel N`` trains over a data group of
+N ranks (0: every rank), each loading its shard of the sample lists with
+``--batch_size`` divided among them; ``predict`` splits the work items over
+the ranks; ``predict --tiles N`` runs each frame in N row bands, one after
+another on the card.
 """
 
 from __future__ import annotations
@@ -37,12 +45,9 @@ from .config import (
     ModelConfig,
     PredictConfig,
     TrainConfig,
-    not_ported,
     parse_float_list,
     parse_int_list,
 )
-
-PARALLEL = "parallel paths"
 
 
 def _add_model_flags(p: argparse.ArgumentParser):
@@ -69,7 +74,9 @@ def _add_model_flags(p: argparse.ArgumentParser):
                    help="bf16: train with float32 master weights and bf16 compute; "
                         "test, profile and predict in bf16")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host runs are not ported yet")
+                   help="join the process group, one process per card "
+                        "(parallel/distributed.py: JAX_COORDINATOR, NUM_PROCESSES, PROCESS_ID "
+                        "or torchrun's variables)")
     p.add_argument("--device", default="cuda",
                    help="the torch device to run on (default cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -102,27 +109,38 @@ def _data_config(args, **kw) -> DataConfig:
                       interval_scale=args.interval_scale, batch_size=args.batch_size, **kw)
 
 
+def _device(args):
+    """The command's device, after joining the process group with
+    ``--distributed`` (``nccl`` for the card, ``gloo`` for the CPU)."""
+    from .device import resolve_device
+    from .parallel.distributed import initialize_distributed
+
+    device = resolve_device(args.device)
+    if args.distributed:
+        initialize_distributed(backend="nccl" if device.type == "cuda" else "gloo")
+    return device
+
+
 def _build(args, mc: ModelConfig, train: bool = False):
     """(device, model) of an evaluating or (``train``) a training command."""
-    from .device import resolve_device
-
-    if args.distributed:
-        raise not_ported("--distributed", PARALLEL)
-    device = resolve_device(args.device)
+    device = _device(args)
     return device, mc.build(device=device, seed=0, train=train)
 
 
 def cmd_train(args):
     """Train for ``--epochs`` epochs from a fresh, resumed or loaded state,
-    evaluating on the test split after each; returns the ``Trainer``."""
+    evaluating on the test split after each; returns the ``Trainer``.
+
+    Several ranks (JAX's checks and sharding, adamvs_tpu/cli.py:116-145)
+    need ``--data_parallel``; each rank loads a disjoint, equally long shard
+    of the sample lists and ``--batch_size`` // ranks samples per step."""
     from .data.lists import build_sample_list
     from .data.loader import batch_iterator
     from .models import model_loss
+    from .parallel import make_mesh, rank, world_size
     from .train.loop import Trainer
     from .train.state import create_train_state, make_lr_schedule, make_optimizer, parse_lrepochs
 
-    if args.data_parallel != 1:
-        raise not_ported("--data_parallel other than 1", PARALLEL)
     data = _data_config(args, trainpath=args.trainpath, testpath=args.testpath or args.trainpath,
                         num_workers=args.num_workers)
     mc = _model_config(args)
@@ -134,15 +152,31 @@ def cmd_train(args):
     )
     train_specs = build_sample_list(data.trainpath, data.set_name, data.view_num)
     test_specs = build_sample_list(data.testpath, data.set_name, data.view_num)
-    steps_per_epoch = max(1, len(train_specs) // data.batch_size)
     device, model = _build(args, mc, train=True)
+    n, r = world_size(), rank()
+    if n > 1 and args.data_parallel == 1:
+        # each rank would train its own replica on 1/n of the data, the gradients never summed
+        raise SystemExit(f"{n} processes require --data_parallel (0 for all ranks): training "
+                         "without a data group would train unsynchronized replicas")
+    mesh = None
+    if args.data_parallel != 1:
+        mesh = make_mesh(data=args.data_parallel if args.data_parallel > 0 else None, tile=1)
+        if data.batch_size % mesh.data:
+            raise SystemExit(f"--batch_size {data.batch_size} must be divisible by the "
+                             f"data-parallel size {mesh.data}")
+        data.batch_size //= n  # each rank's share of the global batch
+    if n > 1:
+        # equally long shards, so every rank runs as many collective steps
+        n_tr, n_te = len(train_specs) // n, len(test_specs) // n
+        train_specs, test_specs = train_specs[r::n][:n_tr], test_specs[r::n][:n_te]
+    steps_per_epoch = max(1, len(train_specs) // data.batch_size)
     milestones, gamma = parse_lrepochs(tc.lrepochs)
     state = create_train_state(
         model, make_optimizer(model.parameters(), lr=tc.lr, weight_decay=tc.wd),
         make_lr_schedule(tc.lr, milestones, gamma, steps_per_epoch))
     trainer = Trainer(state, model_loss(mc.model), tc.logdir, dlossw=tc.dlossw,
                       num_stages=len(mc.ndepths), summary_freq=tc.summary_freq,
-                      save_freq=tc.save_freq, device=device)
+                      save_freq=tc.save_freq, device=device, mesh=mesh)
     start_epoch = 0
     if tc.resume:
         start_epoch = trainer.resume()
@@ -275,14 +309,9 @@ def cmd_predict(args):
     """Predict every work item of ``--data_folder`` into ``--output_folder``;
     returns the ``PredictEngine`` (its feature-cache counts)."""
     from .data.lists import build_predict_list
-    from .device import resolve_device
     from .predict.engine import PredictEngine
 
-    if args.distributed:
-        raise not_ported("--distributed", PARALLEL)
-    if args.tiles > 1:
-        raise not_ported("--tiles > 1", PARALLEL)
-    device = resolve_device(args.device)
+    device = _device(args)
     pc = PredictConfig(
         data_folder=args.data_folder, output_folder=args.output_folder,
         loadckpt=args.loadckpt, view_num=args.view_num, numdepth=args.numdepth,
@@ -294,9 +323,9 @@ def cmd_predict(args):
         ckpt = torch.load(pc.loadckpt, map_location=device, weights_only=True)
         model.load_state_dict(ckpt["model"])
         print(f"loaded {pc.loadckpt}")
-    source = build_predict_list(pc.data_folder, pc.view_num)
     engine = PredictEngine(model, num_depth=pc.numdepth, device=device,
-                           feature_cache=args.feature_cache)
+                           feature_cache=args.feature_cache, tiles=args.tiles)
+    source = build_predict_list(pc.data_folder, pc.view_num)
     engine.run(
         source, pc.output_folder, display=pc.display,
         load_kwargs=dict(resize_scale=pc.resize_scale, max_h=pc.max_h, max_w=pc.max_w,
@@ -333,7 +362,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "from seed 0 by the port's initialiser")
     pt.add_argument("--num_workers", type=int, default=2)
     pt.add_argument("--data_parallel", type=int, default=1,
-                    help="data parallelism over several devices: not ported yet (only 1)")
+                    help="train over a data group of this many ranks (0: all ranks), the "
+                         "global batch split among them; one step equals one device's step "
+                         "on the global batch")
     pt.set_defaults(fn=cmd_train)
 
     pe = sub.add_parser("test")
@@ -370,7 +401,8 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--predict_batch", type=int, default=1,
                     help="frames per forward")
     pp.add_argument("--tiles", type=int, default=1,
-                    help="row bands over several devices: not ported yet (only 1)")
+                    help="run each frame in this many row bands with a halo of 256 rows, one "
+                         "after another on the card (needs --reg_impl scan)")
     pp.set_defaults(fn=cmd_predict)
 
     pf = sub.add_parser("profile")

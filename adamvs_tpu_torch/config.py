@@ -2,11 +2,9 @@
 adamvs_tpu/config.py).
 
 ``ModelConfig`` holds the JAX CLI's model flags with the same validity rules
-(config.py:61-74) and builds the port's model. Flags the JAX package takes
-but the port has not ported yet (the parallel paths' flags, refused in
-``cli.py``) raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them (``not_ported``). ``DataConfig``, ``TrainConfig`` and
-``PredictConfig`` hold the other commands' flags with the JAX defaults.
+(config.py:61-74) and builds the port's model. ``DataConfig``,
+``TrainConfig`` and ``PredictConfig`` hold the other commands' flags with the
+JAX defaults.
 """
 
 from __future__ import annotations
@@ -27,10 +25,6 @@ def parse_int_list(s: str) -> tuple[int, ...]:
 
 def parse_float_list(s: str) -> tuple[float, ...]:
     return tuple(float(x) for x in s.split(",") if x)
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1: {item})")
 
 
 @dataclasses.dataclass

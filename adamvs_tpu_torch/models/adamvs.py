@@ -66,6 +66,7 @@ stage-2/3 ``CostRegNet2D`` weights are never used and are not instantiated.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -88,6 +89,7 @@ from ..ops.sweep_fuse import (
 )
 from ..ops.warp import _source_coords, warp_transform
 from ..ops.warp_sample import plane_sweep_warp_sampled, sample_bilinear
+from ..parallel.mesh import run_blocks
 
 # cost up-sampling by stage: stages 1 and 2 emit at 2x, stage 3 does not
 _UP_BY_STAGE = (True, True, False)
@@ -120,8 +122,22 @@ def stage_features(features: dict, chans: tuple) -> tuple[dict, int, int]:
     every stage's last axis holds that stage's channels ``chans[k]`` and its
     third does not: across stages the width doubles while the channels halve,
     so only a one-stage pyramid of square ``C x C`` maps can read both ways
-    (it is then taken as [B,V,C,h,w])."""
+    (it is then taken as [B,V,C,h,w]).
+
+    The tuple form {"stageK": (ref [B,h,w,C], sources [V-1,B,H,W,C])}, the
+    JAX models' (adamvs_tpu/models/adamvs.py:544-547), is returned as it is:
+    a reference row band (``predict/tiled.py``) with the full source frames,
+    so ``h`` may differ from ``H``."""
     keys = [f"stage{i + 1}" for i in range(len(chans))]
+    if isinstance(features[keys[0]], tuple):
+        for k, c in zip(keys, chans):
+            ref, srcs = features[k]
+            if (ref.ndim != 4 or srcs.ndim != 5 or ref.shape[-1] != c or srcs.shape[-1] != c
+                    or srcs.shape[1] != ref.shape[0]):
+                raise ValueError(f"features[{k!r}] must be (ref [B,h,w,{c}], sources "
+                                 f"[V-1,B,H,W,{c}]), got {tuple(ref.shape)} {tuple(srcs.shape)}")
+        ref, srcs = features[keys[0]]
+        return dict(features), ref.shape[0], srcs.shape[0] + 1
     shapes = [features[k].shape for k in keys]
     for k, shape in zip(keys, shapes):
         if len(shape) != 5:
@@ -140,6 +156,19 @@ def stage_features(features: dict, chans: tuple) -> tuple[dict, int, int]:
             f = f.permute(0, 1, 4, 2, 3)
         out[k] = f.reshape((B * V,) + tuple(f.shape[2:]))
     return out, B, V
+
+
+def stage_views(feat, B: int, V: int, dtype: torch.dtype) -> tuple:
+    """(ref [B,h,w,C], sources [V-1,B,H,W,C]), contiguous in ``dtype``, of
+    one stage of ``stage_features``' pyramid: [B·V,C,h,w] (H = h) or the
+    tuple form."""
+    if isinstance(feat, tuple):
+        ref, srcs = feat
+        return ref.to(dtype).contiguous(), srcs.to(dtype).contiguous()
+    f = feat.to(dtype)
+    C, h, w = f.shape[1:]
+    f = f.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)  # [B,V,h,w,C]
+    return f[:, 0].contiguous(), f[:, 1:].transpose(0, 1).contiguous()
 
 
 def correlation_volume(ref_feat: torch.Tensor, src_feat: torch.Tensor, src_proj: torch.Tensor,
@@ -165,23 +194,41 @@ def correlation_volume(ref_feat: torch.Tensor, src_feat: torch.Tensor, src_proj:
 
 def fused_slice(ref: torch.Tensor, srcs: torch.Tensor, transforms: list, weights: torch.Tensor,
                 hyp: torch.Tensor) -> torch.Tensor:
-    """The scan form's visibility-weighted mean at one hypothesis map ``hyp``
-    [B,h,w] (``_AdaFuseStreamCell``): ``sum_v ref * warped_v * w_v / (1e-5 +
-    sum_v w_v)`` over the sources ``srcs`` [Vs,B,h,w,C], each warped through
-    K6/K7 with its ``warp_transform`` (rot, trans) from ``transforms``;
-    ``weights`` [B,Vs,h,w]. The samples come in the dtype of ``ref`` (``srcs``
-    may be held in another, ``AdaMVS.sample_dtype``). Float32 [B,h,w,C]."""
-    h, w = hyp.shape[1:]
-    ref32 = ref.float()
+    """The scan form's visibility-weighted mean at the hypothesis maps ``hyp``
+    [B,Dk,h,w] (``_AdaFuseStreamCell``): ``sum_v ref * warped_v * w_v / (1e-5
+    + sum_v w_v)`` over the sources ``srcs`` [Vs,B,H,W,C], each sampled at all
+    Dk maps in one K6/K7 call with its ``warp_transform`` (rot, trans) from
+    ``transforms``; ``weights`` [B,Vs,h,w]. The samples come in the dtype of
+    ``ref`` [B,h,w,C] (``srcs`` may be held in another,
+    ``AdaMVS.sample_dtype``). Float32 [B,Dk,h,w,C]."""
+    h, w = hyp.shape[2:]
+    ref32 = ref.float()[:, None]
     vsum = wsum = None
     for v, (rot, trans) in enumerate(transforms):
-        u, vv = _source_coords(rot, trans, hyp.detach()[:, None], h, w)
-        warped = sample_bilinear(srcs[v], u, vv, out_dtype=ref.dtype)[:, 0].float()
-        w_v = weights[:, v, :, :, None].float()
+        u, vv = _source_coords(rot, trans, hyp.detach(), h, w)
+        warped = sample_bilinear(srcs[v], u, vv, out_dtype=ref.dtype).float()
+        w_v = weights[:, v, None, :, :, None].float()
         term = ref32 * warped * w_v
         vsum = term if vsum is None else vsum + term
         wsum = 1e-5 + w_v if wsum is None else wsum + w_v
     return vsum / wsum
+
+
+def depth_block_fuse(ref, srcs, transforms: list, weights, lo, step, D: int, block: int,
+                     count: int, up: bool) -> tuple:
+    """Depth block ``block`` of ``count`` of the depth-sharded sweep (JAX
+    ``_depth_sharded_fuse``'s ``fuse_block``, adamvs_tpu/models/adamvs.py:
+    376-414): ``fused_slice`` at the hypotheses ``lo + d·step`` for d in
+    [block·D/count, (block+1)·D/count). Returns (fused [Dk,B,h,w,C] float32,
+    the hypotheses [Dk,B,oh,ow] at the cost's resolution, resized when
+    ``up``)."""
+    h, w = ref.shape[1:3]
+    Dk = D // count
+    d = torch.arange(block * Dk, (block + 1) * Dk, dtype=torch.float32, device=ref.device)
+    hyp = lo[:, None] + d[None, :, None, None] * step[:, None]  # [B,Dk,h,w]
+    hyp_acc = resize_bilinear(hyp, 2 * h, 2 * w) if up else hyp
+    return (fused_slice(ref, srcs, transforms, weights, hyp).transpose(0, 1),
+            hyp_acc.transpose(0, 1))
 
 
 def ada_precomp_depth(cell: AdaRedCell, fused: torch.Tensor, lo_acc: torch.Tensor,
@@ -247,12 +294,22 @@ class AdaMVS(nn.Module):
     inference); ``sample_dtype`` rounds the scan forms' sources before
     sampling (module docstring). ``sweep_impl`` and ``reg_impl`` choose the
     inference form; the pairs ("scan", "pallas") and ("scan", "precomp") do
-    not exist, as in the JAX model."""
+    not exist, as in the JAX model.
+
+    ``depth_shards`` > 1 (JAX ``depth_mesh``, adamvs_tpu/models/adamvs.py:
+    469-480): every stage's warps and visibility-weighted fusion run in
+    ``depth_shards`` blocks of depths (``depth_block_fuse``), one after
+    another, or one block per rank of ``depth_group`` (inference only) and
+    gathered; then the cell steps over all D fused slices. As in JAX such a
+    model samples through K6/K7 whatever its ``sweep_impl`` (stage 1 as the
+    scan form) and takes ``reg_impl="scan"``; its parameters are the
+    unsharded model's."""
 
     def __init__(self, ndepths=(48, 32, 8), depth_intervals_ratio=(4.0, 2.0, 1.0),
                  base: int = 8, cr_base=(8, 8, 8), sweep_impl: str = "fused",
                  reg_impl: str = "pallas", compute_dtype: torch.dtype = torch.float32,
-                 sample_dtype: torch.dtype | None = None):
+                 sample_dtype: torch.dtype | None = None, depth_shards: int = 1,
+                 depth_group=None):
         super().__init__()
         if sweep_impl not in SWEEP_IMPLS:
             raise ValueError(f"sweep_impl must be one of {SWEEP_IMPLS}, got {sweep_impl!r}")
@@ -261,6 +318,14 @@ class AdaMVS(nn.Module):
         if reg_impl != "scan" and sweep_impl != "fused":
             raise ValueError(f"reg_impl={reg_impl!r} runs over the fused sweep's volume and "
                              f"needs sweep_impl='fused' (got {sweep_impl!r})")
+        if depth_shards > 1 and reg_impl != "scan":
+            raise ValueError(f"reg_impl={reg_impl!r} runs over the fused sweep's volume, which a "
+                             f"depth-sharded model (depth_shards={depth_shards}) does not build")
+        if depth_group is not None and dist.get_world_size(depth_group) != depth_shards:
+            raise ValueError(f"depth_shards={depth_shards} needs a depth_group of as many ranks, "
+                             f"got {dist.get_world_size(depth_group)}")
+        self.depth_shards = depth_shards
+        self.depth_group = depth_group
         self.compute_dtype = compute_dtype
         self.sample_dtype = sample_dtype
         self.ndepths = tuple(ndepths)
@@ -287,8 +352,10 @@ class AdaMVS(nn.Module):
         """``imgs`` [B,V,H,W,3], ``proj_matrices`` {"stageK": [B,V,4,4]},
         ``depth_values`` [B,3] = [min,max,interval] or [B,2] = [min,max]
         split into ``num_depth`` intervals. ``features`` (optional)
-        {"stageK": [B,V,C,h,w] or [B,V,h,w,C]} replaces the feature net
-        (``imgs`` may then be None). Returns the JAX model's outputs
+        {"stageK": [B,V,C,h,w] or [B,V,h,w,C]}, or JAX's tuple form
+        {"stageK": (ref band [B,h,w,C], sources [V-1,B,H,W,C])}
+        (``stage_features``), replaces the feature net (``imgs`` may then be
+        None). Returns the JAX model's outputs
         dict: per stage ``depth`` and ``photometric_confidence`` [B,h,w],
         ``pair_result`` (per source view [B,h1,w1], stage 1 only) and
         ``pair_confidence`` [B,h1,w1,V-1]; the last stage's entries also at
@@ -314,7 +381,8 @@ class AdaMVS(nn.Module):
         else:
             feats, B, V = stage_features(features, self.chans)
         Vs = V - 1
-        scan = self.sweep_impl == "scan"
+        sharded = self.depth_shards > 1
+        scan = self.sweep_impl == "scan" or sharded
         corr_fn = corr_sweep_volume_t if train else corr_sweep_volume
         fused_fn = fused_sweep_volume_t if train else fused_sweep_volume
 
@@ -323,11 +391,8 @@ class AdaMVS(nn.Module):
         for si, D in enumerate(self.ndepths):
             key = f"stage{si + 1}"
             net = self.DepthNet[si]
-            f = feats[key].to(dtype)
-            C, h, w = f.shape[1:]
-            f = f.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)  # [B,V,h,w,C]
-            ref = f[:, 0].contiguous()
-            srcs = f[:, 1:].transpose(0, 1).contiguous()  # [Vs,B,h,w,C]
+            ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
+            h, w = ref.shape[1:3]
             # the scan form's sources, rounded once per stage (JAX prepare_warp_sources)
             srcs_w = srcs.to(self.sample_dtype) if scan and self.sample_dtype else srcs
             projs = proj_matrices[key].float()
@@ -364,7 +429,10 @@ class AdaMVS(nn.Module):
                 lo, step = window_min_and_interval(prev_depth, D, (ratio * interval)[:, None, None])
 
             cell = net.reg_fuse
-            if scan:
+            if sharded:
+                depth, conf = self._sharded_stage(cell, ref, srcs_w, src_projs, ref_proj,
+                                                  weights, lo, step, D, train)
+            elif scan:
                 depth, conf = self._scan_stage(cell, ref, srcs_w, src_projs, ref_proj, weights,
                                                lo, step, D)
             else:
@@ -393,22 +461,58 @@ class AdaMVS(nn.Module):
         return outputs
 
     @staticmethod
-    def _stepped_stage(cell: AdaRedCell, fused: torch.Tensor, lo, step):
+    def _cell_sweep(cell: AdaRedCell, D: int, slice_at, B: int, h: int, w: int, dtype, device):
+        """The cell stepped over D depth slices into the online softmax, the
+        loop every stage form shares (JAX ``_AdaRegIdxStreamCell``,
+        ``_AdaFuseStreamCell``, ``_AdaRegStreamCell``): ``slice_at(d)`` gives
+        the cell's input [B,C,h,w] in ``dtype`` and the hypotheses [B,oh,ow]
+        at the cost's resolution."""
+        oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
+        state = cell.init_state(B, h, w, dtype, device)
+        acc = online_softmax_init((B, oh, ow), device=device)
+        for d in range(D):
+            x, hyp = slice_at(d)
+            state, cost = cell(state, x)
+            acc = online_softmax_update(acc, cost[:, 0].float(), hyp)
+        return online_softmax_finalize(acc)
+
+    @classmethod
+    def _stepped_stage(cls, cell: AdaRedCell, fused: torch.Tensor, lo, step):
         """``reg_impl="scan"`` over K2's volume [D,B,C,h,w]: the cell stepped
         per depth slice into an online softmax over ``lo + d·step`` resized
         to the cost's resolution (JAX ``_AdaRegIdxStreamCell``)."""
         D, B, _, h, w = fused.shape
         oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
         lo_acc, step_acc = resize_bilinear(lo, oh, ow), resize_bilinear(step, oh, ow)
-        state = cell.init_state(B, h, w, fused.dtype, fused.device)
-        acc = online_softmax_init((B, oh, ow), device=fused.device)
-        for d in range(D):
-            state, cost = cell(state, fused[d])
-            acc = online_softmax_update(acc, cost[:, 0].float(), lo_acc + float(d) * step_acc)
-        return online_softmax_finalize(acc)
+        return cls._cell_sweep(cell, D, lambda d: (fused[d], lo_acc + float(d) * step_acc),
+                               B, h, w, fused.dtype, fused.device)
 
-    @staticmethod
-    def _scan_stage(cell: AdaRedCell, ref, srcs, src_projs, ref_proj, weights, lo, step, D: int):
+    def _sharded_stage(self, cell: AdaRedCell, ref, srcs, src_projs, ref_proj, weights, lo,
+                       step, D: int, train: bool):
+        """``depth_shards`` > 1: the fused slices of all D hypotheses from
+        ``depth_block_fuse`` by block (in this process, or one block per
+        rank of ``depth_group``), then the cell over them (JAX
+        ``_AdaRegStreamCell``)."""
+        count = self.depth_shards
+        if D % count:
+            raise ValueError(f"ndepths entry {D} must divide the depth shards ({count})")
+        if train and self.depth_group is not None:
+            raise ValueError("a depth_group gathers the depth blocks without a gradient: "
+                             "train a depth-sharded model in one process")
+        B, h, w, _ = ref.shape
+        transforms = [warp_transform(src_projs[v], ref_proj) for v in range(srcs.shape[0])]
+        blocks = run_blocks(
+            lambda b: depth_block_fuse(ref, srcs, transforms, weights, lo, step, D, b, count,
+                                       cell.up), count, self.depth_group)
+        fused = torch.cat([f for f, _ in blocks])
+        hyp_acc = torch.cat([a for _, a in blocks])
+        return self._cell_sweep(
+            cell, D, lambda d: (fused[d].to(ref.dtype).permute(0, 3, 1, 2).contiguous(),
+                                hyp_acc[d]), B, h, w, ref.dtype, ref.device)
+
+    @classmethod
+    def _scan_stage(cls, cell: AdaRedCell, ref, srcs, src_projs, ref_proj, weights, lo, step,
+                    D: int):
         """``sweep_impl="scan"``: per hypothesis ``lo + d·step``, the sources
         sampled through K6/K7 into the visibility-weighted mean
         (``fused_slice``), one cell step in the model's dtype and one
@@ -417,12 +521,10 @@ class AdaMVS(nn.Module):
         B, h, w, _ = ref.shape
         oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
         transforms = [warp_transform(src_projs[v], ref_proj) for v in range(srcs.shape[0])]
-        dtype = ref.dtype
-        state = cell.init_state(B, h, w, dtype, ref.device)
-        acc = online_softmax_init((B, oh, ow), device=ref.device)
-        for d in range(D):
+
+        def slice_at(d):
             hyp = lo + float(d) * step
-            x = fused_slice(ref, srcs, transforms, weights, hyp)
-            state, cost = cell(state, x.to(dtype).permute(0, 3, 1, 2).contiguous())
-            acc = online_softmax_update(acc, cost[:, 0].float(), resize_bilinear(hyp, oh, ow))
-        return online_softmax_finalize(acc)
+            x = fused_slice(ref, srcs, transforms, weights, hyp[:, None])[:, 0]
+            return x.to(ref.dtype).permute(0, 3, 1, 2).contiguous(), resize_bilinear(hyp, oh, ow)
+
+        return cls._cell_sweep(cell, D, slice_at, B, h, w, ref.dtype, ref.device)

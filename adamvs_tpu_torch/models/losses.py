@@ -7,8 +7,9 @@
 - ``cas_rednet_loss`` (MS-REDNet): per stage, the masked smooth-L1 of the
   depth, weighted by ``dlossw``.
 
-A masked mean over an empty mask is 0. Both return (total, the last stage's
-depth term).
+A masked mean over an empty mask is 0; under data parallelism it is the
+global batch's (``masked_mean``). Both return (total, the last stage's depth
+term).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.regression import resize_bilinear
+from ..parallel.distributed import all_reduce_sum, data_group
 
 
 def smooth_l1(x: torch.Tensor) -> torch.Tensor:
@@ -25,9 +27,16 @@ def smooth_l1(x: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of ``values`` where ``mask``; 0 for an empty mask."""
+    """Mean of ``values`` where ``mask``; 0 for an empty mask. Inside
+    ``parallel.data_parallel(group)`` the numerator and the denominator are
+    summed over the group's ranks first (differentiably), so the mean is the
+    global batch's on every rank."""
     w = mask.to(values.dtype)
-    return (values * w).sum() / w.sum().clamp(min=1.0)
+    num, den = (values * w).sum(), w.sum()
+    group = data_group()
+    if group is not None:
+        num, den = all_reduce_sum(torch.stack([num, den]), group).unbind()
+    return num / den.clamp(min=1.0)
 
 
 def _stage_depth_loss(depth_est, depth_gt, mask):

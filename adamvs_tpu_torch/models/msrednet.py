@@ -72,7 +72,7 @@ from ..ops.regression import (
 from ..ops.sampling import window_min_and_interval
 from ..ops.sweep_fuse import var_sweep_volume, var_sweep_volume_t
 from ..ops.warp_sample import plane_sweep_warp_sampled
-from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features
+from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features, stage_views
 
 REG_IMPLS = ("scan", "precomp")
 # depths per chunk of red_precomp_depth (the JAX default)
@@ -213,9 +213,10 @@ class MSREDNet(nn.Module):
         """``imgs`` [B,V,H,W,3], ``proj_matrices`` {"stageK": [B,V,4,4]},
         ``depth_values`` [B,3] = [min,max,interval] or [B,2] = [min,max]
         split into ``num_depth`` intervals. ``features`` (optional)
-        {"stageK": [B,V,C,h,w] or [B,V,h,w,C]} replaces the feature net
-        (``imgs`` may then be None; the last stage's maps give the frame
-        size). Returns per stage ``depth`` and
+        {"stageK": [B,V,C,h,w] or [B,V,h,w,C]}, or JAX's tuple form
+        {"stageK": (ref band [B,h,w,C], sources [V-1,B,H,W,C])}, replaces
+        the feature net (``imgs`` may then be None; the last stage's
+        reference maps give the frame size). Returns per stage ``depth`` and
         ``photometric_confidence`` [B,h,w], the last stage's also at the top
         level. ``train=True`` runs the training form under autograd and needs
         the module in train mode; otherwise the inference form runs without
@@ -238,7 +239,9 @@ class MSREDNet(nn.Module):
                 imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
         else:
             feats, B, V = stage_features(features, self.chans)
-            H, W = feats[f"stage{len(self.ndepths)}"].shape[2:]
+            last = feats[f"stage{len(self.ndepths)}"]
+            # the last stage runs at the full frame, or at the reference band's rows
+            H, W = last[0].shape[1:3] if isinstance(last, tuple) else last.shape[2:]
         device = depth_values.device
         var_fn = var_sweep_volume_t if train else var_sweep_volume
 
@@ -246,11 +249,8 @@ class MSREDNet(nn.Module):
         prev_depth = None
         for si, D in enumerate(self.ndepths):
             key = f"stage{si + 1}"
-            f = feats[key].to(dtype)
-            C, h, w = f.shape[1:]
-            f = f.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)  # [B,V,h,w,C]
-            ref = f[:, 0].contiguous()
-            srcs = f[:, 1:].transpose(0, 1).contiguous()  # [Vs,B,h,w,C]
+            ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
+            h, w = ref.shape[1:3]
             if self.sweep_impl == "scan" and self.sample_dtype:
                 srcs = srcs.to(self.sample_dtype)  # once per stage (JAX prepare_warp_sources)
             projs = proj_matrices[key].float()

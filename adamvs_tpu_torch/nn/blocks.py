@@ -35,8 +35,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.distributed import data_group
 
 BN_EPS = 1e-5
 GN_EPS = 1e-5
@@ -70,17 +73,88 @@ class BatchNorm2d(nn.BatchNorm2d):
     eval mode it is ``nn.BatchNorm2d``. A bf16 input with float32 parameters
     is normalised from float32 statistics and returned in bf16, as flax's
     ``BatchNorm(dtype=bf16)`` does; the running statistics stay in their
-    own dtype. The state_dict names are its."""
+    own dtype. The state_dict names are its.
+
+    Inside ``parallel.data_parallel(group)`` the train-mode statistics are
+    those of the global batch over the group's ranks, as flax takes them over
+    JAX's global array (``_global_forward``)."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        group = data_group()
+        if group is not None:
+            return self._global_forward(x, group)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+
+    def _global_forward(self, x, group):
+        """Train mode over ``group`` (``_GlobalBatchNorm``); the running
+        statistics move alike on every rank."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, group, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalisation of ``x`` [N,C,H,W] with the statistics
+    of the global batch over the ranks of ``group``: returns (y in the dtype
+    of ``x``, mean, biased variance). Every sum over the pixels accumulates
+    in float64 (as PyTorch's CPU kernel does), and every sum over the ranks
+    is one all-reduce: the sums and the count, then the squares about the
+    global mean (one pass of squares about 0 would lose the variance to
+    cancellation where a channel's mean is far from 0 against its spread),
+    and in the backward the sums of the cotangent and of its product with
+    the normalised input. The backward is BatchNorm's, ``dx = w rstd / n
+    (n g - Σg - x̂ Σ g x̂)`` with the sums global; each rank's weight and bias
+    gradients are its own pixels' sums, which data parallelism then sums
+    over the ranks with the other gradients. Written by hand because
+    autograd through the two all-reduces (``all_reduce_sum``) makes a
+    data-parallel AdaMVS train step ~30 % slower on an H100 (PERF.md §6)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, eps):
+        C = x.shape[1]
+        x32 = x.float()
+        sums = torch.cat([x32.sum(dim=(0, 2, 3), dtype=torch.float64),
+                          x32.new_full((1,), x.numel() // C, dtype=torch.float64)])
+        dist.all_reduce(sums, group=group)
+        n = sums[-1]
+        mean = (sums[:C] / n).float()
+        d = x32 - mean[None, :, None, None]
+        sq = (d * d).sum(dim=(0, 2, 3), dtype=torch.float64)
+        dist.all_reduce(sq, group=group)
+        var = (sq / n).float()
+        rstd = torch.rsqrt(var + eps)
+        xhat = d * rstd[None, :, None, None]
+        w32 = weight.float()
+        y = xhat * w32[None, :, None, None] + bias.float()[None, :, None, None]
+        ctx.save_for_backward(xhat, rstd, w32)
+        ctx.group, ctx.n, ctx.dtypes = group, float(n), (x.dtype, weight.dtype, bias.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gmean, _gvar):
+        xhat, rstd, w32 = ctx.saved_tensors
+        C = xhat.shape[1]
+        g32 = g.float()
+        local = torch.cat([g32.sum(dim=(0, 2, 3), dtype=torch.float64),
+                           (g32 * xhat).sum(dim=(0, 2, 3), dtype=torch.float64)])
+        glob = local.clone()
+        dist.all_reduce(glob, group=ctx.group)
+        sg, sgx = (t.float()[None, :, None, None] for t in (glob[:C], glob[C:]))
+        scale = (w32 * rstd / ctx.n)[None, :, None, None]
+        dx = scale * (ctx.n * g32 - sg - xhat * sgx)
+        xdt, wdt, bdt = ctx.dtypes
+        return dx.to(xdt), local[C:].to(wdt), local[:C].to(bdt), None, None
 
 
 class ConvBlock(nn.Module):

@@ -2,7 +2,8 @@
 
 ``softmax_regression`` is the full-softmax tail the fused path runs over the
 regularised cost volume (adamvs_tpu/models/adamvs.py:755-766); the online
-(streamed) form carries a running max and gives the same result.
+(streamed) form carries a running max and gives the same result, and two of
+its partial states merge into one (``online_softmax_merge``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,23 @@ def online_softmax_update(state: OnlineSoftmax, cost: torch.Tensor, depth: torch
         s=state.s * scale + e,
         ds=state.ds * scale + depth * e,
         pmax=torch.maximum(state.pmax * scale, e),
+    )
+
+
+def online_softmax_merge(a: OnlineSoftmax, b: OnlineSoftmax) -> OnlineSoftmax:
+    """Merge two partial streams (associative and commutative), so blocks of
+    depths scanned apart give the state of one scan over all of them. A
+    still-empty state (``m = -inf``, an empty shard) takes scale 1 where
+    ``exp(-inf - -inf)`` would be NaN."""
+    m_new = torch.maximum(a.m, b.m)
+    one = torch.ones((), dtype=m_new.dtype, device=m_new.device)
+    sa = torch.where(a.m == m_new, one, torch.exp(a.m - m_new))
+    sb = torch.where(b.m == m_new, one, torch.exp(b.m - m_new))
+    return OnlineSoftmax(
+        m=m_new,
+        s=a.s * sa + b.s * sb,
+        ds=a.ds * sa + b.ds * sb,
+        pmax=torch.maximum(a.pmax * sa, b.pmax * sb),
     )
 
 

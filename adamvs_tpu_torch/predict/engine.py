@@ -18,6 +18,10 @@ the reference, so a cached pyramid is the one the uncached forward computes;
 it runs the feature net per view (batch 1), the uncached forward on all B·V
 views at once.
 
+With ``tiles`` > 1 each frame runs in row bands (``predict/tiled.py``),
+with the feature cache too. Over several ranks each takes its share of the
+work items.
+
 Images are written with PIL, imported by the writer; the preview colours are
 ``predict/viridis.py``'s copy of matplotlib's table.
 """
@@ -36,6 +40,8 @@ from ..device import resolve_device
 from ..geom.camera import legacy_cam_array
 from ..io.cams_text import write_red_cam
 from ..io.pfm import write_pfm
+from ..parallel.distributed import rank, world_size
+from .tiled import HALO_ROWS, tiled_forward
 from .viridis import viridis_rgb
 
 
@@ -95,12 +101,28 @@ class PredictEngine:
     model of ``models.build_model`` serves (AdaMVS or MS-REDNet): the engine
     reads only the outputs ``depth`` and ``photometric_confidence``; ``run``
     prints a line per work item. ``feature_cache``: how many images' feature pyramids stay on the device
-    (0: none); ``cache_hits`` and ``cache_misses`` count its lookups."""
+    (0: none); ``cache_hits`` and ``cache_misses`` count its lookups.
 
-    def __init__(self, model, num_depth: int = 192, device=None, feature_cache: int = 0):
+    ``tiles`` > 1: each frame runs in that many row bands with ``halo``
+    rows of overlap (``predict/tiled.py``, ``HALO_ROWS`` unless given), one
+    after another on this device, frame by frame (JAX's ``tile_mesh``). As
+    in JAX, the bands take the scan regulariser: ``reg_impl`` "pallas" and
+    "precomp" raise ``ValueError``."""
+
+    def __init__(self, model, num_depth: int = 192, device=None, feature_cache: int = 0,
+                 tiles: int = 1, halo: int | None = None):
+        reg_impl = getattr(model, "reg_impl", "scan")
+        if tiles > 1 and reg_impl != "scan":
+            # JAX's engine packs no regulariser for a tile mesh, so its model raises
+            # (adamvs_tpu/predict/engine.py:135, models/adamvs.py:610-622)
+            raise ValueError(f"reg_impl={reg_impl!r} requires the packed regulariser, which "
+                             f"row-band prediction (tiles={tiles}) does not pack: use "
+                             "reg_impl='scan'")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.num_depth = num_depth
+        self.tiles = tiles
+        self.halo = halo or HALO_ROWS
         self.feature_cache = feature_cache
         self._feat_cache: dict = {}  # image id -> {stageK: [1,C,h,w]}, oldest first
         self.cache_hits = self.cache_misses = 0
@@ -111,13 +133,16 @@ class PredictEngine:
         dev = self.device
         if imgs is not None:
             imgs = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(dev)
-        out = self.model(
-            imgs,
-            {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev) for k, v in projs.items()},
-            torch.from_numpy(np.asarray(depth_values, np.float32)).to(dev),
-            num_depth=self.num_depth, features=features)
-        return (out["depth"].float().cpu().numpy(),
-                out["photometric_confidence"].float().cpu().numpy())
+        projs = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev) for k, v in projs.items()}
+        dv = torch.from_numpy(np.asarray(depth_values, np.float32)).to(dev)
+        if self.tiles > 1:
+            depth, conf = tiled_forward(self.model, imgs, projs, dv, self.tiles,
+                                        num_depth=self.num_depth, halo=self.halo,
+                                        features=features)
+        else:
+            out = self.model(imgs, projs, dv, num_depth=self.num_depth, features=features)
+            depth, conf = out["depth"], out["photometric_confidence"]
+        return depth.float().cpu().numpy(), conf.float().cpu().numpy()
 
     def predict_sample(self, sample) -> tuple[np.ndarray, np.ndarray]:
         """(depth [H,W], confidence [H,W]) of one sample."""
@@ -125,7 +150,10 @@ class PredictEngine:
 
     def predict_batch(self, samples: list) -> list[tuple[np.ndarray, np.ndarray]]:
         """Batched forward over same-shape samples; with the feature cache on
-        and every sample's ``view_ids`` known, over their cached pyramids."""
+        and every sample's ``view_ids`` known, over their cached pyramids.
+        In row bands (``tiles`` > 1), one sample after another."""
+        if self.tiles > 1 and len(samples) > 1:
+            return [self.predict_batch([s])[0] for s in samples]
         padded = [_pad_to_multiple(np.asarray(s.imgs)) for s in samples]
         # one sample: a view, not a copy of its [V,H,W,3] float32 frames
         imgs = padded[0][0][None] if len(padded) == 1 else np.stack([p[0] for p in padded])
@@ -170,14 +198,16 @@ class PredictEngine:
         """Predict every work item of ``source`` (``data/lists.py::
         PredictSource``) into ``out_dir``, ``batch_size`` samples per
         forward, with the next chunk's samples loading on two threads while
-        the card works; returns the output folders. One host runs every
-        item."""
+        the card works; returns the output folders. Rank r of n
+        (``parallel.initialize_distributed``) takes the items i with
+        i % n == r."""
         os.makedirs(out_dir, exist_ok=True)
         load_kwargs = load_kwargs or {}
         written = []
         t_start = time.time()
         items = source.work_items[:num_views] if num_views else source.work_items
-        mine = list(enumerate(items))
+        n, r = world_size(), rank()
+        mine = [(i, spec) for i, spec in enumerate(items) if i % n == r]
         chunks = [mine[b0: b0 + batch_size] for b0 in range(0, len(mine), batch_size)]
         with cf.ThreadPoolExecutor(max_workers=2) as pool:
             def submit(chunk):

@@ -32,23 +32,35 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.regression import resize_bilinear
+from ..parallel.distributed import data_parallel, rank
+from ..parallel.mesh import average_gradients, replicate
 from .checkpoint import latest_checkpoint, next_epoch_after, restore_checkpoint, save_checkpoint
 from .metrics import eval_metrics
 from .state import TrainState, apply_updates_if_finite
 
 
-def make_train_step(loss_fn: Callable, dlossw) -> Callable:
+def make_train_step(loss_fn: Callable, dlossw, group=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics, depth_est)`` on a
-    batch of tensors; updates ``state`` in place."""
+    batch of tensors; updates ``state`` in place. With a data ``group`` the
+    batch is this rank's slice of the global batch and the step is one
+    device's step on the global batch: BatchNorm statistics and the loss are
+    the global batch's (``parallel.data_parallel``), and the gradients are
+    summed over the ranks and divided by their number once. Each rank's
+    gradient of the global loss is the group's size times its share, since
+    the loss's sums reach every rank through the all-reduce."""
     def train_step(state: TrainState, batch):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"], train=True)
-        loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
+        with data_parallel(group):
+            out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"], train=True)
+            loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
         loss.backward()
+        if group is not None:
+            average_gradients(model, group)
         apply_updates_if_finite(state, loss)
         metrics = {"loss": loss.detach(), "depth_loss": depth_loss.detach()}
         return state, metrics, out["depth"].detach()
@@ -56,21 +68,29 @@ def make_train_step(loss_fn: Callable, dlossw) -> Callable:
     return train_step
 
 
-def make_eval_step(loss_fn: Callable, dlossw, num_stages: int) -> Callable:
+def make_eval_step(loss_fn: Callable, dlossw, num_stages: int, group=None) -> Callable:
     """``eval_step(state, batch) -> (metrics, depth, confidence)`` on a
-    batch of tensors."""
+    batch of tensors. With a data ``group`` (every rank's batch of one size)
+    the metrics are the global batch's: the loss through its global masked
+    means, the per-image metrics averaged over the ranks."""
     final = f"stage{num_stages}"
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         model = state.model.eval()
-        out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-        loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
+        with data_parallel(group):
+            out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+            loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
         metrics = {"loss": loss, "depth_loss": depth_loss}
         gt = batch["depth"][final]
         # an up-sampling last stage can emit depth above the final GT's resolution
         depth_est = resize_bilinear(out["depth"], gt.shape[-2], gt.shape[-1])
-        metrics.update(eval_metrics(depth_est, gt, batch["mask"][final], batch["depth_interval"]))
+        per_image = eval_metrics(depth_est, gt, batch["mask"][final], batch["depth_interval"])
+        if group is not None:
+            vals = torch.stack(list(per_image.values()))
+            dist.all_reduce(vals, group=group)
+            per_image = dict(zip(per_image, (vals / dist.get_world_size(group)).unbind()))
+        metrics.update(per_image)
         return metrics, out["depth"], out["photometric_confidence"]
 
     return eval_step
@@ -104,11 +124,20 @@ class Trainer:
     unless given; raises when no CUDA device is present and none was given),
     with ``metrics.jsonl`` (train records every ``summary_freq`` steps, every
     eval), ``train_record.txt`` (one line per eval) and checkpoints every
-    ``ckpt_step_freq`` steps and every ``save_freq`` epochs in ``logdir``."""
+    ``ckpt_step_freq`` steps and every ``save_freq`` epochs in ``logdir``.
+
+    ``mesh`` (``parallel.make_mesh``): data-parallel training over its data
+    group (JAX's ``mesh=``, adamvs_tpu/train/loop.py:111-155). Rank 0's
+    parameters and buffers are broadcast at the start; each batch is this
+    rank's slice of the global batch (``parallel.shard_batch``), and a step
+    equals one device's step on the global batch (``make_train_step``);
+    scalar metrics are global. Only rank 0 writes the records and the
+    checkpoints."""
 
     def __init__(self, state: TrainState, loss_fn, logdir: str, dlossw=(0.5, 1.0, 2.0),
                  num_stages: int = 3, summary_freq: int = 50, save_freq: int = 1,
-                 ckpt_step_freq: int = 3000, log_fn: Callable[[str], None] = print, device=None):
+                 ckpt_step_freq: int = 3000, log_fn: Callable[[str], None] = print, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
         state.model.to(self.device)
         self.state = state
@@ -117,18 +146,24 @@ class Trainer:
         self.save_freq = save_freq
         self.ckpt_step_freq = ckpt_step_freq
         self.log = log_fn
-        self.train_step = make_train_step(loss_fn, dlossw)
-        self.eval_step = make_eval_step(loss_fn, dlossw, num_stages)
+        group = mesh.data_group if mesh is not None else None
+        if group is not None:
+            replicate(state.model, mesh)
+        self.is_primary = rank() == 0
+        self.train_step = make_train_step(loss_fn, dlossw, group)
+        self.eval_step = make_eval_step(loss_fn, dlossw, num_stages, group)
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = os.path.join(logdir, "metrics.jsonl")
         # host seconds per train step: waiting for the batch, and the step itself
         self.times: dict[str, list[float]] = {"data_s": [], "step_s": []}
-        try:
-            from tensorboardX import SummaryWriter
-        except ImportError:  # optional, as in JAX: metrics.jsonl stays the record
-            self._tb = None
-        else:
-            self._tb = SummaryWriter(logdir)
+        self._tb = None
+        if self.is_primary:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:  # optional, as in JAX: metrics.jsonl stays the record
+                pass
+            else:
+                self._tb = SummaryWriter(logdir)
 
     def resume(self) -> int:
         """Restore the latest checkpoint; returns the epoch to run next."""
@@ -144,6 +179,8 @@ class Trainer:
         restore_checkpoint(path, self.state)
 
     def _record(self, kind: str, step: int, scalars: dict[str, float]):
+        if not self.is_primary:
+            return
         with open(self._jsonl, "a") as f:
             f.write(json.dumps({"kind": kind, "step": step, **scalars}) + "\n")
         if self._tb is not None:
@@ -199,7 +236,7 @@ class Trainer:
             self.times["step_s"].append(t1 - t0)
             self.log(f"Epoch {epoch}, iter {i}, loss={scalars['loss']:.4f}, "
                      f"time={t1 - t0:.3f}s, data={t0 - t_wait:.3f}s")
-            if self.ckpt_step_freq and step % self.ckpt_step_freq == 0:
+            if self.ckpt_step_freq and step % self.ckpt_step_freq == 0 and self.is_primary:
                 save_checkpoint(self.logdir, self.state, epoch, tag=f"step{step}")
         return meter.mean()
 
@@ -210,11 +247,12 @@ class Trainer:
             meter.update({k: float(v) for k, v in metrics.items()})
         means = meter.mean()
         self._record("val", self.state.step, means)
-        with open(os.path.join(self.logdir, "train_record.txt"), "a") as f:
-            f.write(f"{epoch} {means}\n")
+        if self.is_primary:
+            with open(os.path.join(self.logdir, "train_record.txt"), "a") as f:
+                f.write(f"{epoch} {means}\n")
         return means
 
     def end_epoch(self, epoch: int, val_metrics: dict[str, float] | None):
-        if (epoch + 1) % self.save_freq == 0:
+        if (epoch + 1) % self.save_freq == 0 and self.is_primary:
             metric = val_metrics.get("abs_depth_error") if val_metrics else None
             save_checkpoint(self.logdir, self.state, epoch, metric=metric)

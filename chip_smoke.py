@@ -48,7 +48,10 @@ Phases, in order; any failure exits nonzero:
    the scan form (96x192 C32 with 16 and 1 hypotheses per call, 192x384
    C16, 384x768 C8), float32 and bfloat16, with one train step's calls
    timed on the card, alone, by CUDA events and under autograd, beside the
-   bound and the input gradient of F.grid_sample;
+   bound and the input gradient of F.grid_sample; then K1, K2, K4 and K6/K7
+   at the shapes of ``predict --tiles 4`` (band 1 of 4, halo 256: 1216 of
+   2752 reference rows, the sources at the full frame, the reference
+   projection shifted to the band), float32 and bfloat16 (``phase_bands``);
 4. reference: AdaMVS (fused form with K3 and with the cell stepped,
    precomp on the card against the stepped form on the CPU, scan form, and
    the scan form with bf16 sampling of a float32 model) and MS-REDNet
@@ -87,7 +90,14 @@ Phases, in order; any failure exits nonzero:
    state still float32, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3;
    MS-REDNet: K4 3; the scan forms K6/K7 364 and 352), and one more traced
    step for the card's busy time and its top kernels; then one step timed
-   by phase (upload, forward, backward, update);
+   by phase (upload, forward, backward, update); then the parallel paths:
+   ``predict --tiles 4`` through PredictEngine for the AdaMVS scan form
+   (float32), fused AdaMVS with the cell stepped and fused MS-REDNet (bf16)
+   against their unbanded maps (``phase_tiled``), AdaMVS with 4 depth
+   blocks against the unsharded scan form (``phase_depth_shards``), and the
+   Trainer in data-parallel mode, over nccl at world size 1 and over 2 gloo
+   ranks in 2 processes sharing the card, against one process on the
+   global batch (``phase_data_parallel``);
 6. cli: the port's predict command in this process on a synthetic tree of 6
    aerial frames at 5504x3712 (PNG), each the reference of one work item of
    5 views: at the JAX CLI's defaults (AdaMVS scan form, float32), in the
@@ -112,11 +122,14 @@ Phases, in order; any failure exits nonzero:
 instead times K2 and K4 (csrc/sweep_fuse.cu), K5-fused and K5-var
 (csrc/sweep_bwd.cu), K1 (csrc/sweep_fuse.cu) and K5-corr (csrc/sweep_bwd.cu)
 at their stage shapes as built and with parts of their work left out
-(``ablate``).
+(``ablate``). ``python3 chip_smoke.py --probe-parallel [1] [2] [3] [4] [5]``
+instead measures what the parallel paths' checks and costs rest on
+(``probe_parallel``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import json
@@ -143,6 +156,7 @@ FOCAL = 2200.0
 DEV = "cuda"
 # training crop of bench.py --mode train (bench.py:191-212, 447-464), float32
 TRAIN_H, TRAIN_W = 384, 768
+DP_PAIRS = 6  # alternating plain and data-parallel train steps timed by probe_parallel
 DLOSSW = (0.5, 1.0, 2.0)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -672,6 +686,12 @@ def _grid(u: torch.Tensor, v: torch.Tensor, H: int, W: int) -> torch.Tensor:
     return torch.stack([u[:, 0] / ((W - 1) / 2) - 1, v[:, 0] / ((H - 1) / 2) - 1], dim=-1)
 
 
+def _record_err(res: dict, k: str, tn: str, e: tuple) -> None:
+    """Keep the largest (max_abs_err, rel) of kernel ``k`` in dtype or case ``tn``."""
+    old = res[k]["err"].get(tn, (0.0, 0.0))
+    res[k]["err"][tn] = (max(old[0], e[0]), max(old[1], e[1]))
+
+
 def phase_kernels(reps: int = 3) -> dict:
     from adamvs_tpu_torch.nn.blocks import init_parameters
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
@@ -682,10 +702,6 @@ def phase_kernels(reps: int = 3) -> dict:
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     res = {k: {"err": {}, "stages": []} for k in KERNELS}
-
-    def record(k, tn, e):
-        old = res[k]["err"].get(tn, (0.0, 0.0))
-        res[k]["err"][tn] = (max(old[0], e[0]), max(old[1], e[1]))
 
     for si in range(3):
         st = StageInputs(si, gen)
@@ -702,17 +718,20 @@ def phase_kernels(reps: int = 3) -> dict:
                 if si == 0:
                     k1 = lambda **kw: sf.corr_sweep_volume(ref, srcs, *geo, **kw)
                     p1 = lambda: sf.corr_volume_ref(ref, srcs, *geo)
-                    record("K1", tn, _compare(f"K1 stage1 {tn}", ("K1", dtype), k1(), p1()))
+                    _record_err(res, "K1", tn,
+                                _compare(f"K1 stage1 {tn}", ("K1", dtype), k1(), p1()))
                     if dtype == torch.bfloat16:
                         timing["K1"] = (time_ms(k1, reps), time_ms(p1, 1), sweep_bound("K1", st, dtype))
                 k2 = lambda **kw: sf.fused_sweep_volume(ref, srcs, st.weights, *geo, **kw)
                 p2 = lambda: sf.fused_volume_ref(ref, srcs, st.weights, *geo)
                 vol = k2()
-                record("K2", tn, _compare(f"K2 stage{si + 1} {tn}", ("K2", dtype), vol, p2()))
+                _record_err(res, "K2", tn,
+                            _compare(f"K2 stage{si + 1} {tn}", ("K2", dtype), vol, p2()))
                 cell = copy.deepcopy(cell32).to(dtype)
                 k3 = lambda: rs.red_scan(cell, vol)
                 p3 = lambda: rs.red_scan_ref(cell, vol)
-                record("K3", tn, _compare(f"K3 stage{si + 1} {tn}", ("K3", dtype), k3(), p3()))
+                _record_err(res, "K3", tn,
+                            _compare(f"K3 stage{si + 1} {tn}", ("K3", dtype), k3(), p3()))
                 if dtype == torch.bfloat16:  # information only: the bf16 kernel against float32
                     got, want = k3().float(), rs.red_scan_ref(cell32, vol.float())
                     err, scale = (got - want).abs().max().item(), want.abs().max().item()
@@ -722,11 +741,12 @@ def phase_kernels(reps: int = 3) -> dict:
                     del got, want
                 k4 = lambda **kw: sf.var_sweep_volume(ref, srcs, *geo, **kw)
                 p4 = lambda: sf.var_volume_ref(ref, srcs, *geo)
-                record("K4", tn, _compare(f"K4 stage{si + 1} {tn}", ("K4", dtype), k4(), p4()))
+                _record_err(res, "K4", tn,
+                            _compare(f"K4 stage{si + 1} {tn}", ("K4", dtype), k4(), p4()))
                 # K6/K7: one hypothesis slice (the middle one) per source view
                 hyp = (st.lo + (st.D // 2) * st.step)[:, None]
                 uv = [sweep_coords(srcs[v], st.src_projs[v], st.ref_proj, hyp) for v in range(V - 1)]
-                record("K6/7", tn, _compare(
+                _record_err(res, "K6/7", tn, _compare(
                     f"K6/7 stage{si + 1} {tn} ({V - 1} views)", ("K6/7", dtype),
                     torch.cat([ws.sample_bilinear(srcs[v], *uv[v]) for v in range(V - 1)]),
                     torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v]) for v in range(V - 1)])))
@@ -778,7 +798,7 @@ def phase_kernels(reps: int = 3) -> dict:
                     # the bf16-in, float32-out form (pallas2bf16 on a float32 model): the same
                     # calls of one scan map, against the plain version on the same bf16 sources
                     f32 = torch.float32
-                    record("K6/7", "bf16->f32", _compare(
+                    _record_err(res, "K6/7", "bf16->f32", _compare(
                         f"K6/7 stage{si + 1} bf16->f32 ({V - 1} views)", ("K6/7", "bf16->f32"),
                         torch.cat([ws.sample_bilinear(srcs[v], *uv[v], out_dtype=f32)
                                    for v in range(V - 1)]),
@@ -1313,12 +1333,7 @@ def phase_main_path() -> tuple[dict, list]:
     from adamvs_tpu_torch.models import build_model
     from adamvs_tpu_torch.predict.engine import PredictEngine
 
-    rng = np.random.RandomState(0)
-    sample = types.SimpleNamespace(
-        imgs=rng.randn(V, H, W, 3).astype(np.float32),
-        proj_matrices=bench_projs(H, W, V, FOCAL),
-        depth_values=np.array([DMIN, DMAX], np.float32),
-    )
+    sample = _bench_sample()
     counted = wrappers()
     total = dict.fromkeys(KERNELS, 0)
     stats = []
@@ -2010,6 +2025,568 @@ def phase_cli_train() -> tuple[dict, list]:
     return total, stats
 
 
+# Row bands of `predict --tiles TILES` at the bench frame (predict/tiled.py, the halo of
+# the JAX CLI): 688 rows a band, 1216-row band views (band 1 from row 432).
+TILES, HALO = 4, 256
+# (path, model, model options, dtype, launches per banded depth map)
+TILED_FORMS = (
+    ("tiled_adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"}, torch.float32,
+     {"K6/7": TILES * ((V - 1) * sum(NDEPTHS) + CORR_BLOCKS)}),
+    ("tiled_adamvs_fused_regscan", "adamvs", {"sweep_impl": "fused", "reg_impl": "scan"},
+     torch.bfloat16, {"K1": TILES, "K2": 3 * TILES}),
+    ("tiled_msrednet_fused", "msrednet", {"sweep_impl": "fused"}, torch.bfloat16,
+     {"K4": 3 * TILES}),
+)
+DEPTH_SHARDS = 4
+
+
+def band_inputs(si: int, gen: torch.Generator, band: int = 1) -> StageInputs:
+    """StageInputs of row band ``band`` of TILES: the band's reference rows,
+    visibility weights and hypothesis window (``band_geometry``), the
+    full-frame sources, and the reference projection shifted to the band's
+    first row (``band_ref_proj``); ``h`` is the band's."""
+    from adamvs_tpu_torch.predict.tiled import band_geometry
+
+    st = StageInputs(si, gen)
+    start, band_h, _ = band_geometry(band, TILES, H, HALO)
+    s = 2 ** (2 - si)
+    r0, bh = start // s, band_h // s
+    st.h = bh
+    st.ref = st.ref[:, r0:r0 + bh].contiguous()
+    st.weights = st.weights[:, :, r0:r0 + bh].contiguous()
+    st.lo, st.step = st.lo[:, r0:r0 + bh].contiguous(), st.step[:, r0:r0 + bh].contiguous()
+    ref_proj = st.ref_proj.clone()
+    ref_proj[:, 1] = st.ref_proj[:, 1] - r0 * st.ref_proj[:, 2]
+    st.ref_proj = ref_proj
+    st.rows = (r0, bh)
+    return st
+
+
+def phase_bands(res: dict) -> None:
+    """K1, K2, K4 and K6/K7 at the shapes of ``predict --tiles 4``: band 1's
+    reference rows against the full-frame sources (the first shapes whose
+    reference is smaller than its sources), float32 and bf16, against their
+    plain versions within TOL; the errors go in the kernels line under
+    ``band f32`` and ``band bf16``."""
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.ops import warp_sample as ws
+    from adamvs_tpu_torch.ops.warp import sweep_coords
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    for si in range(3):
+        st = band_inputs(si, gen)
+        log(f"[bands] stage{si + 1}: reference rows {st.rows[0]}-{sum(st.rows) - 1} "
+            f"({st.h}x{st.w}) of {st.srcs.shape[2]}x{st.srcs.shape[3]} sources, C {st.C}, "
+            f"D {st.D}")
+        for dtype in (torch.float32, torch.bfloat16):
+            tn = "f32" if dtype == torch.float32 else "bf16"
+            ref, srcs = st.feats(dtype)
+            geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
+            with torch.no_grad():
+                if si == 0:
+                    _record_err(res, "K1", f"band {tn}", _compare(
+                        f"K1 band stage1 {tn}", ("K1", dtype),
+                        sf.corr_sweep_volume(ref, srcs, *geo), sf.corr_volume_ref(ref, srcs, *geo)))
+                _record_err(res, "K2", f"band {tn}", _compare(
+                    f"K2 band stage{si + 1} {tn}", ("K2", dtype),
+                    sf.fused_sweep_volume(ref, srcs, st.weights, *geo),
+                    sf.fused_volume_ref(ref, srcs, st.weights, *geo)))
+                _record_err(res, "K4", f"band {tn}", _compare(
+                    f"K4 band stage{si + 1} {tn}", ("K4", dtype),
+                    sf.var_sweep_volume(ref, srcs, *geo), sf.var_volume_ref(ref, srcs, *geo)))
+                hyp = (st.lo + (st.D // 2) * st.step)[:, None]
+                uv = [sweep_coords(srcs[v], st.src_projs[v], st.ref_proj, hyp) for v in range(V - 1)]
+                _record_err(res, "K6/7", f"band {tn}", _compare(
+                    f"K6/7 band stage{si + 1} {tn} ({V - 1} views)", ("K6/7", dtype),
+                    torch.cat([ws.sample_bilinear(srcs[v], *uv[v]) for v in range(V - 1)]),
+                    torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v]) for v in range(V - 1)])))
+            del ref, srcs, uv
+        del st
+        torch.cuda.empty_cache()
+
+
+def _bench_sample():
+    """The main paths' request: 5 seeded random frames at 2752x1856 with the
+    bench geometry and depths 300-500."""
+    rng = np.random.RandomState(0)
+    return types.SimpleNamespace(
+        imgs=rng.randn(V, H, W, 3).astype(np.float32),
+        proj_matrices=bench_projs(H, W, V, FOCAL),
+        depth_values=np.array([DMIN, DMAX], np.float32),
+    )
+
+
+def _band_errors(depth, conf, want_depth, want_conf) -> dict:
+    """tests/test_tiled.py's interior-row statistics of a banded map against
+    the unbanded one (2 rows either side of each band boundary left out)."""
+    rows = H // TILES
+    interior = np.ones(H, bool)
+    for b in range(1, TILES):
+        interior[b * rows - 2:b * rows + 2] = False
+    err = np.abs(depth - want_depth)[interior]
+    cerr = np.abs(conf - want_conf)[interior]
+    return {"max_abs_err": float(np.abs(depth - want_depth).max()),
+            "median_err": float(np.median(err)), "within_1e-2": float((err < 1e-2).mean()),
+            "conf_median_err": float(np.median(cerr))}
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str, calls: list, active: bool = True):
+    """While active, ``module.name`` (a kernel wrapper as a model module
+    calls it) also appends each call's (arguments, output) to ``calls``."""
+    if not active:
+        yield
+        return
+    fn = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_tiled() -> tuple[dict, list]:
+    """``predict --tiles 4`` (halo 256) through PredictEngine for TILED_FORMS
+    at the bench frame: a banded request after a warm-up, with every launch
+    counter set to 0 just before the two and read just after, against one
+    unbanded request of the same engine model. The AdaMVS forms must meet
+    tests/test_tiled.py's bars on the interior rows (median |Δ| < 1e-3, 97 %
+    within 1e-2, confidence median < 1e-3). MS-REDNet's cells normalise with
+    GroupNorm(1) over the whole map, so a band narrower than the frame moves
+    its statistics and its depth, in JAX as in the port (tests/
+    test_torch_port_parallel_tiled.py holds the port's bands to JAX's): its
+    distance from the unbanded map is information. Its bands are held instead
+    by K4's calls inside the first banded request, each against the plain
+    volume on the same inputs within TOL, and by the bands on the card
+    against the same bands on the CPU, float32, within phase_reference's
+    limits: on phase_reference's 128x160 frame (4 bands of 32 rows, halo 16:
+    64-row band views) with the seeded weights, and on a 512x256 frame with
+    the stage features scaled so that the stage-1 variance volume reaches 1.
+    With the seeded weights (stage-1 variances up to ~1e-7) the map at
+    512x256 is ill-conditioned: moving every weight by one float32 step
+    moves it by ~1e-2 of the range on the CPU alone, as far as card and CPU
+    part; scaled, both distances fall to ~4e-6 (``probe_parallel``).
+    Returns (launches, per-path statistics)."""
+    from adamvs_tpu_torch.models import build_model
+    from adamvs_tpu_torch.models import msrednet as msrednet_module
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.predict.engine import PredictEngine
+    from adamvs_tpu_torch.predict.tiled import tiled_forward
+
+    sample = _bench_sample()
+    counted = wrappers()
+    total = dict.fromkeys(KERNELS, 0)
+    stats = []
+    for path, name, opts, dtype, per_map in TILED_FORMS:
+        t_path = time.perf_counter()
+        model = build_model(name, seed=0, device=DEV, dtype=dtype, ndepths=NDEPTHS,
+                            depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, **opts)
+        t0 = time.perf_counter()
+        want = PredictEngine(model, num_depth=NUM_DEPTH, device=DEV).predict_sample(sample)
+        unbanded = (time.perf_counter() - t0) * 1e3
+        engine = PredictEngine(model, num_depth=NUM_DEPTH, device=DEV, tiles=TILES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        times, k4_calls = [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            with _recorded(msrednet_module, "var_sweep_volume", k4_calls,
+                           name == "msrednet" and i == 0):
+                depth, conf = engine.predict_sample(sample)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, n in launches.items():
+            if n != 2 * per_map.get(k, 0):
+                fail(f"{path}: {k} launched {n} times over 2 banded requests, expected "
+                     f"{2 * per_map.get(k, 0)}")
+            total[k] += n
+        if depth.shape != (H, W) or not (np.isfinite(depth).all() and np.isfinite(conf).all()):
+            fail(f"{path}: banded output {depth.shape}, finite {np.isfinite(depth).all()}")
+        if not (conf.min() > 0.0 and conf.max() <= 1.0):
+            fail(f"{path}: confidence outside (0, 1]: [{conf.min()}, {conf.max()}]")
+        errs = _band_errors(depth, conf, *want)
+        entry = {"path": path, "dtype": str(dtype), "tiles": TILES, "halo": HALO,
+                 "ms_per_map": times[1], "warmup_ms": times[0], "unbanded_ms": unbanded,
+                 "peak_gib": peak, "launches": launches, **errs}
+        stats.append(entry)
+        log(f"[tiled] {path} {H}x{W} in {TILES} bands, halo {HALO}, {dtype}: {times[1]:.1f} ms "
+            f"per depth map (warm-up {times[0]:.1f}; unbanded {unbanded:.1f}), peak {peak:.2f} GiB, "
+            f"launches {launches}; against the unbanded map: max |Δ| {errs['max_abs_err']:.3e}, "
+            f"interior median {errs['median_err']:.3e}, {errs['within_1e-2']:.4%} within 1e-2, "
+            f"confidence median {errs['conf_median_err']:.3e}")
+        if name == "adamvs":
+            if not (errs["median_err"] < 1e-3 and errs["within_1e-2"] > 0.97
+                    and errs["conf_median_err"] < 1e-3):
+                fail(f"{path}: the banded map disagrees with the unbanded one")
+        else:
+            log(f"[tiled] {path}: GroupNorm(1) over the band, not the frame: the distance above "
+                "is the reference algorithm's (information, no limit)")
+            with torch.no_grad():
+                for i, (args, out) in enumerate(k4_calls):
+                    _compare(f"K4 in {path} band {i // 3} stage{i % 3 + 1} ({tuple(args[0].shape)} "
+                             f"of {tuple(args[1].shape)})", ("K4", out.dtype), out,
+                             sf.var_volume_ref(*args))
+            if len(k4_calls) != 3 * TILES:
+                fail(f"{path}: {len(k4_calls)} K4 calls recorded, expected {3 * TILES}")
+            entry["k4_calls_checked"] = len(k4_calls)
+            del k4_calls
+        del model, engine
+        torch.cuda.empty_cache()
+        log(f"[time] {path}: {time.perf_counter() - t_path:.1f} s")
+    # MS-REDNet's bands, card against CPU, with real bands: on phase_reference's frame with the
+    # seeded weights, and at 512x256 with the stage features scaled so that the stage-1
+    # variance volume reaches 1
+    for h, w, scaled in ((128, 160, False), (512, 256, True)):
+        rng = np.random.RandomState(1)
+        imgs = torch.from_numpy(rng.randn(1, V, h, w, 3).astype(np.float32))
+        projs = {k: torch.from_numpy(p[None])
+                 for k, p in bench_projs(h, w, V, FOCAL * h / H).items()}
+        dv = torch.tensor([[DMIN, DMAX]])
+        dev_projs = {k: p.to(DEV) for k, p in projs.items()}
+        model = build_model("msrednet", seed=1, device=DEV, ndepths=NDEPTHS, base=BASE,
+                            cr_base=(BASE,) * 3, sweep_impl="fused")
+        with torch.no_grad():
+            if scaled:  # the stage outputs are 1x1 convolutions without bias
+                calls = []
+                with _recorded(msrednet_module, "var_sweep_volume", calls):
+                    model(imgs.to(DEV), dev_projs, dv.to(DEV), num_depth=NUM_DEPTH)
+                vmax = calls[0][1].abs().max().item()
+                del calls
+                for name in ("out1", "out2", "out3"):
+                    getattr(model.feature, name).weight.mul_(vmax ** -0.5)
+            got = tiled_forward(model, imgs.to(DEV), dev_projs, dv.to(DEV), TILES,
+                                num_depth=NUM_DEPTH, halo=16)
+            want = tiled_forward(copy.deepcopy(model).cpu(), imgs, projs, dv, TILES,
+                                 num_depth=NUM_DEPTH, halo=16)
+        derr = (got[0].cpu() - want[0]).abs().max().item() / (DMAX - DMIN)
+        cerr = (got[1].cpu() - want[1]).abs().max().item()
+        log(f"[tiled] msrednet_fused {h}x{w}"
+            f"{f' (stage features x {vmax ** -0.5:.4g})' if scaled else ''} in {TILES} bands, "
+            f"halo 16, float32, card against CPU: depth err {derr:.2e} of the range "
+            f"(limit 1e-4), confidence err {cerr:.2e} (limit 1e-3)")
+        if not (derr < 1e-4 and cerr < 1e-3):
+            fail(f"msrednet_fused bands at {h}x{w}: the card disagrees with the plain path on "
+                 "the CPU")
+        del model, got, want
+    return total, stats
+
+
+def phase_depth_shards() -> tuple[dict, list]:
+    """AdaMVS with ``depth_shards=4`` (the depth blocks one after another,
+    JAX's ``depth_mesh`` path: K6/K7 over each block's hypotheses) at the
+    bench frame in float32 through PredictEngine, against the unsharded scan
+    form: depth and confidence within atol 1e-4 (tests/test_depth_shard.py).
+    One request after a warm-up, the launch counters set to 0 before the two.
+    The phase runs with ``cudnn.deterministic``: with cuDNN's default choice
+    of algorithms two runs of the unsharded float32 form on the same input
+    part by up to 2.1e-4 in depth (300-500, ``probe_parallel``), as far as
+    the bar, so the bar would test cuDNN's run-to-run spread rather than the
+    depth blocks."""
+    sample = _bench_sample()
+    counted = wrappers()
+    kw = dict(seed=0, device=DEV, dtype=torch.float32, ndepths=NDEPTHS,
+              depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, sweep_impl="scan",
+              reg_impl="scan")
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _depth_shards(sample, counted, kw)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _depth_shards(sample, counted: dict, kw: dict) -> tuple[dict, list]:
+    from adamvs_tpu_torch.models import build_model
+    from adamvs_tpu_torch.predict.engine import PredictEngine
+
+    want = PredictEngine(build_model("adamvs", **kw), num_depth=NUM_DEPTH,
+                         device=DEV).predict_sample(sample)
+    engine = PredictEngine(build_model("adamvs", depth_shards=DEPTH_SHARDS, **kw),
+                           num_depth=NUM_DEPTH, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        depth, conf = engine.predict_sample(sample)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    per_map = {"K6/7": CORR_BLOCKS + 3 * DEPTH_SHARDS * (V - 1)}
+    for k, n in launches.items():
+        if n != 2 * per_map.get(k, 0):
+            fail(f"adamvs_depth_shards: {k} launched {n} times over 2 requests, expected "
+                 f"{2 * per_map.get(k, 0)}")
+    derr, cerr = float(np.abs(depth - want[0]).max()), float(np.abs(conf - want[1]).max())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[depth_shards] adamvs {H}x{W} float32 in {DEPTH_SHARDS} depth blocks, cuDNN "
+        f"deterministic: {times[1]:.1f} ms "
+        f"per depth map (warm-up {times[0]:.1f}), peak {peak:.2f} GiB, launches {launches}; "
+        f"against the unsharded scan form: depth max |Δ| {derr:.3e}, confidence {cerr:.3e} "
+        f"(limits 1e-4)")
+    if not (derr <= 1e-4 and cerr <= 1e-4):
+        fail("adamvs_depth_shards disagrees with the unsharded forward")
+    entry = {"path": "adamvs_depth_shards", "dtype": "torch.float32", "shards": DEPTH_SHARDS,
+             "cudnn_deterministic": True,
+             "ms_per_map": times[1], "warmup_ms": times[0], "peak_gib": peak,
+             "launches": launches, "depth_max_abs_err": derr, "conf_max_abs_err": cerr}
+    return launches, [entry]
+
+
+def dp_batch(height: int = TRAIN_H, width: int = TRAIN_W) -> dict:
+    """The training batch at 2 samples, the second with the left half of its
+    mask zero at every stage (uneven masks: the loss's masked means differ
+    from the mean of per-sample means)."""
+    batch = train_batch(height, width, batch=2)
+    for m in batch["mask"].values():
+        m[1, :, : m.shape[2] // 2] = 0.0
+    return batch
+
+
+def _dp_result(model, loss: float) -> dict:
+    return {"loss": loss,
+            "grads": {k: p.grad.detach().to("cpu", copy=True)
+                      for k, p in model.named_parameters() if p.grad is not None},
+            "state": {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}}
+
+
+def dp_worker(rank: int, port: int, out: str) -> None:
+    """One of 2 gloo ranks sharing the card (``--dp-worker``): one
+    data-parallel train step of fused AdaMVS on its half of ``dp_batch``;
+    writes its loss, gradients, state, launches, ReLU decisions and step
+    time to ``out``."""
+    from adamvs_tpu_torch.models import model_loss
+    from adamvs_tpu_torch.parallel import initialize_distributed, make_mesh, shard_batch
+    from adamvs_tpu_torch.train.loop import Trainer
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=300)
+    model = _train_model("adamvs", {}, 0, DEV)
+    state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+    mesh = make_mesh(data=2)
+    trainer = Trainer(state, model_loss("adamvs"), os.path.join(out, f"log{rank}"),
+                      dlossw=DLOSSW, num_stages=3, ckpt_step_freq=0, log_fn=lambda m: None,
+                      device=DEV, mesh=mesh)
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    record = ReluReplay()
+    t0 = time.perf_counter()
+    with record:
+        loss = trainer.train_epoch(0, [shard_batch(dp_batch(), mesh)])["loss"]
+    result = _dp_result(model, loss)
+    result.update(launches={k: fn.launches for k, fn in counted.items()}, masks=record.masks,
+                  step_ms=(time.perf_counter() - t0) * 1e3)
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+
+
+def phase_data_parallel() -> tuple[dict, list]:
+    """The Trainer in data-parallel mode on the card, fused AdaMVS, float32.
+    A float32 AdaMVS step moves under rounding alone: a ReLU input within
+    rounding of 0 flips (3 of 11.6 million decisions move a 64x128 step's
+    gradient by 5e-3, ``probe_parallel``), so each comparison replays the
+    reference run's ReLU decisions (``ReluReplay``; at most ``MAX_FLIPS`` of
+    them may differ):
+
+    1. world size 1 over nccl: 3 train steps on the training batch (384x768,
+       V=5) over a data group of this process, with the launch counters set
+       to 0 just before and read just after, against 3 steps of the plain
+       Trainer from the same weights, the first step's decisions replayed:
+       after the first step the loss within 1e-5 relative, the gradient within
+       1e-3 relative L2, the parameters less the plain run's equal to
+       RMSprop's step of the one gradient less that of the other within 1e-6,
+       the BatchNorm statistics within 1e-4; the later steps' losses within
+       1e-4 (unreplayed: RMSprop turns the rounding of a gradient near 0
+       into a whole step, so the runs part by more than rounding);
+    2. 2 gloo ranks in 2 processes sharing the card, one step on the 2-sample
+       ``dp_batch`` (uneven masks, train-mode BatchNorm), against one process
+       on the same global batch replaying the ranks' decisions (concatenated
+       along the batch): the loss within 1e-4 relative on both ranks
+       (tests/test_multihost.py's bar); the averaged gradient, alike on both
+       ranks, within 1e-3 relative L2 (phase_train_reference's limit; a
+       gradient not divided by the 2 ranks lies 1.0 from it); each rank's
+       parameters less the one process's equal RMSprop's step of the rank's
+       gradient less that of the one process's gradient, within 1e-6; the
+       BatchNorm statistics within 1e-4.
+    Returns (launches of part 1, per-path statistics)."""
+    import torch.distributed as dist
+
+    from adamvs_tpu_torch.models import model_loss
+    from adamvs_tpu_torch.parallel import initialize_distributed, make_mesh
+    from adamvs_tpu_torch.parallel.dryrun import free_port
+    from adamvs_tpu_torch.train.loop import Trainer
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
+
+    stats = []
+    root = os.path.join(REPO, "adamvs_tpu_torch", "_build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    batch = train_batch(TRAIN_H, TRAIN_W)
+    counted = wrappers()
+    steps = 3
+
+    def trainer_of(model, label, mesh=None):
+        state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+        return Trainer(state, model_loss("adamvs"), os.path.join(root, label), dlossw=DLOSSW,
+                       num_stages=3, ckpt_step_freq=0, log_fn=lambda m: None, device=DEV,
+                       mesh=mesh)
+
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl", timeout_s=300)
+    runs = {}
+    record = ReluReplay()
+    replay = ReluReplay(record.masks)
+    try:
+        for label, mode in (("plain", record), ("data_parallel", replay)):
+            model = _train_model("adamvs", {}, 0, DEV)
+            trainer = trainer_of(model, label, make_mesh(data=1) if label == "data_parallel"
+                                 else None)
+            torch.cuda.synchronize()
+            for fn in counted.values():
+                fn.launches = 0
+            losses, times = [], []
+            for i in range(steps):
+                t0 = time.perf_counter()
+                with mode if i == 0 else contextlib.nullcontext():
+                    losses.append(trainer.train_epoch(0, [batch])["loss"])
+                times.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    first = _dp_result(model, losses[0])
+            runs[label] = (losses, times, {k: fn.launches for k, fn in counted.items()}, first,
+                           {k: v.detach().to("cpu", copy=True)
+                            for k, v in model.named_parameters()})
+            del model, trainer
+    finally:
+        dist.destroy_process_group()
+    ld, td, launches, fd, pd = runs["data_parallel"]
+    lp, tp, _, fp, pp = runs["plain"]
+    start = _train_model("adamvs", {}, 0, "cpu").state_dict()
+    # after all the steps, as information: RMSprop makes whole steps of the rounding of
+    # gradients near 0, and later steps are not replayed
+    drift = float(torch.cat([(pd[k] - pp[k]).flatten() for k in pp]).norm()
+                  / torch.cat([(pp[k] - start[k]).flatten() for k in pp]).norm())
+    per_step = dict(TRAIN_PATHS[0][4])
+    for k, n in launches.items():
+        if n != steps * per_step.get(k, 0):
+            fail(f"train_adamvs_data_parallel: {k} launched {n} times over {steps} steps, "
+                 f"expected {steps * per_step.get(k, 0)}")
+    keys = list(fp["grads"])
+    bn = [k for k in fp["state"] if k.endswith(("running_mean", "running_var"))]
+
+    def flat(grads):
+        return torch.cat([grads[k].flatten() for k in keys])
+
+    def step(g):
+        return -1e-3 * g / ((0.1 * g * g).sqrt() + 1e-8)
+
+    def compare(got, want):
+        """(loss, gradient, parameter step, BatchNorm statistics) errors of
+        one step's result ``got`` against ``want`` (``_dp_result``)."""
+        gw = flat(want["grads"])
+        return (abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                float((flat(got["grads"]) - gw).norm() / gw.norm()),
+                max(float(((got["state"][k] - want["state"][k])
+                           - (step(got["grads"][k]) - step(want["grads"][k]))).abs().max())
+                    for k in keys),
+                max(float(((got["state"][k] - want["state"][k]).abs()
+                           / want["state"][k].abs().clamp(min=1.0)).max()) for k in bn))
+
+    lerr, gerr, perr, serr = compare(fd, fp)
+    later = max(abs(a - b) / abs(b) for a, b in zip(ld[1:], lp[1:]))
+    share = replay.flips / max(sum(m.numel() for m in record.masks), 1)
+    log(f"[data_parallel] world 1 over nccl, fused AdaMVS {TRAIN_H}x{TRAIN_W} float32, {steps} "
+        f"steps: losses {', '.join(f'{x:.6f}' for x in ld)} against the plain Trainer's "
+        f"{', '.join(f'{x:.6f}' for x in lp)}; step 1 (decisions replayed, {replay.flips} would "
+        f"have flipped, {share:.1e}, limit {ReluReplay.MAX_FLIPS:.0e}): loss {lerr:.2e} (limit "
+        f"1e-5), gradient rel L2 {gerr:.2e} (limit 1e-3), parameters against RMSprop's step "
+        f"{perr:.2e} (limit 1e-6), BatchNorm statistics {serr:.2e} (limit 1e-4); later losses "
+        f"{later:.2e} (limit 1e-4); parameters after {steps} steps {drift:.2e} of the plain run's "
+        f"movement (information); {statistics.mean(td[1:]):.1f} ms per step (plain "
+        f"{statistics.mean(tp[1:]):.1f}); launches {launches}")
+    if not (lerr < 1e-5 and gerr < 1e-3 and perr < 1e-6 and serr < 1e-4 and later < 1e-4
+            and share <= ReluReplay.MAX_FLIPS and replay.calls == len(record.masks)):
+        fail("train_adamvs_data_parallel (world 1) disagrees with the plain Trainer")
+    stats.append({"path": "train_adamvs_data_parallel", "world": 1, "backend": "nccl",
+                  "ms_per_step": statistics.mean(td[1:]),
+                  "plain_ms_per_step": statistics.mean(tp[1:]), "timed_ms": td,
+                  "launches": launches, "loss_rel_err": lerr, "grad_rel_l2": gerr,
+                  "param_step_err": perr, "bn_err": serr, "later_loss_rel_err": later,
+                  "param_drift_after_steps": drift,
+                  "relu_flips": replay.flips})
+    del record, replay, fd, fp, pd, pp
+
+    # 2. two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+                               str(port), root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=REPO) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"data-parallel rank {r} over gloo exited {p.returncode}: {out[-3000:]}")
+    wall = (time.perf_counter() - t0) * 1e3
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    if len(ranks[0]["masks"]) != len(ranks[1]["masks"]):
+        fail("the two gloo ranks made different numbers of ReLU calls")
+    replay = ReluReplay([torch.cat(pair) for pair in zip(ranks[0].pop("masks"),
+                                                         ranks[1].pop("masks"))])
+    model = _train_model("adamvs", {}, 0, DEV)
+    trainer = trainer_of(model, "single")
+    with replay:
+        one = _dp_result(model, trainer.train_epoch(0, [dp_batch()])["loss"])
+    del model, trainer
+    share = replay.flips / max(sum(m.numel() for m in replay.masks), 1)
+    if replay.calls != len(replay.masks) or share > ReluReplay.MAX_FLIPS:
+        fail(f"one process made {replay.calls} ReLU calls of the ranks' {len(replay.masks)}, "
+             f"{replay.flips} decisions of its own differ")
+    errs = []
+    for r, got in enumerate(ranks):
+        lrel, grel, prel, srel = compare(got, one)
+        errs.append((lrel, grel, prel, srel))
+        log(f"[data_parallel] gloo rank {r} of 2 on one card, 1 step of fused AdaMVS on its "
+            f"half of a 2-sample batch (uneven masks): loss {got['loss']:.6f} against one "
+            f"process's {one['loss']:.6f} (rel {lrel:.2e}, limit 1e-4); gradient rel L2 "
+            f"{grel:.2e} (limit 1e-3); parameters against RMSprop's step {prel:.2e} (limit "
+            f"1e-6); BatchNorm statistics {srel:.2e} (limit 1e-4); launches {got['launches']}")
+        if not (lrel < 1e-4 and grel < 1e-3 and prel < 1e-6 and srel < 1e-4):
+            fail(f"data-parallel rank {r} over gloo disagrees with one process")
+        if {k: n for k, n in got["launches"].items() if n} != per_step:
+            fail(f"data-parallel rank {r}: launches {got['launches']}, expected {per_step}")
+    if not all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in one["state"]):
+        fail("the two gloo ranks' states differ after the step")
+    stats.append({"path": "train_adamvs_data_parallel_gloo2", "world": 2, "backend": "gloo",
+                  "wall_ms": wall, "step_ms_per_rank": [r["step_ms"] for r in ranks],
+                  "launches_per_rank": ranks[0]["launches"],
+                  "loss_rel_err": max(e[0] for e in errs), "grad_rel_l2": max(e[1] for e in errs),
+                  "param_step_err": max(e[2] for e in errs), "bn_err": max(e[3] for e in errs),
+                  "relu_flips": replay.flips})
+    log(f"[data_parallel] gloo 2 ranks: {wall / 1e3:.1f} s for both processes (start-up, the "
+        f"build's libraries loaded, one step of {ranks[0]['step_ms']:.1f} / "
+        f"{ranks[1]['step_ms']:.1f} ms); one process took {replay.flips} of "
+        f"{sum(m.numel() for m in replay.masks)} ReLU decisions from the ranks; the ranks' "
+        f"states are equal")
+    return launches, stats
+
+
 def train_phase_times(state, loss_fn, batch) -> dict:
     """Milliseconds of one more train step's phases, host clock with a
     synchronise after each: the upload of the batch, the forward with the
@@ -2172,6 +2749,9 @@ def kernels_line(res: dict, launches: dict) -> dict:
             "library_ms": sum(libs) if libs else None,
             "max_abs_err_f32": res[k]["err"]["f32"][0],
             "max_rel_err": {t: e[1] for t, e in res[k]["err"].items()},
+            # at the row bands of predict --tiles 4 (phase_bands)
+            "band_max_abs_err": {t[5:]: e[0] for t, e in res[k]["err"].items()
+                                 if t.startswith("band ")} or None,
             "stages": stages,
         })
     return {"kernels": out}
@@ -2326,6 +2906,201 @@ def k5_wrapper_parts(group: str, rounds: int, reps: int) -> None:
             + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items()))
 
 
+def probe_parallel(items=("1", "2", "3", "4", "5")) -> None:
+    """``python3 chip_smoke.py --probe-parallel [item ...]``: the measurements
+    behind the parallel paths' findings (PERF.md §6), information only, no
+    limit; ``items`` picks among:
+
+    1. on the host's CPU, how far 4 row bands (halo 96: 448-row band views)
+       move the depth of fused MS-REDNet and of fused AdaMVS with the cell
+       stepped from their unbanded maps on a 1024x256 frame (seeded random
+       images, the bench geometry, base 8, float32);
+    2. on the host's CPU, one float32 train step of fused AdaMVS on a
+       2-sample 64x128 ``dp_batch`` through the data-parallel path of
+       a one-rank gloo group against the plain step: the gradient's distance
+       with and without the plain step's ReLU decisions replayed, and how
+       many of them the replayed step would have taken otherwise;
+    3. on the card, the float32 AdaMVS scan form on the main paths' request,
+       run twice and in 4 depth blocks with cuDNN's default algorithms: the
+       depth distance per stage; and K6/K7 with a block of hypotheses per
+       call against one hypothesis per call, bitwise;
+    4. fused MS-REDNet (seed 1) unbanded on a 512x256 frame, per stage: the
+       card against the CPU, and the CPU against itself with every weight
+       moved by one float32 step (random signs), beside the largest value of
+       its stage-1 variance volume; then both again with the stage features
+       scaled (``out1``..``out3``) so that this largest value is 1. If the
+       seeded weights' tiny variances, not the port, part card from CPU, the
+       one-step move parts the seeded model as far, and the scaled model's
+       card and CPU maps agree to rounding;
+    5. on the card, the cost of a data-parallel step: fused AdaMVS float32
+       train steps on the training batch (384x768, V=5) through the plain
+       Trainer and through the Trainer over a one-rank nccl data group, one
+       warm-up step each, then ``DP_PAIRS`` pairs in alternating order: the
+       median and quartiles of each one's ms per step."""
+    import torch.distributed as dist
+
+    from adamvs_tpu_torch.kernels import build
+    from adamvs_tpu_torch.models import build_model, model_loss
+    from adamvs_tpu_torch.models import msrednet as msrednet_module
+    from adamvs_tpu_torch.ops import warp_sample as ws
+    from adamvs_tpu_torch.ops.warp import _source_coords, warp_transform
+    from adamvs_tpu_torch.parallel import initialize_distributed, make_mesh
+    from adamvs_tpu_torch.parallel.dryrun import free_port
+    from adamvs_tpu_torch.predict.tiled import tiled_forward
+    from adamvs_tpu_torch.train.loop import make_train_step, to_device
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    phase_device()
+    build.build_all()
+
+    def frame(h, w, seed):
+        rng = np.random.RandomState(seed)
+        imgs = torch.from_numpy(rng.randn(1, V, h, w, 3).astype(np.float32))
+        projs = {k: torch.from_numpy(p[None])
+                 for k, p in bench_projs(h, w, V, FOCAL * h / H).items()}
+        return imgs, projs, torch.tensor([[DMIN, DMAX]])
+
+    # 1. bands against the unbanded map, CPU
+    if "1" in items:
+        imgs, projs, dv = frame(1024, 256, 0)
+        for name, opts in (("msrednet", {"sweep_impl": "fused"}),
+                           ("adamvs", {"sweep_impl": "fused", "reg_impl": "scan"})):
+            model = build_model(name, seed=0, device="cpu", ndepths=NDEPTHS,
+                                depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3, **opts)
+            want = model(imgs, projs, dv, num_depth=NUM_DEPTH)["depth"][0].numpy()
+            got = tiled_forward(model, imgs, projs, dv, TILES, num_depth=NUM_DEPTH, halo=96)[0]
+            err = np.abs(got[0].numpy() - want)
+            log(f"[probe] {name} {opts} 1024x256 CPU, {TILES} bands, halo 96, against the unbanded "
+                f"map: median |Δ| {np.median(err):.4g}, max {err.max():.4g}, "
+                f"{(err < 1e-2).mean():.2%} within 1e-2")
+
+    # 2. the data-parallel step's gradient against the plain one, ReLU decisions replayed or not
+    if "2" in items:
+        batch = to_device(dp_batch(64, 128), torch.device("cpu"))
+        initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="gloo", timeout_s=300)
+        try:
+            group = make_mesh(data=1).data_group
+
+            def grad(g, mode):
+                model = _train_model("adamvs", {}, 0, "cpu")
+                state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+                with mode:
+                    make_train_step(model_loss("adamvs"), DLOSSW, g)(state, batch)
+                return torch.cat([p.grad.flatten() for p in model.parameters()])
+
+            record = ReluReplay()
+            plain = grad(None, record)
+            replay = ReluReplay(record.masks)
+            replayed = grad(group, replay)
+            free = grad(group, contextlib.nullcontext())
+        finally:
+            dist.destroy_process_group()
+        log(f"[probe] fused AdaMVS train step, 2 x 64x128, CPU: the data-parallel path of a one-rank "
+            f"group against the plain step, gradient rel L2 {float((free - plain).norm() / plain.norm()):.3e} "
+            f"unreplayed, {float((replayed - plain).norm() / plain.norm()):.3e} with the plain step's "
+            f"ReLU decisions replayed ({replay.flips} of {sum(m.numel() for m in record.masks)} "
+            f"would have differed)")
+
+    # 3. the scan form's run-to-run distance and the depth blocks, card, default cuDNN
+    if "3" in items:
+        sample = _bench_sample()
+        imgs = torch.from_numpy(sample.imgs[None]).to(DEV)
+        projs = {k: torch.from_numpy(v[None]).to(DEV) for k, v in sample.proj_matrices.items()}
+        dv = torch.from_numpy(sample.depth_values[None]).to(DEV)
+        kw = dict(seed=0, device=DEV, ndepths=NDEPTHS, depth_intervals_ratio=RATIOS, base=BASE,
+                  cr_base=(BASE,) * 3, sweep_impl="scan", reg_impl="scan")
+        plain = build_model("adamvs", **kw)
+        a, b = (plain(imgs, projs, dv, num_depth=NUM_DEPTH) for _ in range(2))
+        c = build_model("adamvs", depth_shards=DEPTH_SHARDS, **kw)(imgs, projs, dv,
+                                                                    num_depth=NUM_DEPTH)
+        for k in ("stage1", "stage2", "stage3"):
+            log(f"[probe] adamvs_scan {H}x{W} float32 {k}: depth max |Δ| between two runs "
+                f"{(a[k]['depth'] - b[k]['depth']).abs().max().item():.3e}, {DEPTH_SHARDS} depth "
+                f"blocks against the first {(c[k]['depth'] - a[k]['depth']).abs().max().item():.3e}")
+        del a, b, c, plain
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        for si, dk in ((0, 12), (1, 8), (2, 2)):
+            st = StageInputs(si, gen)
+            rot, trans = warp_transform(st.src_projs[0], st.ref_proj)
+            d = torch.arange(dk, dtype=torch.float32, device=DEV)
+            hyp = st.lo[:, None] + d[None, :, None, None] * st.step[:, None]
+            block = ws.sample_bilinear(st.srcs[0], *_source_coords(rot, trans, hyp, st.h, st.w))
+            single = torch.cat([ws.sample_bilinear(st.srcs[0], *_source_coords(
+                rot, trans, (st.lo + float(i) * st.step)[:, None], st.h, st.w)) for i in range(dk)],
+                dim=1)
+            log(f"[probe] K6/7 stage{si + 1}, {dk} hypotheses per call against one per call: "
+                f"{'bit-equal' if torch.equal(block, single) else 'differ'}")
+            del st
+
+    # 4. MS-REDNet's seeded weights at 512x256: card against CPU, and the CPU against itself
+    #    with every weight moved by one float32 step; then both again with the stage
+    #    features scaled so that the stage-1 variance volume reaches 1
+    if "4" in items:
+        imgs, projs, dv = frame(512, 256, 2)
+        model = build_model("msrednet", seed=1, device="cpu", ndepths=NDEPTHS, base=BASE,
+                            cr_base=(BASE,) * 3, sweep_impl="fused")
+
+        def by_stage(a, b):
+            return ", ".join(f"{(a[k]['depth'].cpu() - b[k]['depth']).abs().max().item() / (DMAX - DMIN):.3e}"
+                             for k in ("stage1", "stage2", "stage3"))
+
+        for scaled in (False, True):
+            calls = []
+            with torch.no_grad(), _recorded(msrednet_module, "var_sweep_volume", calls):
+                got = copy.deepcopy(model).to(DEV)(
+                    imgs.to(DEV), {k: p.to(DEV) for k, p in projs.items()}, dv.to(DEV),
+                    num_depth=NUM_DEPTH)
+                want = model(imgs, projs, dv, num_depth=NUM_DEPTH)
+                moved = copy.deepcopy(model)
+                signs = torch.Generator().manual_seed(0)
+                for p in moved.parameters():
+                    p.mul_(1 + 2.0 ** -23 * (torch.randint(0, 2, p.shape, generator=signs) * 2 - 1))
+                step = moved(imgs, projs, dv, num_depth=NUM_DEPTH)
+            vmax = calls[0][1].abs().max().item()
+            log(f"[probe] msrednet_fused 512x256 float32{', stage features scaled' if scaled else ''}"
+                f" (stage-1 variance volume up to {vmax:.3e}), depth max |Δ| of the range by stage: "
+                f"card against CPU {by_stage(got, want)}; CPU with every weight moved by one "
+                f"float32 step against CPU {by_stage(step, want)}")
+            with torch.no_grad():  # the stage outputs are 1x1 convolutions without bias
+                for name in ("out1", "out2", "out3"):
+                    getattr(model.feature, name).weight.mul_(vmax ** -0.5)
+
+    # 5. the data-parallel step's cost against the plain step's, alternating, card
+    if "5" in items:
+        from adamvs_tpu_torch.train.loop import Trainer
+
+        batch = train_batch(TRAIN_H, TRAIN_W)
+        root = os.path.join(REPO, "adamvs_tpu_torch", "_build", "chip_smoke_dp_probe")
+        shutil.rmtree(root, ignore_errors=True)
+        initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl", timeout_s=300)
+        try:
+            trainers = {}
+            for label, mesh in (("plain", None), ("data_parallel", make_mesh(data=1))):
+                model = _train_model("adamvs", {}, 0, DEV)
+                state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+                trainers[label] = Trainer(state, model_loss("adamvs"), os.path.join(root, label),
+                                          dlossw=DLOSSW, num_stages=3, ckpt_step_freq=0,
+                                          log_fn=lambda m: None, device=DEV, mesh=mesh)
+            times = {label: [] for label in trainers}
+            for i in range(DP_PAIRS + 1):
+                for label in (("plain", "data_parallel") if i % 2 else ("data_parallel", "plain")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainers[label].train_epoch(0, [batch])
+                    if i:  # step 0 warms up
+                        times[label].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            dist.destroy_process_group()
+        q = {k: statistics.quantiles(v, n=4) for k, v in times.items()}
+        log(f"[probe] fused AdaMVS {TRAIN_H}x{TRAIN_W} float32 train step, {DP_PAIRS} alternating "
+            f"pairs after a warm-up: data-parallel (one-rank nccl group) median "
+            f"{q['data_parallel'][1]:.1f} ms (quartiles {q['data_parallel'][0]:.1f}-"
+            f"{q['data_parallel'][2]:.1f}), plain {q['plain'][1]:.1f} ms (quartiles "
+            f"{q['plain'][0]:.1f}-{q['plain'][2]:.1f})")
+
 def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd"), rounds: int = 3,
            reps: int = 5) -> None:
     """``python3 chip_smoke.py --ablate [group ...]``: the kernels of each
@@ -2439,16 +3214,21 @@ def main() -> None:
     timed(phase_sample_bwd, res)
     timed(phase_edges)
     timed(phase_sweep_windows)
+    timed(phase_bands, res)
     timed(phase_reference)
     timed(phase_train_reference)
     bf16_reference = timed(phase_train_reference_bf16)
     launches, main_stats = timed(phase_main_path)
     train_launches, train_stats = timed(phase_train_paths)
+    tiled_launches, tiled_stats = timed(phase_tiled)
+    shard_launches, shard_stats = timed(phase_depth_shards)
+    dp_launches, dp_stats = timed(phase_data_parallel)
     cli_launches, cli_stats = timed(phase_cli)
     cli_train_launches, cli_train_stats = timed(phase_cli_train)
-    line = kernels_line(res, {k: n + train_launches[k] + cli_launches[k] + cli_train_launches[k]
+    line = kernels_line(res, {k: n + train_launches[k] + tiled_launches[k] + shard_launches[k]
+                              + dp_launches[k] + cli_launches[k] + cli_train_launches[k]
                               for k, n in launches.items()})
-    line["main_path"] = main_stats + train_stats
+    line["main_path"] = main_stats + train_stats + tiled_stats + shard_stats + dp_stats
     line["train_reference_bf16"] = bf16_reference
     line["cli"] = cli_stats + cli_train_stats
     print(smi)
@@ -2459,7 +3239,13 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ablate"]:
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--probe-parallel"]:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: the probes need one GPU")
+        probe_parallel(*([sys.argv[2:]] if sys.argv[2:] else []))
+    elif sys.argv[1:2] == ["--ablate"]:
         if not torch.cuda.is_available():
             fail("no CUDA device: the ablation needs one GPU")
         ablate(*([sys.argv[2:]] if sys.argv[2:] else []))

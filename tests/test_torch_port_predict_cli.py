@@ -2,14 +2,16 @@
 ``PredictEngine.run`` on the same JAX-written tree and the same weights: the
 file layout, the depth and probability maps, the camera text and the
 reference image. Also the feature cache (alone and with ``--predict_batch``)
-against the uncached run, every inference form through the command, and the
-flag combinations the port refuses.
+against the uncached run, every inference form through the command, the
+parallel flags (row bands, one process with ``--distributed``) and the flag
+combinations the port refuses.
 
 The JAX side runs its exact scan form. The port's ``--sweep_impl fused
 --reg_impl scan`` is held to it too: the JAX fused sweep contracts its bands
 in bf16, the port's sweep samples exactly, as the scan form does."""
 
 import os
+import re
 
 import jax
 import numpy as np
@@ -135,22 +137,35 @@ def test_cli_runs_every_form(case, tmp_path, flags):
             assert d.min() > 0 and d.max() <= 1, rel
 
 
-@pytest.mark.parametrize("flags,item", [
-    # AdaMVS precomp and pallas2bf16 on a float32 model run (tests/test_torch_port_flags.py);
-    # row bands and several hosts do not
-    (("--sweep_impl", "fused", "--reg_impl", "precomp", "--tiles", "2"), "parallel paths"),
-    # MS-REDNet precomp runs (tests/test_torch_port_precomp.py); row bands do not
+@pytest.mark.parametrize("flags,expect", [
+    # row bands take the scan regulariser: the JAX engine packs none for a tile mesh, so
+    # its model raises for the packed forms (adamvs_tpu/predict/engine.py:135)
+    (("--sweep_impl", "fused", "--reg_impl", "precomp", "--tiles", "2"), "reg_impl='precomp'"),
     (("--model", "msrednet", "--sweep_impl", "fused", "--reg_impl", "precomp", "--tiles", "2"),
-     "parallel paths"),
-    (("--warp_impl", "pallas2bf16", "--distributed"), "parallel paths"),
-    (("--tiles", "2"), "parallel paths"),
-    (("--distributed",), "parallel paths"),
+     "reg_impl='precomp'"),
+    # --distributed without a coordinator runs as one process
+    (("--warp_impl", "pallas2bf16", "--distributed"), None),
+    (("--tiles", "2"), None),
+    (("--distributed",), None),
 ], ids=["adamvs_precomp", "msrednet_precomp", "pallas2bf16_f32", "tiles", "distributed"])
-def test_unported_flags_raise_naming_their_roadmap_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1") as err:
-        main(["predict", "--data_folder", str(tmp_path), "--output_folder", str(tmp_path),
-              "--device", "cpu", *flags])
-    assert item in str(err.value)
+def test_unported_flags_raise_naming_their_roadmap_item(case, tmp_path, flags, expect):
+    """The parallel flags the port once refused: row bands with a packed
+    regulariser raise JAX's ValueError; ``--tiles 2`` (bands of the padded
+    64-row frames, each spanning it) and ``--distributed`` with no
+    coordinator write what the command writes without them."""
+    if expect is not None:
+        with pytest.raises(ValueError, match=re.escape(expect)):
+            main(["predict", "--data_folder", str(tmp_path), "--output_folder", str(tmp_path),
+                  "--device", "cpu", *flags])
+        return
+    name = "_".join(f.strip("-") for f in flags)
+    out, _ = _run(case, "par_" + name, "--display", "false", *flags)
+    plain = [f for f in flags if f not in ("--distributed", "--tiles", "2")]
+    want, _ = _run(case, "par_plain_" + name, "--display", "false", *plain)
+    got, want = _depths(out), _depths(want)
+    assert got.keys() == want.keys() and len(got) == 8
+    for rel, w in want.items():
+        np.testing.assert_array_equal(got[rel], w, err_msg=rel)
 
 
 @pytest.mark.parametrize("flags", [

@@ -12,8 +12,8 @@ tests/test_e2e.py, on a WHU_OMVS tree the JAX writer wrote:
 - ``profile`` writes a trace;
 - the eval step's metrics on the trained weights against JAX
   ``make_eval_step`` on the same batch and weights;
-- MS-REDNet trains through the command too; the flags the port does not
-  take raise, naming their ROADMAP item."""
+- MS-REDNet trains through the command too; the parallel flags run as one
+  process, or raise where a data group needs more ranks than there are."""
 
 import json
 import os
@@ -201,17 +201,30 @@ def test_msrednet_trains_through_the_command(tmp_path, synthetic_scene):
     assert [r["kind"] for r in recs] == ["val"] and np.isfinite(recs[0]["abs_depth_error"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["train", "--data_parallel", "2"], "parallel paths"),
-    (["train", "--distributed"], "parallel paths"),
-    # bf16 training runs (tests/test_torch_port_bf16_train.py); data parallelism does not
-    (["train", "--compute_dtype", "bf16", "--data_parallel", "2"], "parallel paths"),
-    (["test", "--distributed"], "parallel paths"),
+@pytest.mark.parametrize("argv,expect", [
+    (["train", "--data_parallel", "2"], "the world has 1 rank"),
+    # --distributed without a coordinator runs as one process
+    (["train", "--distributed", "--epochs", "1", "--num_workers", "1"], None),
+    # bf16 training runs (tests/test_torch_port_bf16_train.py); a data group of 2 needs 2 ranks
+    (["train", "--compute_dtype", "bf16", "--data_parallel", "2"], "the world has 1 rank"),
+    (["test", "--distributed"], None),
 ], ids=["data_parallel", "distributed", "bf16", "test_distributed"])
-def test_unported_train_flags_raise(tmp_path, synthetic_scene, argv, item):
+def test_unported_train_flags_raise(tmp_path, synthetic_scene, argv, expect):
+    """The parallel flags the port once refused: a data group of 2 in a lone
+    process raises, naming the world size (JAX's mesh over one device does
+    too); ``train`` and ``test`` with ``--distributed`` and no coordinator
+    run as one process."""
     tree = str(tmp_path / "whu")
     write_whu_omvs_tree(tree, synthetic_scene)
     path = ["--trainpath", tree] if argv[0] == "train" else ["--testpath", tree]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1") as err:
-        main(argv[:1] + TINY + path + ["--logdir", str(tmp_path / "l")] + argv[1:])
-    assert item in str(err.value)
+    cmd = argv[:1] + TINY + path + ["--logdir", str(tmp_path / "l")] + argv[1:]
+    if expect is not None:
+        with pytest.raises(ValueError, match=expect):
+            main(cmd)
+        return
+    got = main(cmd)
+    if argv[0] == "train":
+        assert got.state.step == 4 and got.state.nan_steps == 0 and got.is_primary
+        assert any(n.endswith(".ckpt") for n in os.listdir(tmp_path / "l"))
+    else:
+        assert np.isfinite(got["abs_depth_error"])
