@@ -17,7 +17,9 @@ Inference computes what the JAX model's inference branches compute
 - ``sweep_impl="scan"``, ``reg_impl="scan"`` (the JAX CLI's default,
   ``correlation_volume`` and ``_AdaFuseStreamCell``): stage 1's correlation
   in depth blocks and every stage's per-hypothesis visibility-weighted mean
-  sample the sources through K6/K7 (``ops/warp_sample.py``); each hypothesis
+  sample the sources through K6/K7 (``ops/warp_sample.py``), all source views
+  of a block or hypothesis in one call (``correlation_volumes``,
+  ``fused_slice``); each hypothesis
   takes one cell step and one online-softmax update, and no [D,...] volume
   is held.
 
@@ -87,8 +89,8 @@ from ..ops.sweep_fuse import (
     fused_sweep_volume,
     fused_sweep_volume_t,
 )
-from ..ops.warp import _source_coords, warp_transform
-from ..ops.warp_sample import plane_sweep_warp_sampled, sample_bilinear
+from ..ops.warp import view_transforms
+from ..ops.warp_sample import sample_views
 from ..parallel.mesh import run_blocks
 
 # cost up-sampling by stage: stages 1 and 2 emit at 2x, stage 3 does not
@@ -171,50 +173,58 @@ def stage_views(feat, B: int, V: int, dtype: torch.dtype) -> tuple:
     return f[:, 0].contiguous(), f[:, 1:].transpose(0, 1).contiguous()
 
 
-def correlation_volume(ref_feat: torch.Tensor, src_feat: torch.Tensor, src_proj: torch.Tensor,
-                       ref_proj: torch.Tensor, hyp: torch.Tensor,
-                       block: int = CORR_BLOCK) -> torch.Tensor:
-    """Channel-mean correlation volume [B,h,w,D] of ``ref_feat`` [B,h,w,C]
-    against ``src_feat`` [B,h,w,C] warped to the fronto-parallel planes
-    ``hyp`` [B,D], built ``block`` hypotheses at a time (one K6/K7 launch
-    each) so the [B,D,h,w,C] warp never exists at full D; float32. The
-    samples come in the dtype of ``ref_feat`` (``src_feat`` may be held in
-    another, ``AdaMVS.sample_dtype``)."""
-    B, h, w, _ = ref_feat.shape
+def correlation_volumes(ref_feat: torch.Tensor, srcs: torch.Tensor, transforms: tuple,
+                        hyp: torch.Tensor, block: int = CORR_BLOCK) -> torch.Tensor:
+    """Channel-mean correlation volumes [Vs,B,D,h,w] of ``ref_feat`` [B,h,w,C]
+    against each source of ``srcs`` [Vs,B,H,W,C] warped to the
+    fronto-parallel planes ``hyp`` [B,D] with its (rot, trans) of
+    ``transforms`` (``view_transforms``), built ``block`` hypotheses at a time:
+    one K6/K7 launch per block samples every view, so the [B,D,h,w,C] warp
+    never exists at full D; float32. The samples come in the dtype of
+    ``ref_feat`` (``srcs`` may be held in another, ``AdaMVS.sample_dtype``)."""
+    h, w = ref_feat.shape[1:3]
     D = hyp.shape[1]
     if D % block != 0:
         block = D
-    ref = ref_feat.float()[:, None]
-    out = [(ref * plane_sweep_warp_sampled(src_feat, src_proj, ref_proj, hyp[:, d0:d0 + block],
-                                            grid_hw=(h, w), out_dtype=ref_feat.dtype).float()
-            ).mean(dim=-1)
-           for d0 in range(0, D, block)]  # [B,block,h,w] each
-    return torch.cat(out, dim=1).permute(0, 2, 3, 1)
+    ref = ref_feat.float()[None, :, None]  # [1,B,1,h,w,C]
+    out = [(ref * sample_views(srcs, transforms, hyp[:, d0:d0 + block], (h, w),
+                               ref_feat.dtype).float()).mean(dim=-1)
+           for d0 in range(0, D, block)]  # [Vs,B,block,h,w] each
+    return torch.cat(out, dim=2)
 
 
-def fused_slice(ref: torch.Tensor, srcs: torch.Tensor, transforms: list, weights: torch.Tensor,
+def correlation_volume(ref_feat: torch.Tensor, src_feat: torch.Tensor, src_proj: torch.Tensor,
+                       ref_proj: torch.Tensor, hyp: torch.Tensor,
+                       block: int = CORR_BLOCK) -> torch.Tensor:
+    """``correlation_volumes`` of one source view ``src_feat`` [B,H,W,C] as
+    [B,h,w,D], the JAX ``correlation_volume``'s layout."""
+    vol = correlation_volumes(ref_feat, src_feat[None], view_transforms(src_proj[None], ref_proj),
+                              hyp, block)
+    return vol[0].permute(0, 2, 3, 1)
+
+
+def fused_slice(ref: torch.Tensor, srcs: torch.Tensor, transforms: tuple, weights: torch.Tensor,
                 hyp: torch.Tensor) -> torch.Tensor:
     """The scan form's visibility-weighted mean at the hypothesis maps ``hyp``
     [B,Dk,h,w] (``_AdaFuseStreamCell``): ``sum_v ref * warped_v * w_v / (1e-5
-    + sum_v w_v)`` over the sources ``srcs`` [Vs,B,H,W,C], each sampled at all
-    Dk maps in one K6/K7 call with its ``warp_transform`` (rot, trans) from
-    ``transforms``; ``weights`` [B,Vs,h,w]. The samples come in the dtype of
-    ``ref`` [B,h,w,C] (``srcs`` may be held in another,
+    + sum_v w_v)`` over the sources ``srcs`` [Vs,B,H,W,C], all sampled at all
+    Dk maps in one K6/K7 call with the stacked (rot, trans) ``transforms``
+    (``view_transforms``); ``weights`` [B,Vs,h,w]. The samples come in the
+    dtype of ``ref`` [B,h,w,C] (``srcs`` may be held in another,
     ``AdaMVS.sample_dtype``). Float32 [B,Dk,h,w,C]."""
-    h, w = hyp.shape[2:]
+    warped = sample_views(srcs, transforms, hyp, hyp.shape[2:], ref.dtype)
     ref32 = ref.float()[:, None]
     vsum = wsum = None
-    for v, (rot, trans) in enumerate(transforms):
-        u, vv = _source_coords(rot, trans, hyp.detach(), h, w)
-        warped = sample_bilinear(srcs[v], u, vv, out_dtype=ref.dtype).float()
+    # unbind, whose backward is one stack: no per-view zero-filled gradient
+    for v, warped_v in enumerate(warped.unbind(0)):
         w_v = weights[:, v, None, :, :, None].float()
-        term = ref32 * warped * w_v
+        term = ref32 * warped_v.float() * w_v
         vsum = term if vsum is None else vsum + term
         wsum = 1e-5 + w_v if wsum is None else wsum + w_v
     return vsum / wsum
 
 
-def depth_block_fuse(ref, srcs, transforms: list, weights, lo, step, D: int, block: int,
+def depth_block_fuse(ref, srcs, transforms: tuple, weights, lo, step, D: int, block: int,
                      count: int, up: bool) -> tuple:
     """Depth block ``block`` of ``count`` of the depth-sharded sweep (JAX
     ``_depth_sharded_fuse``'s ``fuse_block``, adamvs_tpu/models/adamvs.py:
@@ -397,6 +407,8 @@ class AdaMVS(nn.Module):
             srcs_w = srcs.to(self.sample_dtype) if scan and self.sample_dtype else srcs
             projs = proj_matrices[key].float()
             ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
+            # the scan forms' per-view transforms, once per stage
+            transforms = view_transforms(src_projs, ref_proj) if scan else None
 
             pair_results: tuple = ()
             if si == 0:
@@ -404,10 +416,7 @@ class AdaMVS(nn.Module):
                 step = ((dmax - dmin) / (D - 1))[:, None, None].expand(B, h, w).contiguous()
                 hyp0 = uniform_depth_samples(torch.stack([dmin, dmax], dim=1), D)  # [B,D]
                 if scan:
-                    corr = torch.stack([
-                        correlation_volume(ref, srcs_w[v], src_projs[v], ref_proj, hyp0,
-                                           CORR_BLOCK).permute(0, 3, 1, 2)
-                        for v in range(Vs)]).to(dtype)
+                    corr = correlation_volumes(ref, srcs_w, transforms, hyp0, CORR_BLOCK).to(dtype)
                 else:
                     corr = corr_fn(ref, srcs, src_projs, ref_proj, lo, step, D).to(dtype)
                 if train:  # per view, so BatchNorm takes each view's batch statistics
@@ -430,11 +439,10 @@ class AdaMVS(nn.Module):
 
             cell = net.reg_fuse
             if sharded:
-                depth, conf = self._sharded_stage(cell, ref, srcs_w, src_projs, ref_proj,
-                                                  weights, lo, step, D, train)
+                depth, conf = self._sharded_stage(cell, ref, srcs_w, transforms, weights, lo, step,
+                                                  D, train)
             elif scan:
-                depth, conf = self._scan_stage(cell, ref, srcs_w, src_projs, ref_proj, weights,
-                                               lo, step, D)
+                depth, conf = self._scan_stage(cell, ref, srcs_w, transforms, weights, lo, step, D)
             else:
                 fused = fused_fn(ref, srcs, weights, src_projs, ref_proj, lo, step, D)
                 if train or self.reg_impl == "pallas":
@@ -487,7 +495,7 @@ class AdaMVS(nn.Module):
         return cls._cell_sweep(cell, D, lambda d: (fused[d], lo_acc + float(d) * step_acc),
                                B, h, w, fused.dtype, fused.device)
 
-    def _sharded_stage(self, cell: AdaRedCell, ref, srcs, src_projs, ref_proj, weights, lo,
+    def _sharded_stage(self, cell: AdaRedCell, ref, srcs, transforms: tuple, weights, lo,
                        step, D: int, train: bool):
         """``depth_shards`` > 1: the fused slices of all D hypotheses from
         ``depth_block_fuse`` by block (in this process, or one block per
@@ -500,7 +508,6 @@ class AdaMVS(nn.Module):
             raise ValueError("a depth_group gathers the depth blocks without a gradient: "
                              "train a depth-sharded model in one process")
         B, h, w, _ = ref.shape
-        transforms = [warp_transform(src_projs[v], ref_proj) for v in range(srcs.shape[0])]
         blocks = run_blocks(
             lambda b: depth_block_fuse(ref, srcs, transforms, weights, lo, step, D, b, count,
                                        cell.up), count, self.depth_group)
@@ -511,7 +518,7 @@ class AdaMVS(nn.Module):
                                 hyp_acc[d]), B, h, w, ref.dtype, ref.device)
 
     @classmethod
-    def _scan_stage(cls, cell: AdaRedCell, ref, srcs, src_projs, ref_proj, weights, lo, step,
+    def _scan_stage(cls, cell: AdaRedCell, ref, srcs, transforms: tuple, weights, lo, step,
                     D: int):
         """``sweep_impl="scan"``: per hypothesis ``lo + d·step``, the sources
         sampled through K6/K7 into the visibility-weighted mean
@@ -520,11 +527,10 @@ class AdaMVS(nn.Module):
         ``_AdaFuseStreamCell``)."""
         B, h, w, _ = ref.shape
         oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
-        transforms = [warp_transform(src_projs[v], ref_proj) for v in range(srcs.shape[0])]
 
         def slice_at(d):
             hyp = lo + float(d) * step
-            x = fused_slice(ref, srcs, transforms, weights, hyp[:, None])[:, 0]
+            x = fused_slice(ref, srcs, transforms, weights, hyp[:, None]).squeeze(1)
             return x.to(ref.dtype).permute(0, 3, 1, 2).contiguous(), resize_bilinear(hyp, oh, ow)
 
         return cls._cell_sweep(cell, D, slice_at, B, h, w, ref.dtype, ref.device)

@@ -16,8 +16,9 @@ Two forms build the variance:
 
 - ``sweep_impl="fused"`` (the JAX bench's form, ``_RedIdxStreamCell``): kernel
   K4 builds the whole [D,B,C,h,w] volume in one launch per stage;
-- ``sweep_impl="scan"`` (``_RedStreamCell``): per hypothesis and source view,
-  the warp samples through kernel K6/K7, and ``s``/``sq`` accumulate in
+- ``sweep_impl="scan"`` (``_RedStreamCell``): per hypothesis, the warp of
+  every source view samples through kernel K6/K7 in one call (the views in
+  the batch axis), and ``s``/``sq`` accumulate in
   float32. The JAX scan form accumulates them in the model dtype: in float32
   the two agree; in bf16 this form is the more exact.
 
@@ -71,7 +72,8 @@ from ..ops.regression import (
 )
 from ..ops.sampling import window_min_and_interval
 from ..ops.sweep_fuse import var_sweep_volume, var_sweep_volume_t
-from ..ops.warp_sample import plane_sweep_warp_sampled
+from ..ops.warp import view_transforms
+from ..ops.warp_sample import sample_views
 from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features, stage_views
 
 REG_IMPLS = ("scan", "precomp")
@@ -79,20 +81,22 @@ REG_IMPLS = ("scan", "precomp")
 PRECOMP_CHUNK = 8
 
 
-def variance_slice(ref, srcs, src_projs, ref_proj, hyp) -> torch.Tensor:
+def variance_slice(ref, srcs, transforms: tuple, hyp) -> torch.Tensor:
     """The scan form's variance at one hypothesis ``hyp`` [B,h,w]: ref
-    [B,h,w,C] and the Vs sources warped through K6/K7 (sampled into the
-    dtype of ``ref``; ``srcs`` may be held in another), summed in float32;
-    returns [B,C,h,w] in the dtype of ``ref``."""
+    [B,h,w,C] and the Vs sources ``srcs`` [Vs,B,H,W,C], all warped in one
+    K6/K7 call with the stacked (rot, trans) ``transforms``
+    (``ops/warp.py::view_transforms``; sampled into the dtype of ``ref``,
+    ``srcs`` may be held in another), summed in float32; returns [B,C,h,w]
+    in the dtype of ``ref``."""
+    warped = sample_views(srcs, transforms, hyp[:, None], ref.shape[1:3], ref.dtype)
     nv = srcs.shape[0] + 1
     s = ref.float()
     sq = s * s
-    for v in range(srcs.shape[0]):
-        warped = plane_sweep_warp_sampled(srcs[v], src_projs[v], ref_proj, hyp[:, None],
-                                          out_dtype=ref.dtype)[:, 0]
-        warped = warped.float()
-        s = s + warped
-        sq = sq + warped * warped
+    # unbind, whose backward is one stack: no per-view zero-filled gradient
+    for x in warped.squeeze(2).unbind(0):
+        x = x.float()
+        s = s + x
+        sq = sq + x * x
     m = s / nv
     return (sq / nv - m * m).to(ref.dtype).permute(0, 3, 1, 2).contiguous()
 
@@ -255,6 +259,9 @@ class MSREDNet(nn.Module):
                 srcs = srcs.to(self.sample_dtype)  # once per stage (JAX prepare_warp_sources)
             projs = proj_matrices[key].float()
             ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
+            # the scan form's per-view transforms, once per stage
+            transforms = (view_transforms(src_projs, ref_proj) if self.sweep_impl == "scan"
+                          else None)
             if prev_depth is None:
                 lo = dmin[:, None, None].expand(B, h, w).contiguous()
                 step = ((dmax - dmin) / (D - 1))[:, None, None].expand(B, h, w).contiguous()
@@ -276,8 +283,7 @@ class MSREDNet(nn.Module):
                 acc = online_softmax_init((B, h, w), device=device)
                 for d in range(D):
                     hyp = lo + float(d) * step
-                    x = vol[d] if vol is not None else variance_slice(
-                        ref, srcs, src_projs, ref_proj, hyp)
+                    x = vol[d] if vol is not None else variance_slice(ref, srcs, transforms, hyp)
                     state, cost = cell(state, x)
                     acc = online_softmax_update(acc, cost[:, 0].float(), hyp)
                 depth, conf = online_softmax_finalize(acc)

@@ -24,6 +24,16 @@ def warp_transform(src_proj: torch.Tensor, ref_proj: torch.Tensor):
     return proj[..., :3, :3], proj[..., :3, 3]
 
 
+def view_transforms(src_projs: torch.Tensor, ref_proj: torch.Tensor):
+    """The ``warp_transform`` of each source view, stacked in the batch axis:
+    rot [Vs·B,3,3] and trans [Vs·B,3] (row v·B + b) for ``src_projs``
+    [Vs,B,4,4] and ``ref_proj`` [B,4,4], each view's the same matrix as its
+    own call gives. The scan forms compute them once per stage and sample
+    every view of a hypothesis slice in one call."""
+    rots, trans = zip(*(warp_transform(p, ref_proj) for p in src_projs))
+    return torch.cat(rots), torch.cat(trans)
+
+
 def _source_coords(rot, trans, depth, height: int, width: int):
     """(u, v) source pixel coordinates, each [B,D,H,W]. ``depth`` is [B,D]
     (fronto-parallel planes) or [B,D,H,W]."""

@@ -34,7 +34,7 @@ import functools
 import torch
 
 from ..kernels import build
-from .warp import bilinear_sample, pad_channels, sweep_coords
+from .warp import _source_coords, bilinear_sample, pad_channels, sweep_coords
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's forms by (feature dtype, output dtype)
@@ -83,7 +83,7 @@ def _entry():
 @functools.cache
 def _bwd_entry():
     lib = build.load_library("bilinear_sample")
-    return lib, build.bind(lib, "adamvs_bilinear_sample_bwd", n_ptr=4, n_int=8)
+    return lib, build.bind(lib, "adamvs_bilinear_sample_bwd", n_ptr=5, n_int=8)
 
 
 def _check_coords(B: int, u: torch.Tensor, v: torch.Tensor, device) -> None:
@@ -123,12 +123,17 @@ def _launch(feat: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 
 def sample_bilinear_bwd(dout: torch.Tensor, u: torch.Tensor, v: torch.Tensor, H: int,
-                        W: int) -> torch.Tensor:
+                        W: int, stats: torch.Tensor | None = None) -> torch.Tensor:
     """K6/K7-bwd: the gradient [B,H,W,C] of ``sample_bilinear`` with respect
     to its features, in the dtype of ``dout`` [B,N,h,w,C] (see
-    ``sample_bilinear_bwd_ref``). The kernel sums into a zeroed float32 map
-    with atomics; a ``dout`` that is no multiple of 8 channels wide is
-    zero-padded and the padding's gradient dropped."""
+    ``sample_bilinear_bwd_ref``). The kernel sums into a zeroed float32 map:
+    with N = 1 through a box of the source in shared memory per tile of
+    samples, with N > 1 by walking each pixel's hypotheses
+    (``csrc/bilinear_sample.cu``). A ``dout`` that is no multiple of 8
+    channels wide is zero-padded and the padding's gradient dropped.
+    ``stats`` (int32 [2] on the card, or None) gets the kernel's counts: with
+    N = 1 the tiles that reached the image and those whose box exceeded
+    shared memory; with N > 1 the samples walked and the held taps flushed."""
     if dout.device.type == "cpu":
         return sample_bilinear_bwd_ref(dout, u, v, H, W)
     if dout.device.type != "cuda":
@@ -140,12 +145,18 @@ def sample_bilinear_bwd(dout: torch.Tensor, u: torch.Tensor, v: torch.Tensor, H:
     _check_coords(B, u, v, dout.device)
     if u.shape[1:] != (N, h, w):
         raise ValueError(f"u {tuple(u.shape)} does not match dout {tuple(dout.shape)}")
+    if stats is not None and (stats.dtype != torch.int32 or tuple(stats.shape) != (2,)
+                              or stats.device != dout.device):
+        raise ValueError(f"stats must be int32 [2] on {dout.device}")
     Cp = sample_width(C)
     dout = pad_channels(dout.contiguous(), Cp)
+    if dout.data_ptr() % 16:
+        raise ValueError("dout must be 16-byte aligned (its rows are read as 16-byte vectors)")
     dfeat = torch.zeros((B, H, W, Cp), dtype=torch.float32, device=dout.device)
     lib, fn = _bwd_entry()
     err = fn(_DTYPE_CODE[dout.dtype], B, N, h, w, H, W, Cp, dout.data_ptr(), u.data_ptr(),
-             v.data_ptr(), dfeat.data_ptr(), torch.cuda.current_stream(dout.device).cuda_stream)
+             v.data_ptr(), dfeat.data_ptr(), 0 if stats is None else stats.data_ptr(),
+             torch.cuda.current_stream(dout.device).cuda_stream)
     build.check(lib, err, "sample_bilinear_bwd")
     sample_bilinear_bwd.launches += 1
     dfeat = dfeat if Cp == C else dfeat[..., :C]
@@ -198,3 +209,18 @@ def plane_sweep_warp_sampled(src, src_proj, ref_proj, depth, grid_hw=None,
     feature dtype unless given."""
     return sample_bilinear(src, *sweep_coords(src, src_proj, ref_proj, depth, grid_hw),
                            out_dtype=out_dtype)
+
+
+def sample_views(srcs: torch.Tensor, transforms: tuple, depth: torch.Tensor, grid_hw: tuple,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Every source view of ``srcs`` [Vs,B,H,W,C] warped to the reference
+    grid ``grid_hw`` at ``depth`` ([B,D] planes or [B,D,h,w] maps) in one
+    K6/K7 call, the views in the batch axis, with their stacked (rot, trans)
+    ``transforms`` (``ops/warp.py::view_transforms``): [Vs,B,D,h,w,C] in
+    ``out_dtype``, the sources' dtype unless given. A view of the call's
+    output, so that ``unbind(0)`` hands the views out and their gradients
+    back as one stack."""
+    Vs, B = srcs.shape[:2]
+    depth = depth.detach().float()
+    u, v = _source_coords(*transforms, depth.repeat((Vs,) + (1,) * (depth.ndim - 1)), *grid_hw)
+    return sample_bilinear(srcs.flatten(0, 1), u, v, out_dtype=out_dtype).unflatten(0, (Vs, B))

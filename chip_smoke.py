@@ -24,7 +24,8 @@ Phases, in order; any failure exits nonzero:
    model), compared and timed per scan map; for K3
    its TFLOP/s, the bytes its phases move, the card's time in each phase (a
    trace) and its bf16 error against the float32 plain version
-   (information); then K5, the backward of the sweeps in its three modes
+   (information); K3's float32 form at the eval step's shapes (384x768
+   crop); then K5, the backward of the sweeps in its three modes
    (corr, fused, var), against the autograd VJP of the plain volumes at the
    training stage shapes (384x768 crop), float32 and bfloat16, timed in
    both with the forward's geometry handed in, as the training forms
@@ -35,8 +36,11 @@ Phases, in order; any failure exits nonzero:
    they take by padding or channel groups (C 1, 2, 4, 64, 128) and the
    sampler and its backward at C 1, 3, 4, 12, 64, 128, float32 and bfloat16
    (the backward also through the autograd Function, from a strided view),
-   and its bf16-in, float32-out form with its gradient there,
-   and K3 at every
+   and its bf16-in, float32-out form with its gradient there; K6/K7-bwd's
+   in-kernel paths (a magnifying warp, a footprint past the shared box,
+   samples behind the camera and outside the image, walks on one tap set
+   and across taps) at B 2 with Vs 4, C 8/12/32, float32 and bfloat16,
+   with the kernel's own counts; and K3 at every
    input width, base, head kind, D 1 and 5, 38x54 and 6x10, float32 and
    bfloat16; K2, K4, K5-fused and K5-var in float32 and bfloat16 under a
    blocky hypothesis window and where their source windows exceed shared
@@ -45,8 +49,9 @@ Phases, in order; any failure exits nonzero:
    share of windows gathered directly and their times under rotated views
    and a blocky window as information; K6/K7-bwd, the sampler's gradient,
    against its plain version (relative L2) at the training stage shapes of
-   the scan form (96x192 C32 with 16 and 1 hypotheses per call, 192x384
-   C16, 384x768 C8), float32 and bfloat16, with one train step's calls
+   the scan form (all 4 source views a call: 96x192 C32 with 16 and 1
+   hypotheses per call, 192x384 C16, 384x768 C8), float32 and bfloat16,
+   with one train step's calls
    timed on the card, alone, by CUDA events and under autograd, beside the
    bound and the input gradient of F.grid_sample; then K1, K2, K4 and K6/K7
    at the shapes of ``predict --tiles 4`` (band 1 of 4, halo 256: 1216 of
@@ -70,25 +75,26 @@ Phases, in order; any failure exits nonzero:
    MS-REDNet in its fused form and with the precomp regulariser (3 requests
    each: K4 3 per map; its recurrence timed per stage beside the stepped
    one, which the fused path times with the layers around it) and in its scan
-   form (2 requests: the sampler 4 x (48+32+8) = 352 per map), and in
-   float32 on AdaMVS in its scan form, the predict CLI's default (2
-   requests: the sampler 352 + 12 for stage 1's correlation blocks); AdaMVS
+   form (2 requests: the sampler 48+32+8 = 88 per map, each call all 4
+   source views), and in float32 on AdaMVS in its scan form, the predict
+   CLI's default (2 requests: the sampler 88 + 3 for stage 1's correlation
+   blocks); AdaMVS
    with reg_impl="precomp" (3 requests) and with the cell stepped (2), bf16,
    K1 1 and K2 3 per map; the AdaMVS scan form in float32 with
    warp_impl="pallas2bf16" (2 requests: the sampler's bf16-in, float32-out
-   form 364 per map); the first request of each is a warm-up; outputs must be finite with confidence in
+   form 91 per map); the first request of each is a warm-up; outputs must be finite with confidence in
    (0, 1]; one more request, after the counts are read, is traced with
    torch.profiler for the card's busy time; then each model's layers are
    timed alone. Then the Trainer on the bench's training batch (384x768,
    V=5, float32) for AdaMVS (per train step K1 1, K2 3, K5-corr 1, K5-fused
    3) and MS-REDNet (K4 3, K5-var 3), and for both in the scan form (K6/K7
-   and K6/K7-bwd 364 per AdaMVS step, 352 per MS-REDNet step); then the
+   and K6/K7-bwd 91 per AdaMVS step, 88 per MS-REDNet step); then the
    same four in bf16 with float32 master weights (bench.py --mode train's
    defaults for the fused forms; the MS-REDNet scan form times 3 steps): a
    warm-up and 5 timed steps with finite losses and no skipped update,
    parameters and BatchNorm statistics moved, parameters and optimizer
    state still float32, one eval_epoch (AdaMVS: K1 1, K2 3, K3 3;
-   MS-REDNet: K4 3; the scan forms K6/K7 364 and 352), and one more traced
+   MS-REDNet: K4 3; the scan forms K6/K7 91 and 88), and one more traced
    step for the card's busy time and its top kernels; then one step timed
    by phase (upload, forward, backward, update); then the parallel paths:
    ``predict --tiles 4`` through PredictEngine for the AdaMVS scan form
@@ -118,11 +124,11 @@ Phases, in order; any failure exits nonzero:
 7. the kernels line (JSON; launches summed over phases 5 and 6), the card
    line, and the final JSON line.
 
-``python3 chip_smoke.py --ablate [sweep_fuse] [sweep_bwd] [corr] [corr_bwd]``
+``python3 chip_smoke.py --ablate [sweep_fuse] [sweep_bwd] [corr] [corr_bwd] [sample_bwd]``
 instead times K2 and K4 (csrc/sweep_fuse.cu), K5-fused and K5-var
-(csrc/sweep_bwd.cu), K1 (csrc/sweep_fuse.cu) and K5-corr (csrc/sweep_bwd.cu)
-at their stage shapes as built and with parts of their work left out
-(``ablate``). ``python3 chip_smoke.py --probe-parallel [1] [2] [3] [4] [5]``
+(csrc/sweep_bwd.cu), K1 (csrc/sweep_fuse.cu), K5-corr (csrc/sweep_bwd.cu)
+and K6/K7-bwd (csrc/bilinear_sample.cu) at their stage shapes as built and
+with parts of their work left out or their tiles reshaped (``ablate``). ``python3 chip_smoke.py --probe-parallel [1] [2] [3] [4] [5]``
 instead measures what the parallel paths' checks and costs rest on
 (``probe_parallel``).
 """
@@ -209,17 +215,20 @@ REPLACES = {
                  "adamvs_tpu/ops/warp.py:134"),
 }
 # stage 1 of the AdaMVS scan form samples its correlation volume in blocks of 16
-# hypotheses, one sampler launch per block and source view
-CORR_BLOCKS = (V - 1) * NDEPTHS[0] // 16
+# hypotheses, one sampler launch per block for all source views
+CORR_BLOCKS = NDEPTHS[0] // 16
+# per depth map and train step of the scan forms: every sampler call (one per hypothesis
+# slice, every source view in the batch axis) and its backward
+SCAN_STEP = {"adamvs": sum(NDEPTHS) + CORR_BLOCKS, "msrednet": sum(NDEPTHS)}
 # (path, model, model options, requests, launches per depth map)
 PATHS = (
     ("adamvs", "adamvs", {}, 3, {"K1": 1, "K2": 3, "K3": 3}),
     ("msrednet_fused", "msrednet", {"sweep_impl": "fused"}, 3, {"K4": 3}),
     ("msrednet_precomp", "msrednet", {"sweep_impl": "fused", "reg_impl": "precomp"}, 3,
      {"K4": 3}),
-    ("msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 2, {"K6/7": (V - 1) * sum(NDEPTHS)}),
+    ("msrednet_scan", "msrednet", {"sweep_impl": "scan"}, 2, {"K6/7": SCAN_STEP["msrednet"]}),
     ("adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"}, 2,
-     {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
+     {"K6/7": SCAN_STEP["adamvs"]}),
     # AdaMVS reg_impl="precomp", beside the fused form with K3 (adamvs) and with the cell
     # stepped (adamvs_fused_regscan), bf16
     ("adamvs_precomp", "adamvs", {"sweep_impl": "fused", "reg_impl": "precomp"}, 3,
@@ -230,7 +239,7 @@ PATHS = (
     # bf16 and sampled into float32 (K6/K7's bf16-in, float32-out form)
     ("adamvs_scan_pallas2bf16", "adamvs",
      {"sweep_impl": "scan", "reg_impl": "scan", "sample_dtype": torch.bfloat16}, 2,
-     {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
+     {"K6/7": SCAN_STEP["adamvs"]}),
 )
 # paths held card against CPU at base 8 only (phase_reference)
 BASE8_ONLY = ("adamvs_precomp", "adamvs_scan_pallas2bf16")
@@ -238,8 +247,6 @@ BASE8_ONLY = ("adamvs_precomp", "adamvs_scan_pallas2bf16")
 REFERENCE_FORMS = (("msrednet_fpn", "msrednet", {"sweep_impl": "fused", "arch_mode": "fpn"}),)
 # the dtype of each path: bf16, but the AdaMVS scan forms at the predict CLI's default
 PATH_DTYPE = {"adamvs_scan": torch.float32, "adamvs_scan_pallas2bf16": torch.float32}
-# per train step of the scan forms: every sampler call and its backward
-SCAN_STEP = {"adamvs": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS, "msrednet": (V - 1) * sum(NDEPTHS)}
 # (training path, model, model options, train steps, launches per train step, launches
 # of the eval step); each path ends with one eval_epoch on the batch
 TRAIN_PATHS = (
@@ -269,10 +276,10 @@ TRAIN_PATHS = (
 )
 # the fused bf16 train paths held card against CPU with the noise-calibrated check
 TRAIN_REFERENCE_BF16 = ("train_adamvs_bf16", "train_msrednet_bf16")
-# K6/K7-bwd at the training stage shapes, as a scan-form train step calls it: (stage,
-# hypotheses per call, calls per train step)
-SAMPLE_BWD_CASES = ((0, 16, CORR_BLOCKS), (0, 1, (V - 1) * NDEPTHS[0]),
-                    (1, 1, (V - 1) * NDEPTHS[1]), (2, 1, (V - 1) * NDEPTHS[2]))
+# K6/K7-bwd at the training stage shapes, as a scan-form train step calls it, all V-1
+# source views in one call: (stage, hypotheses per call, calls per train step)
+SAMPLE_BWD_CASES = ((0, 16, CORR_BLOCKS), (0, 1, NDEPTHS[0]), (1, 1, NDEPTHS[1]),
+                    (2, 1, NDEPTHS[2]))
 
 
 def wrappers() -> dict:
@@ -403,6 +410,36 @@ def phase_build() -> None:
     for op in re.findall(r"\b((?:ATOMS|ATOM|RED|ATOMG|REDG)\.[A-Z0-9_.]+)", sass):
         ops[op] = ops.get(op, 0) + 1
     log(f"[build] sweep_bwd SASS atomics: " + ", ".join(f"{k} {n}" for k, n in sorted(ops.items())))
+    # K6/K7-bwd's two kernels in both dtypes: registers and spills from ptxas, and
+    # their SASS: no shared-memory atomics (ATOMS, compare-and-swap loops for
+    # floats on sm_90), device-memory reductions and warp matches counted
+    ptx = {}
+    for block in reports.get("bilinear_sample", "").split("Compiling entry function")[1:]:
+        m = re.search(r"(sample_bwd_(?:tile|walk)_kernel)I(f|13__nv_bfloat16)E", block)
+        if m:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            ptx[m.group(1), m.group(2)] = (int(regs.group(1)) if regs else -1,
+                                           int(spill.group(1)) if spill else 0)
+    sass = subprocess.run([cuobjdump, "-sass", build._lib_path("bilinear_sample")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    for block in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*(sample_bwd_(?:tile|walk)_kernel)I(f|13__nv_bfloat16)E", block)
+        if not m:
+            continue
+        ops = {}
+        for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED|MATCH)\.[A-Z0-9_.]+)", block):
+            ops[op] = ops.get(op, 0) + 1
+        regs, spill = ptx.get((m.group(1), m.group(2)), (-1, -1))
+        tn = "f32" if m.group(2) == "f" else "bf16"
+        log(f"[build] bilinear_sample {m.group(1)} {tn}: {regs} registers, {spill} bytes spill "
+            f"stores; SASS " + (", ".join(f"{k} {n}" for k, n in sorted(ops.items())) or "none"))
+        if spill or any(k.startswith("ATOMS") for k in ops):
+            fail(f"bilinear_sample {m.group(1)} {tn} spills registers or has shared-memory "
+                 f"atomics")
+        ptx.pop((m.group(1), m.group(2)), None)
+    if len(ptx) or "sample_bwd_tile_kernel" not in sass:
+        fail(f"bilinear_sample: backward kernels missing from the SASS or ptxas report ({ptx})")
     # the bf16 K3 must reach the tensor cores: count its matrix instructions in the SASS
     sass = subprocess.run([cuobjdump, "-sass", build._lib_path("red_scan")], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -596,23 +633,24 @@ def sweep_bwd_bound(kind: str, st: StageInputs, dtype) -> tuple[float, str]:
 
 
 def sample_bound(st: StageInputs, dtype, out_dtype=None) -> tuple[float, str]:
-    """Least work of one K6/K7 call (one source view, one hypothesis slice):
-    the source (in ``dtype``), u and v read once and the samples (in
-    ``out_dtype``, ``dtype`` unless given) written once; per sample the
-    floors (2), fractions and complements (4) and tap weights (4), and four
-    length-C multiply-adds (8C)."""
+    """Least work of one K6/K7 call (the V-1 source views of one stage in the
+    batch axis, one hypothesis slice): the sources (in ``dtype``), u and v
+    read once and the samples (in ``out_dtype``, ``dtype`` unless given)
+    written once; per sample the floors (2), fractions and complements (4)
+    and tap weights (4), and four length-C multiply-adds (8C)."""
     es = torch.tensor([], dtype=dtype).element_size()
     eo = torch.tensor([], dtype=out_dtype or dtype).element_size()
-    hw, C = st.h * st.w, st.C
+    hw, C = (V - 1) * st.h * st.w, st.C
     return _bound(hw * C * (es + eo) + 2 * hw * 4, hw * (10 + 8 * C), F32_FLOPS)
 
 
 def sample_bwd_bound(st: StageInputs, N: int, dtype) -> tuple[float, str]:
-    """Least work of one K6/K7-bwd call (one source view, N hypotheses): the
-    cotangent, u and v read once and the feature gradient written once; per
-    sample the tap weights (10) and four length-C multiply-adds (8C)."""
+    """Least work of one K6/K7-bwd call (the V-1 source views of one stage in
+    the batch axis, N hypotheses): the cotangent, u and v read once and the
+    feature gradient written once; per sample the tap weights (10) and four
+    length-C multiply-adds (8C)."""
     es = torch.tensor([], dtype=dtype).element_size()
-    hw, C = st.h * st.w, st.C
+    hw, C = (V - 1) * st.h * st.w, st.C
     n = hw * N
     return _bound(n * C * es + 2 * n * 4 + hw * C * es, n * (10 + 8 * C), F32_FLOPS)
 
@@ -708,7 +746,7 @@ def phase_kernels(reps: int = 3) -> dict:
         cell32 = AdaRedCell(st.C, BASE, st.up)
         init_parameters(cell32, torch.Generator().manual_seed(10 + si))
         cell32 = cell32.to(DEV).eval()
-        calls = (V - 1) * st.D  # sampler calls of one depth map at this stage
+        calls = st.D  # sampler calls of one depth map at this stage, V-1 views each
         for dtype in (torch.float32, torch.bfloat16):
             tn = "f32" if dtype == torch.float32 else "bf16"
             ref, srcs = st.feats(dtype)
@@ -743,13 +781,17 @@ def phase_kernels(reps: int = 3) -> dict:
                 p4 = lambda: sf.var_volume_ref(ref, srcs, *geo)
                 _record_err(res, "K4", tn,
                             _compare(f"K4 stage{si + 1} {tn}", ("K4", dtype), k4(), p4()))
-                # K6/K7: one hypothesis slice (the middle one) per source view
+                # K6/K7: one hypothesis slice (the middle one) of every source view in one
+                # call, the views in the batch axis, as the scan forms call it
                 hyp = (st.lo + (st.D // 2) * st.step)[:, None]
                 uv = [sweep_coords(srcs[v], st.src_projs[v], st.ref_proj, hyp) for v in range(V - 1)]
+                u6 = torch.cat([a for a, _ in uv])
+                v6 = torch.cat([b for _, b in uv])
+                del uv
+                flat = srcs.flatten(0, 1)
                 _record_err(res, "K6/7", tn, _compare(
-                    f"K6/7 stage{si + 1} {tn} ({V - 1} views)", ("K6/7", dtype),
-                    torch.cat([ws.sample_bilinear(srcs[v], *uv[v]) for v in range(V - 1)]),
-                    torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v]) for v in range(V - 1)])))
+                    f"K6/7 stage{si + 1} {tn} ({V - 1} views a call)", ("K6/7", dtype),
+                    ws.sample_bilinear(flat, u6, v6), ws.sample_bilinear_ref(flat, u6, v6)))
                 if dtype == torch.bfloat16:
                     timing["K2"] = (time_ms(k2, SWEEP_REPS), time_ms(p2, 1),
                                     sweep_bound("K2", st, dtype))
@@ -758,28 +800,28 @@ def phase_kernels(reps: int = 3) -> dict:
                                     sweep_bound("K4", st, dtype))
                     shares = {"K2": direct_share(k2), "K4": direct_share(k4)}
                     # A stage's sampler calls run back to back, as the scan form issues them.
-                    # A call takes a few tens of microseconds, about what the host needs to
+                    # A call takes tens of microseconds, about what the host needs to
                     # launch one, so CUDA events around the calls ("wall_ms") time the host
                     # too; the kernel's time ("ms") is the card's busy time in a trace.
                     # The library yardstick samples the float32 features: F.grid_sample takes
                     # its grid in the input's dtype, and a bf16 grid cannot hold pixel positions.
-                    nchw = [srcs[v].float().permute(0, 3, 1, 2).contiguous() for v in range(V - 1)]
-                    grid = [_grid(*uv[v], st.h, st.w) for v in range(V - 1)]
+                    nchw = flat.float().permute(0, 3, 1, 2).contiguous()
+                    grid = _grid(u6, v6, st.h, st.w)
 
                     def lib(n=calls):
-                        for i in range(n):
-                            out = F.grid_sample(nchw[i % (V - 1)], grid[i % (V - 1)],
-                                                mode="bilinear", padding_mode="zeros",
+                        for _ in range(n):
+                            out = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
                                                 align_corners=True)
                         return out
 
                     def k6():
-                        for i in range(calls):
-                            ws.sample_bilinear(srcs[i % (V - 1)], *uv[i % (V - 1)])
+                        for _ in range(calls):
+                            ws.sample_bilinear(flat, u6, v6)
 
-                    want6 = ws.sample_bilinear_ref(srcs[0].float(), *uv[0])[:, 0]
+                    want6 = ws.sample_bilinear_ref(flat.float(), u6, v6)[:, 0]
                     lib_err = (lib(1).permute(0, 2, 3, 1) - want6).abs().max().item()
-                    p6 = lambda: ws.sample_bilinear_ref(srcs[1], *uv[1])
+                    del want6
+                    p6 = lambda: ws.sample_bilinear_ref(flat, u6, v6)
                     wall6, wlib6 = time_ms(k6, 3), time_ms(lib, 3)
                     ms6, lms6 = device_busy_ms(k6), device_busy_ms(lib)
                     pms6 = time_ms(p6, 1) * calls
@@ -788,8 +830,8 @@ def phase_kernels(reps: int = 3) -> dict:
                         "stage": si + 1, "calls_per_map": calls, "ms_per_call": ms6 / calls,
                         "ms": ms6, "wall_ms": wall6, "plain_ms": pms6, "bound_ms": bms6 * calls,
                         "bound_by": by6, "library_ms": lms6, "library_wall_ms": wlib6})
-                    log(f"[kernels] K6/7 stage{si + 1} bf16, {calls} calls back to back: "
-                        f"{ms6:.3f} ms on the card, {ms6 / calls:.4f} ms per call, wall "
+                    log(f"[kernels] K6/7 stage{si + 1} bf16, {calls} calls of {V - 1} views back "
+                        f"to back: {ms6:.3f} ms on the card, {ms6 / calls:.4f} ms per call, wall "
                         f"{wall6:.3f} ms (plain {pms6:.3f} ms, bound {bms6 * calls:.3f} ms by "
                         f"{by6}; F.grid_sample float32 {lms6:.3f} ms on the card, wall "
                         f"{wlib6:.3f} ms, its max_abs_err against the plain version "
@@ -799,15 +841,13 @@ def phase_kernels(reps: int = 3) -> dict:
                     # calls of one scan map, against the plain version on the same bf16 sources
                     f32 = torch.float32
                     _record_err(res, "K6/7", "bf16->f32", _compare(
-                        f"K6/7 stage{si + 1} bf16->f32 ({V - 1} views)", ("K6/7", "bf16->f32"),
-                        torch.cat([ws.sample_bilinear(srcs[v], *uv[v], out_dtype=f32)
-                                   for v in range(V - 1)]),
-                        torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v], out_dtype=f32)
-                                   for v in range(V - 1)])))
+                        f"K6/7 stage{si + 1} bf16->f32 ({V - 1} views a call)",
+                        ("K6/7", "bf16->f32"), ws.sample_bilinear(flat, u6, v6, out_dtype=f32),
+                        ws.sample_bilinear_ref(flat, u6, v6, out_dtype=f32)))
 
                     def k6f():
-                        for i in range(calls):
-                            ws.sample_bilinear(srcs[i % (V - 1)], *uv[i % (V - 1)], out_dtype=f32)
+                        for _ in range(calls):
+                            ws.sample_bilinear(flat, u6, v6, out_dtype=f32)
 
                     msf, wallf = device_busy_ms(k6f), time_ms(k6f, 3)
                     bmsf, byf = sample_bound(st, dtype, f32)
@@ -850,7 +890,7 @@ def phase_kernels(reps: int = 3) -> dict:
                         f"{BF16_TC_FLOPS / 1e12:.0f} ({flops / 1e12:.3f} TFLOP); the bound's bytes "
                         f"{nbytes / 1e9:.3f} GB; the design's traffic by its model, not measured "
                         f"(the tiles' halos left out): {moved / 1e9:.3f} GB")
-            del ref, srcs, vol, uv
+            del ref, srcs, vol, u6, v6, flat
         rough_sweeps(res, si, gen)
         del st
         torch.cuda.empty_cache()
@@ -859,41 +899,52 @@ def phase_kernels(reps: int = 3) -> dict:
 
 def phase_sample_bwd(res: dict, reps: int = 3) -> None:
     """K6/K7-bwd against its plain version (autograd of the plain sampler) at
-    the training stage shapes as a scan-form train step calls it
-    (SAMPLE_BWD_CASES: 96x192 C32 with 16 hypotheses per call and with 1,
-    192x384 C16, 384x768 C8), in float32 and bfloat16, relative L2; in
-    float32 the calls of one train step back to back: the card's busy time
-    (``ms``, the wrapper's zeroing and cast included), the kernel alone, the
-    wall by CUDA events, the plain version's, the bound, and the gradient of
-    ``F.grid_sample`` (align_corners=False, zeros padding) with respect to its
-    input (``aten.grid_sampler_2d_backward``, one call per K6/K7-bwd call)."""
+    the training stage shapes as a scan-form train step calls it, the V-1
+    source views of a hypothesis slice in one call (SAMPLE_BWD_CASES: 96x192
+    C32 with 16 hypotheses per call and with 1, 192x384 C16, 384x768 C8), in
+    float32 and bfloat16, relative L2; in float32 the calls of one train step
+    back to back: the card's busy time (``ms``, the wrapper's zeroing and
+    cast included), the kernel alone, the wall by CUDA events, the calls as
+    autograd makes them in a train step, the plain version's, the bound, and
+    the gradient of ``F.grid_sample`` (align_corners=False, zeros padding)
+    with respect to its input (``aten.grid_sampler_2d_backward``, one call per
+    K6/K7-bwd call); and the kernel's own counts (information): the walk's
+    flushes per sample (N > 1), the share of tiles whose box exceeded shared
+    memory (N = 1)."""
     from adamvs_tpu_torch.ops import warp_sample as ws
     from adamvs_tpu_torch.ops.warp import sweep_coords
 
     gen = torch.Generator(device=DEV).manual_seed(5)
     k = "K6/7-bwd"
+    Vs = V - 1
     for si, N, calls in SAMPLE_BWD_CASES:
         st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
         d0 = (st.D - N) // 2
         hyp = st.lo[:, None] + (d0 + torch.arange(N, device=DEV))[None, :, None, None] * st.step[:, None]
-        u, v = sweep_coords(st.srcs[0], st.src_projs[0], st.ref_proj, hyp)  # [1,N,h,w]
+        uv = [sweep_coords(st.srcs[i], st.src_projs[i], st.ref_proj, hyp) for i in range(Vs)]
+        u = torch.cat([a for a, _ in uv])  # [Vs,N,h,w], the views in the batch axis
+        v = torch.cat([b for _, b in uv])
+        del uv
         for dtype in (torch.float32, torch.bfloat16):
             tn = "f32" if dtype == torch.float32 else "bf16"
-            dout = torch.randn((1, N, st.h, st.w, st.C), generator=gen, device=DEV).to(dtype)
+            dout = torch.randn((Vs, N, st.h, st.w, st.C), generator=gen, device=DEV).to(dtype)
             kern = lambda: ws.sample_bilinear_bwd(dout, u, v, st.h, st.w)
             plain = lambda: ws.sample_bilinear_bwd_ref(dout, u, v, st.h, st.w)
-            e = _compare_l2(f"{k} stage{si + 1} N{N} {tn}", (k, dtype), kern(), plain())
-            old = res[k]["err"].get(tn, (0.0, 0.0))
-            res[k]["err"][tn] = (max(old[0], e[0]), max(old[1], e[1]))
+            e = _compare_l2(f"{k} stage{si + 1} N{N} {tn} ({Vs} views a call)", (k, dtype),
+                            kern(), plain())
+            _record_err(res, k, tn, e)
             if dtype != torch.float32:
                 continue
+            stats = torch.zeros(2, dtype=torch.int32, device=DEV)
+            ws.sample_bilinear_bwd(dout, u, v, st.h, st.w, stats=stats)
+            n0, n1 = stats.tolist()
             # the library's yardstick: F.grid_sample's input gradient, NCHW, its grid
             # normalised for align_corners=False and stacked over the N hypotheses
             gx = (2.0 * u + 1.0) / st.w - 1.0
             gy = (2.0 * v + 1.0) / st.h - 1.0
-            grid = torch.stack([gx, gy], dim=-1).reshape(1, N * st.h, st.w, 2)
-            gout = dout.permute(0, 4, 1, 2, 3).reshape(1, st.C, N * st.h, st.w).contiguous()
-            x = torch.zeros((1, st.C, st.h, st.w), device=DEV)
+            grid = torch.stack([gx, gy], dim=-1).reshape(Vs, N * st.h, st.w, 2)
+            gout = dout.permute(0, 4, 1, 2, 3).reshape(Vs, st.C, N * st.h, st.w).contiguous()
+            x = torch.zeros((Vs, st.C, st.h, st.w), device=DEV)
 
             def lib():
                 return torch.ops.aten.grid_sampler_2d_backward(gout, x, grid, 0, 0, False,
@@ -911,29 +962,34 @@ def phase_sample_bwd(res: dict, reps: int = 3) -> None:
 
             wall = time_ms(kcalls, reps)
             busy, top = device_profile(kcalls, top=6)
-            alone = sum(t for n, t, _ in top if "sample_bwd_kernel" in n)
+            alone = sum(t for n, t, _ in top if "sample_bwd_" in n)
             lms = device_busy_ms(lcalls)
             pms = time_ms(plain, 1) * calls
             bms, by = sample_bwd_bound(st, N, dtype)
-            # the same calls as autograd makes them in a train step: each forward samples a
-            # view of the stacked sources, and the backward hands each view's gradient back
-            # into one gradient of the stack (the card's time of that backward, whose
-            # zeroing, view gradients and sums come on top of the kernels)
+            # the same calls as autograd makes them in a train step: each forward samples
+            # every view of the stacked sources at once, and the backward hands its gradient
+            # back into the gradient of the stack, summed over the calls (the card's time of
+            # that backward: the kernels, their zeroing and the sums)
             srcs = st.srcs.clone().requires_grad_()
             with torch.enable_grad():
-                outs = [ws.sample_bilinear(srcs[i % (V - 1)], u, v) for i in range(calls)]
+                outs = [ws.sample_bilinear(srcs.flatten(0, 1), u, v) for _ in range(calls)]
             autograd_ms = device_busy_ms(lambda: torch.autograd.backward(
                 outs, [dout] * calls, retain_graph=True))
+            counts = ({"flushes_per_sample": n1 / max(n0, 1)} if N > 1
+                      else {"direct_tile_share": n1 / max(n0, 1)})
             res[k]["stages"].append({
-                "stage": si + 1, "N": N, "calls_per_step": calls, "ms": busy,
-                "kernel_ms": alone, "wall_ms": wall, "autograd_ms": autograd_ms, "plain_ms": pms,
-                "bound_ms": bms * calls, "bound_by": by, "library_ms": lms})
-            log(f"[kernels] {k} stage{si + 1} N{N} f32, {calls} calls of a train step back to "
-                f"back: {busy:.3f} ms on the card, the kernel alone {alone:.3f} ms, wall "
-                f"{wall:.3f} ms, under autograd into one source stack {autograd_ms:.3f} ms on the "
-                f"card (plain {pms:.3f} ms, bound {bms * calls:.3f} ms by {by}; F.grid_sample "
+                "stage": si + 1, "N": N, "views_per_call": Vs, "calls_per_step": calls,
+                "ms": busy, "kernel_ms": alone, "wall_ms": wall, "autograd_ms": autograd_ms,
+                "plain_ms": pms, "bound_ms": bms * calls, "bound_by": by, "library_ms": lms,
+                **counts})
+            log(f"[kernels] {k} stage{si + 1} N{N} f32, {calls} calls of {Vs} views of a train "
+                f"step back to back: {busy:.3f} ms on the card, the kernel alone {alone:.3f} ms, "
+                f"wall {wall:.3f} ms, under autograd into one source stack {autograd_ms:.3f} ms on "
+                f"the card (plain {pms:.3f} ms, bound {bms * calls:.3f} ms by {by}; F.grid_sample "
                 f"backward {lms:.3f} ms on the card, its max_abs_err against the plain version "
-                f"{lib_err:.2e})")
+                f"{lib_err:.2e}); the kernel's counts "
+                + ", ".join(f"{name} {val:.4f}" for name, val in counts.items())
+                + " (information, no limit)")
             del grid, gout, x, srcs, outs
         del st, u, v, hyp
         torch.cuda.empty_cache()
@@ -1110,6 +1166,7 @@ def phase_edges() -> None:
                         f.grad, ws.sample_bilinear_bwd_ref(g, u, vv, h, w).to(torch.bfloat16))
             if f.grad.dtype != torch.bfloat16 or out.dtype != f32:
                 fail(f"K6/7 edge C{C} bf16->f32: dtypes {out.dtype} {f.grad.dtype}")
+        sample_bwd_edges(gen)
         # K3 at every input width of AdaMVS base 8, both regulariser widths and head kinds,
         # one and five depth steps, at 38x54 (no multiple of any tile) and at 6x10 (smaller
         # than every tile of the bf16 kernel's phases), in float32 and bf16; then widths the
@@ -1129,6 +1186,61 @@ def phase_edges() -> None:
                                 _compare(f"K3 edge cin {cin} base {base} up {up} D {dk} {eh}x{ew} "
                                          f"{tn}", ("K3", dtype), rs.red_scan(c, v),
                                          rs.red_scan_ref(c, v))
+
+
+# the redesigned K6/K7-bwd's paths at ragged shapes: (case, hypotheses per call, u and v
+# of output pixel (x, y) at hypothesis n, the kernel's count that must be reached: the
+# direct tiles (N = 1) or the flushes per sample at most (N > 1), or None)
+SAMPLE_BWD_EDGES = (
+    # a magnifying warp: many output pixels on one source pixel, coinciding targets in a warp
+    ("magnifying x0.25", 1, lambda x, y, n: (3.3 + 0.25 * x, 2.1 + 0.25 * y), None),
+    ("magnifying x0.02", 1, lambda x, y, n: (5.5 + 0.02 * x, 7.5 + 0.02 * y), None),
+    # a footprint too large for a warp's shared box: its taps go to device memory directly
+    ("footprint past the shared box", 1, lambda x, y, n: (3.0 * x - 20.0, 3.0 * y - 9.0),
+     "direct"),
+    # samples behind the camera (-1e9) and samples wholly outside the image
+    ("behind the camera, outside the image", 1,
+     lambda x, y, n: (torch.where(x < 20, -1e9, x + 40.0), torch.where(y > 30, y + 50.0, y - 0.5)),
+     None),
+    # a walk that stays on one tap set for all 16 hypotheses: 4 flushes per 16 samples
+    ("walk on one tap set", 16, lambda x, y, n: (10.25 + 0.01 * n + 0.0 * x, 4.5 + 0.0 * y), 0.25),
+    ("walk across taps", 16, lambda x, y, n: (0.9 * x + 0.37 * n - 2.0, y + 0.11 * n - 1.0),
+     None),
+)
+
+
+def sample_bwd_edges(gen) -> None:
+    """K6/K7-bwd's in-kernel paths (SAMPLE_BWD_EDGES) against the plain
+    version, relative L2, at B = 2 with Vs = 4 in the batch axis, 37x70
+    samples over a 41x66 source (no multiple of a tile), C 8, 12 (padded) and
+    32, float32 and bf16 cotangents; each case also asserts the kernel's own
+    count where it names one."""
+    from adamvs_tpu_torch.ops import warp_sample as ws
+
+    Bt, h, w, H, W = 2 * 4, 37, 70, 41, 66
+    y, x = torch.meshgrid(torch.arange(h, device=DEV, dtype=torch.float32),
+                          torch.arange(w, device=DEV, dtype=torch.float32), indexing="ij")
+    for name, N, at, want in SAMPLE_BWD_EDGES:
+        uv = [at(x, y, float(n)) for n in range(N)]
+        u = torch.stack([a for a, _ in uv])[None].repeat(Bt, 1, 1, 1)
+        v = torch.stack([b for _, b in uv])[None].repeat(Bt, 1, 1, 1)
+        # a jitter below 1/100 pixel per view and batch, the walk's tap set kept
+        u = (u + 0.004 * torch.rand(u.shape, generator=gen, device=DEV) * (u > -1e8)).contiguous()
+        for C in (8, 12, 32):
+            for dtype, tn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                g = torch.randn((Bt, N, h, w, C), generator=gen, device=DEV).to(dtype)
+                stats = torch.zeros(2, dtype=torch.int32, device=DEV)
+                got = ws.sample_bilinear_bwd(g, u, v, H, W, stats=stats)
+                _compare_l2(f"K6/7-bwd edge {name} N{N} C{C} {tn}", ("K6/7-bwd", dtype), got,
+                            ws.sample_bilinear_bwd_ref(g, u, v, H, W))
+                n0, n1 = stats.tolist()
+                if want == "direct" and n1 == 0:
+                    fail(f"K6/7-bwd edge {name}: no tile took the direct path ({n0} tiles)")
+                if isinstance(want, float) and n1 > want * n0:
+                    fail(f"K6/7-bwd edge {name}: {n1} flushes over {n0} samples, limit {want}")
+                if want is not None:
+                    log(f"[kernels] K6/7-bwd edge {name} N{N} C{C} {tn}: the kernel's counts "
+                        f"{n0} {n1}")
 
 
 def phase_sweep_windows() -> None:
@@ -1221,6 +1333,47 @@ def _cotangent(mode: str, st, dtype, gen):
     if mode == "corr":
         return torch.randn((V - 1, 1, st.D, st.h, st.w), generator=gen, device=DEV)
     return torch.randn((st.D, 1, st.C, st.h, st.w), generator=gen, device=DEV).to(dtype)
+
+
+def phase_k3_f32(res: dict, reps: int = 3) -> None:
+    """K3's float32 form, which only the trainer's eval step runs (the fused
+    AdaMVS training paths), at that step's shapes (the 384x768 crop, stages
+    1-3: 96x192 C32 D48, 192x384 C16 D32, 384x768 C8 D8) on K2's float32
+    volume: against its plain version, its time by CUDA events beside the
+    kernels' own time in a trace, the plain version's and its bound
+    (``red_scan_bound`` in float32). Kept apart from the bf16 rows of the
+    kernels line (``f32_eval_stages``)."""
+    from adamvs_tpu_torch.nn.blocks import init_parameters
+    from adamvs_tpu_torch.nn.costreg import AdaRedCell
+    from adamvs_tpu_torch.ops import red_scan as rs
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    rows = res["K3"].setdefault("f32_eval_stages", [])
+    for si in range(3):
+        st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
+        cell = AdaRedCell(st.C, BASE, st.up)
+        init_parameters(cell, torch.Generator().manual_seed(10 + si))
+        cell = cell.to(DEV).eval()
+        with torch.no_grad():
+            vol = sf.fused_sweep_volume(st.ref, st.srcs, st.weights, st.src_projs, st.ref_proj,
+                                        st.lo, st.step, st.D)
+            kern = lambda: rs.red_scan(cell, vol)
+            plain = lambda: rs.red_scan_ref(cell, vol)
+            _record_err(res, "K3", "f32", _compare(f"K3 eval stage{si + 1} f32 {st.h}x{st.w}",
+                                                   ("K3", torch.float32), kern(), plain()))
+            ms, pms = time_ms(kern, reps), time_ms(plain, 1)
+            _, top = device_profile(kern, top=8)
+            kms = sum(t for n, t, _ in top if "cell_conv" in n)
+        bms, by = red_scan_bound(st, torch.float32)
+        rows.append({"stage": si + 1, "ms": ms, "kernel_ms": kms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by,
+                     "top": [[n[:60], round(t, 4), c] for n, t, c in top[:4]]})
+        log(f"[kernels] K3 eval stage{si + 1} f32 {st.h}x{st.w} C{st.C} D{st.D}: {ms:.3f} ms, "
+            f"its kernels {kms:.3f} ms on the card (plain {pms:.3f} ms, bound {bms:.3f} ms by "
+            f"{by}); top kernels {rows[-1]['top']}")
+        del st, vol, cell
+        torch.cuda.empty_cache()
 
 
 def phase_k5(res: dict, reps: int = 3) -> None:
@@ -1725,7 +1878,7 @@ CLI_VIEWS, CLI_RAW = 6, (2 * H, 2 * W)
 CLI_FUSED = ["--sweep_impl", "fused", "--reg_impl", "pallas", "--compute_dtype", "bf16"]
 # (run, flags, launches per forward)
 CLI_RUNS = (
-    ("defaults", [], {"K6/7": (V - 1) * sum(NDEPTHS) + CORR_BLOCKS}),
+    ("defaults", [], {"K6/7": SCAN_STEP["adamvs"]}),
     ("fused_bf16", CLI_FUSED, {"K1": 1, "K2": 3, "K3": 3}),
     ("fused_bf16_cache_batch", CLI_FUSED + ["--feature_cache", "8", "--predict_batch", "2"],
      {"K1": 1, "K2": 3, "K3": 3}),
@@ -2031,7 +2184,7 @@ TILES, HALO = 4, 256
 # (path, model, model options, dtype, launches per banded depth map)
 TILED_FORMS = (
     ("tiled_adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"}, torch.float32,
-     {"K6/7": TILES * ((V - 1) * sum(NDEPTHS) + CORR_BLOCKS)}),
+     {"K6/7": TILES * SCAN_STEP["adamvs"]}),
     ("tiled_adamvs_fused_regscan", "adamvs", {"sweep_impl": "fused", "reg_impl": "scan"},
      torch.bfloat16, {"K1": TILES, "K2": 3 * TILES}),
     ("tiled_msrednet_fused", "msrednet", {"sweep_impl": "fused"}, torch.bfloat16,
@@ -2096,10 +2249,11 @@ def phase_bands(res: dict) -> None:
                     sf.var_sweep_volume(ref, srcs, *geo), sf.var_volume_ref(ref, srcs, *geo)))
                 hyp = (st.lo + (st.D // 2) * st.step)[:, None]
                 uv = [sweep_coords(srcs[v], st.src_projs[v], st.ref_proj, hyp) for v in range(V - 1)]
+                uv = (torch.cat([a for a, _ in uv]), torch.cat([b for _, b in uv]))
                 _record_err(res, "K6/7", f"band {tn}", _compare(
-                    f"K6/7 band stage{si + 1} {tn} ({V - 1} views)", ("K6/7", dtype),
-                    torch.cat([ws.sample_bilinear(srcs[v], *uv[v]) for v in range(V - 1)]),
-                    torch.cat([ws.sample_bilinear_ref(srcs[v], *uv[v]) for v in range(V - 1)])))
+                    f"K6/7 band stage{si + 1} {tn} ({V - 1} views a call)", ("K6/7", dtype),
+                    ws.sample_bilinear(srcs.flatten(0, 1), *uv),
+                    ws.sample_bilinear_ref(srcs.flatten(0, 1), *uv)))
             del ref, srcs, uv
         del st
         torch.cuda.empty_cache()
@@ -2321,7 +2475,7 @@ def _depth_shards(sample, counted: dict, kw: dict) -> tuple[dict, list]:
         depth, conf = engine.predict_sample(sample)
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {k: fn.launches for k, fn in counted.items()}
-    per_map = {"K6/7": CORR_BLOCKS + 3 * DEPTH_SHARDS * (V - 1)}
+    per_map = {"K6/7": CORR_BLOCKS + 3 * DEPTH_SHARDS}
     for k, n in launches.items():
         if n != 2 * per_map.get(k, 0):
             fail(f"adamvs_depth_shards: {k} launched {n} times over 2 requests, expected "
@@ -2630,7 +2784,7 @@ def msrednet_layer_times(model, opts: dict) -> dict:
     from adamvs_tpu_torch.ops.regression import (online_softmax_finalize, online_softmax_init,
                                                  online_softmax_update)
     from adamvs_tpu_torch.ops.sweep_fuse import var_sweep_volume
-    from adamvs_tpu_torch.ops.warp import sweep_coords
+    from adamvs_tpu_torch.ops.warp import sweep_coords, view_transforms
     from adamvs_tpu_torch.ops.warp_sample import sample_bilinear
 
     dt = torch.bfloat16
@@ -2660,16 +2814,21 @@ def msrednet_layer_times(model, opts: dict) -> dict:
             if opts["sweep_impl"] == "fused":
                 out[f"variance_{tag}"] = time_ms(fused, 3)
             else:
+                transforms = view_transforms(st.src_projs, st.ref_proj)
                 out[f"variance_{tag}"] = time_ms(lambda: [
-                    variance_slice(ref, srcs, st.src_projs, st.ref_proj, st.lo + float(d) * st.step)
+                    variance_slice(ref, srcs, transforms, st.lo + float(d) * st.step)
                     for d in range(st.D)], 2)
-                coords = [(v, sweep_coords(srcs[v], st.src_projs[v], st.ref_proj,
-                                           (st.lo + float(d) * st.step)[:, None]))
-                          for d in range(st.D) for v in range(V - 1)]
+                # the sampler calls alone: all source views of a hypothesis in one call
+                coords = []
+                for d in range(st.D):
+                    uv = [sweep_coords(srcs[v], st.src_projs[v], st.ref_proj,
+                                       (st.lo + float(d) * st.step)[:, None]) for v in range(V - 1)]
+                    coords.append((torch.cat([a for a, _ in uv]), torch.cat([b for _, b in uv])))
+                flat = srcs.flatten(0, 1)
 
                 def sampler():
-                    for v, uv in coords:
-                        sample_bilinear(srcs[v], *uv)
+                    for uv in coords:
+                        sample_bilinear(flat, *uv)
 
                 out[f"sampler_{tag}"] = time_ms(sampler, 3)
                 del coords
@@ -2753,6 +2912,7 @@ def kernels_line(res: dict, launches: dict) -> dict:
             "band_max_abs_err": {t[5:]: e[0] for t, e in res[k]["err"].items()
                                  if t.startswith("band ")} or None,
             "stages": stages,
+            **{key: res[k][key] for key in ("f32_eval_stages",) if key in res[k]},
         })
     return {"kernels": out}
 
@@ -2835,25 +2995,71 @@ ABLATIONS["corr_bwd"] = {
                       "  if (D > 0) return;\n"
                       "  const int pix = blockIdx.x * kWalkThreads + threadIdx.x;")],
 }
+# K6/K7-bwd (csrc/bilinear_sample.cu): the tile kernel (N = 1) with other tile shapes
+# (8x8 as built; 32x2, 16x4 and 8x4 samples; 8x16 with a box of 256), without its warp
+# match (wrong where samples share a corner: timing only), with every tile sent the
+# direct way, without the box's flush; the walk (N = 16) with its next sample read
+# after the current one is walked instead of before
+ABLATIONS["sample_bwd"] = {
+    "tiles 32x2": [("constexpr int kTileW = 8; ", "constexpr int kTileW = 32; ")],
+    "tiles 16x4": [("constexpr int kTileW = 8; ", "constexpr int kTileW = 16; ")],
+    "tiles 8x4": [("constexpr int kSteps = 2; ", "constexpr int kSteps = 1; "),
+                  ("constexpr int kBoxCap = 160;", "constexpr int kBoxCap = 80;")],
+    "tiles 8x16": [("constexpr int kSteps = 2; ", "constexpr int kSteps = 4; "),
+                   ("constexpr int kBoxCap = 160;", "constexpr int kBoxCap = 256;")],
+    "no match": [("const unsigned peers = __match_any_sync(kFull, corner);",
+                  "const unsigned peers = 1u << lane;")],
+    "all direct": [("const bool staged = bw * bh <= kBoxCap;", "const bool staged = false;")],
+    "no flush": [("      atomicAdd(reinterpret_cast<float4*>(dst + q * C) + (j & 1), a);\n", "")],
+    "empty kernels": [
+        ("  long long job = static_cast<long long>(blockIdx.x) * kWarps + warp;\n",
+         "  if (B > 0) return;\n  long long job = static_cast<long long>(blockIdx.x) * kWarps + warp;\n"),
+        ("  const long long id = static_cast<long long>(blockIdx.x) * kWalkThreads + threadIdx.x;\n",
+         "  if (B > 0) return;\n"
+         "  const long long id = static_cast<long long>(blockIdx.x) * kWalkThreads + threadIdx.x;\n")],
+}
 ABLATION_SOURCES = {"sweep_fuse": "sweep_fuse", "sweep_bwd": "sweep_bwd", "corr": "sweep_fuse",
-                    "corr_bwd": "sweep_bwd"}
+                    "corr_bwd": "sweep_bwd", "sample_bwd": "bilinear_sample"}
+# the stages (or K6/K7-bwd's cases) each group is timed at
+ABLATION_STAGES = {"corr": (0,), "corr_bwd": (0,), "sample_bwd": tuple(range(len(SAMPLE_BWD_CASES)))}
 
 
 def _ablation_calls(group: str, si: int, gen):
-    """(entries attribute of ops/sweep_fuse.py, binder of a built library,
-    {kernel: call}) of the kernels of ``group`` at stage ``si``: K2 and K4,
-    and K1 (stage 1), in bf16 at the inference stage shape; K5-fused and
-    K5-var, and K5-corr (stage 1), in float32 at the training stage shape
-    with the forward's geometry handed in, as the training forms call them."""
+    """(module, its entries attribute, binder of a built library, {kernel:
+    call}) of the kernels of ``group`` at stage ``si``: K2 and K4, and K1
+    (stage 1), in bf16 at the inference stage shape; K5-fused and K5-var,
+    and K5-corr (stage 1), in float32 at the training stage shape with the
+    forward's geometry handed in, as the training forms call them; K6/K7-bwd
+    at case ``si`` of SAMPLE_BWD_CASES in float32, the calls of one train step
+    (4 source views a call)."""
+    from adamvs_tpu_torch.kernels import build
     from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.ops import warp_sample as ws
+    from adamvs_tpu_torch.ops.warp import sweep_coords
 
+    if group == "sample_bwd":
+        stage, N, n_calls = SAMPLE_BWD_CASES[si]
+        st = StageInputs(stage, gen, TRAIN_H, TRAIN_W)
+        hyp = st.lo[:, None] + ((st.D - N) // 2 + torch.arange(N, device=DEV))[
+            None, :, None, None] * st.step[:, None]
+        uv = [sweep_coords(st.srcs[i], st.src_projs[i], st.ref_proj, hyp) for i in range(V - 1)]
+        u, v = torch.cat([a for a, _ in uv]), torch.cat([b for _, b in uv])
+        g = torch.randn((V - 1, N, st.h, st.w, st.C), generator=gen, device=DEV)
+
+        def step_calls():
+            for _ in range(n_calls):
+                ws.sample_bilinear_bwd(g, u, v, st.h, st.w)
+
+        bind = lambda lib: (lib, build.bind(lib, "adamvs_bilinear_sample_bwd", n_ptr=5, n_int=8))
+        return ws, "_bwd_entry", bind, {f"K6/7-bwd N{N} C{st.C}": step_calls}
     if ABLATION_SOURCES[group] == "sweep_fuse":
         st = StageInputs(si, gen)
         ref, srcs = st.feats(torch.bfloat16)
         geo = (st.src_projs, st.ref_proj, st.lo, st.step, st.D)
         if group == "corr":
-            return "_entries", sf.bind_sweeps, {"K1": lambda: sf.corr_sweep_volume(ref, srcs, *geo)}
-        return "_entries", sf.bind_sweeps, {
+            return sf, "_entries", sf.bind_sweeps, {
+                "K1": lambda: sf.corr_sweep_volume(ref, srcs, *geo)}
+        return sf, "_entries", sf.bind_sweeps, {
             "K2": lambda: sf.fused_sweep_volume(ref, srcs, st.weights, *geo),
             "K4": lambda: sf.var_sweep_volume(ref, srcs, *geo)}
     st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
@@ -2866,7 +3072,7 @@ def _ablation_calls(group: str, si: int, gen):
     for mode in modes:
         kern = _k5_calls(mode, _cotangent(mode, st, torch.float32, gen), ref, srcs, wn, geo)[0]
         calls[f"K5-{mode}"] = lambda kern=kern: kern(geom=geom)
-    return "_bwd_entries", sf.bind_sweep_bwd, calls
+    return sf, "_bwd_entries", sf.bind_sweep_bwd, calls
 
 
 def k5_wrapper_parts(group: str, rounds: int, reps: int) -> None:
@@ -3101,7 +3307,7 @@ def probe_parallel(items=("1", "2", "3", "4", "5")) -> None:
             f"{q['data_parallel'][2]:.1f}), plain {q['plain'][1]:.1f} ms (quartiles "
             f"{q['plain'][0]:.1f}-{q['plain'][2]:.1f})")
 
-def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd"), rounds: int = 3,
+def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd", "sample_bwd"), rounds: int = 3,
            reps: int = 5) -> None:
     """``python3 chip_smoke.py --ablate [group ...]``: the kernels of each
     group at the stage shapes, built from their source as it is and from
@@ -3112,7 +3318,9 @@ def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd"), rounds: int =
     the inference shapes, ms per depth map; sweep_bwd: K5-fused and K5-var
     in float32 at the training shapes, ms per train step; corr: K1 in bf16
     at the inference stage-1 shape, ms per depth map; corr_bwd: K5-corr in
-    float32 at the training stage-1 shape, ms per train step. The wrappers'
+    float32 at the training stage-1 shape, ms per train step; sample_bwd:
+    K6/K7-bwd in float32 at SAMPLE_BWD_CASES, the calls of one train step per
+    case (4 source views a call). The wrappers'
     own work (weight normalisation, geometry, allocation and zeroing) is in
     every time, on the host where the card waits for it; the "empty kernel"
     copy measures it, and for the K5 groups ``k5_wrapper_parts`` splits it."""
@@ -3150,29 +3358,30 @@ def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd"), rounds: int =
         gen = torch.Generator(device=DEV).manual_seed(0)
         total = {}
         per = "depth map" if ABLATION_SOURCES[group] == "sweep_fuse" else "train step"
-        for si in (0,) if group in ("corr", "corr_bwd") else range(3):
-            attr, bind, calls = _ablation_calls(group, si, gen)
+        for si in ABLATION_STAGES.get(group, range(3)):
+            module, attr, bind, calls = _ablation_calls(group, si, gen)
             bound = {name: bind(lib) for name, lib in libs.items()}
-            entries = getattr(sf, attr)
+            entries = getattr(module, attr)
             # per variant and kernel: (CUDA events around a call, the card's busy time in it)
             best = {n: {k: [float("inf")] * 2 for k in calls} for n in bound}
             try:
                 with torch.no_grad():
                     for r in range(rounds):
                         for name in list(bound)[:: 1 if r % 2 == 0 else -1]:
-                            setattr(sf, attr, lambda name=name: bound[name])
+                            setattr(module, attr, lambda name=name: bound[name])
                             for k, call in calls.items():
                                 b = best[name][k]
                                 b[0] = min(b[0], time_ms(call, reps))
                                 b[1] = min(b[1], device_busy_ms(call))
             finally:
-                setattr(sf, attr, entries)
+                setattr(module, attr, entries)
             for name, times in best.items():
                 for k, (t, busy) in times.items():
                     acc = total.setdefault(name, {}).setdefault(k, [0.0, 0.0])
                     acc[0] += t
                     acc[1] += busy
-                log(f"[ablate] {group} stage{si + 1} {name}: "
+                where = f"case {si + 1}" if group == "sample_bwd" else f"stage{si + 1}"
+                log(f"[ablate] {group} {where} {name}: "
                     + ", ".join(f"{k} {t:.3f} ms (card busy {busy:.3f})"
                                 for k, (t, busy) in times.items()))
             del calls
@@ -3181,7 +3390,7 @@ def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd"), rounds: int =
             log(f"[ablate] {group} per {per}, {name}: "
                 + ", ".join(f"{k} {t:.3f} ms (card busy {busy:.3f})"
                             for k, (t, busy) in times.items()))
-        if per == "train step":  # with the as-built copy, so that nothing builds csrc/ here
+        if group in ("sweep_bwd", "corr_bwd"):  # with the as-built copy: nothing builds csrc/
             entries, as_built = sf._bwd_entries, sf.bind_sweep_bwd(libs["as built"])
             sf._bwd_entries = lambda: as_built
             try:
@@ -3210,6 +3419,7 @@ def main() -> None:
     smi = timed(phase_device)
     timed(phase_build)
     res = timed(phase_kernels)
+    timed(phase_k3_f32, res)
     timed(phase_k5, res)
     timed(phase_sample_bwd, res)
     timed(phase_edges)
