@@ -18,7 +18,9 @@
 // What bounds it on an H100: operations. The step's convolutions do about
 // 8.7k multiply-adds per pixel of the h x w level at base 8, against a few
 // bytes per pixel of input and output: 1.7e12 flops per AdaMVS depth map,
-// 1.7 ms on the bf16 tensor cores but 25 ms as float32 FMAs.
+// 1.7 ms on the bf16 tensor cores, 25 ms as float32 FMAs, and 10.2 ms in
+// float32 on the TF32 tensor cores at three products per multiply-add
+// (3xTF32, 495 / 3 TFLOP/s), the float32 form's roof.
 //
 // bfloat16 (the inference path): three launches per depth step, each tiled
 // over the image and fused, every 3x3 and stride-2 convolution an implicit
@@ -80,13 +82,38 @@
 //     over tiles the compiler hoists them all out of it (144 registers for
 //     GRU2's gates, and spills); hence no loop: a warp's tiles are unrolled.
 //
-// float32 (the trainer's eval step and the float32 checks) keeps the direct
-// kernels of the first port: the host loops over d, eight direct-convolution
-// kernels per step with their epilogues fused, float32 FMAs on the CUDA cores,
-// states NCHW and updated in place (every kernel that reads neighbouring
-// state pixels runs in a launch before or after the one that writes them).
-// TF32 tensor cores would break that path's 1e-4 agreement. Scratch holds
-// 5 [B,b,h,w] and 4 [B,2b,h/2,w/2] planes.
+// float32 (the trainer's eval step, predict in float32 with the fused sweep,
+// the float32 checks): the same three phases, tiles and ping-pong in float32
+// (namespace f32), every convolution an implicit GEMM on the TF32 tensor
+// cores in split TF32: x = hi + lo, hi = x rounded to TF32 (as cvt.rna), lo =
+// x - hi rounded to TF32 too (left unrounded, the mma would truncate it: a
+// bias that 48 recurrent steps compound), and a product is a_hi b_lo + a_lo
+// b_hi + a_hi b_hi in float32 sums (mma.sync m16n8k8 .tf32), an error of
+// about 2^-21 of a product, as JAX's Precision.HIGHEST on the MXU; one-pass
+// TF32 would break the form's 1e-4 agreement. One k8 step is one 8-channel
+// slice of one tap, K ordered (ky, kx, ci) as in bf16, with the channels of
+// a slice permuted (k = q holds channel 2q, k = q + 4 channel 2q + 1) so
+// that a lane's A elements of a row are one 8-byte shared load, at pixel
+// pitches whose 4 consecutive pixels fall in distinct 8-bank groups (pitch(),
+// kPitchS2 for the stride-2 input). The host packs the weights once, already
+// split, in the k8 fragment order (ops/red_scan.py::pack_red_fragments_tf32):
+// one 16-byte load per lane, step and n-tile gives b_hi and b_lo. A is split
+// as it leaves shared memory, in integer operations (tf32, tf32_operand),
+// shared by the n-tiles. Shared memory and the carries stay float32, so the
+// windows double against bf16; each phase reuses the window of its first
+// GEMM's input (x, or h1' at half resolution) for [c | r*h] and u once that
+// GEMM is done, the gates' epilogue copying c across. Phase A takes 16x16
+// tiles up to 16 input channels and 8x16 above; phases B and C take 8x16
+// half-resolution and 16x32 (32x32 under the 3x3 head) tiles where those give
+// every SM a block, else 4x8 and 8x16, so that the eval step's 96x192 first
+// stage still fills the card (make_plan; the plan entry reports grids, shared
+// memory and blocks per SM). A GEMM's M tiles go to the warps in two passes,
+// so that no warp runs a tile past M and no mma sits behind a per-tile test
+// (gemm). The epilogue stays float32: expf for the sigmoid and tanhf, not
+// tanh.approx. Carries are NHWC float32, 2 x (B h w b + B h/2 w/2 2b) values.
+// What bounds it on the card is the mma.sync issue of three TF32 products per
+// multiply-add and the A traffic of N = 8 GEMMs (one split A fragment feeds
+// 3 mma), not the 3xTF32 roof: wgmma would be the next step (PERF.md).
 //
 // The TPU kernel's band layout, lane-sparse half-resolution level and panel
 // loop are Mosaic workarounds and are not copied.
@@ -96,184 +123,6 @@
 #include "common.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------- float32 --
-
-namespace f32 {
-
-enum Epilogue { kRelu = 0, kGates = 1, kCand = 2, kSkipRelu = 3, kBias = 4 };
-enum Kind { kConv = 0, kConvStride2 = 1, kDeconvStride2 = 2 };
-
-constexpr int kBX = 32;
-constexpr int kBY = 8;
-
-struct ConvArgs {
-  const float* in0;  // first input, c0 channels
-  int c0;
-  const float* in1;  // second input (channel concat after in0), c1 channels
-  int c1;
-  int Hi, Wi;
-  const float* w;     // [(c0 + c1) * 9][CO], taps ordered (ci, ky, kx)
-  const float* bias;  // [CO], or null for kRelu
-  float* out0;        // kRelu/kSkipRelu/kBias: output; kGates: r*h
-  float* out1;        // kGates: update gate u
-  float* h;           // kGates: GRU state read; kCand: GRU state updated in place
-  const float* aux;   // kCand: update gate u; kSkipRelu: skip input
-  int Ho, Wo;
-};
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-template <int CO, int EPI, int KIND>
-__global__ void __launch_bounds__(kBX * kBY) cell_conv(ConvArgs a) {
-  extern __shared__ float ws[];
-  const int nci = a.c0 + a.c1;
-  const int nw = nci * 9 * CO;
-  for (int i = threadIdx.y * kBX + threadIdx.x; i < nw; i += kBX * kBY) ws[i] = a.w[i];
-  __syncthreads();
-  const int ox = blockIdx.x * kBX + threadIdx.x;
-  const int oy = blockIdx.y * kBY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (ox >= a.Wo || oy >= a.Ho) return;
-
-  float acc[CO];
-#pragma unroll
-  for (int co = 0; co < CO; ++co) acc[co] = 0.f;
-  const size_t plane = static_cast<size_t>(a.Hi) * a.Wi;
-  const float* in0 = a.in0 + static_cast<size_t>(b) * a.c0 * plane;
-  const float* in1 = a.in1 + static_cast<size_t>(b) * a.c1 * plane;
-  for (int ci = 0; ci < nci; ++ci) {
-    const float* p = ci < a.c0 ? in0 + ci * plane : in1 + (ci - a.c0) * plane;
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      int iy;
-      if (KIND == kDeconvStride2) {
-        const int t = oy + 1 - ky;  // oy = 2*iy - 1 + ky
-        if (t & 1) continue;
-        iy = t >> 1;
-      } else {
-        iy = oy * (KIND == kConvStride2 ? 2 : 1) - 1 + ky;
-      }
-      if (iy < 0 || iy >= a.Hi) continue;
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        int ix;
-        if (KIND == kDeconvStride2) {
-          const int t = ox + 1 - kx;
-          if (t & 1) continue;
-          ix = t >> 1;
-        } else {
-          ix = ox * (KIND == kConvStride2 ? 2 : 1) - 1 + kx;
-        }
-        if (ix < 0 || ix >= a.Wi) continue;
-        const float xv = p[static_cast<size_t>(iy) * a.Wi + ix];
-        const float* wr = ws + (ci * 9 + ky * 3 + kx) * CO;
-#pragma unroll
-        for (int co = 0; co < CO; ++co) acc[co] = fmaf(wr[co], xv, acc[co]);
-      }
-    }
-  }
-
-  const size_t po = static_cast<size_t>(a.Ho) * a.Wo;
-  const size_t pix = static_cast<size_t>(oy) * a.Wo + ox;
-  if constexpr (EPI == kRelu) {
-    float* o = a.out0 + static_cast<size_t>(b) * CO * po + pix;
-#pragma unroll
-    for (int co = 0; co < CO; ++co) o[co * po] = fmaxf(acc[co], 0.f);
-  } else if constexpr (EPI == kGates) {
-    constexpr int HID = CO / 2;
-    const size_t off = static_cast<size_t>(b) * HID * po + pix;
-    const float* h = a.h + off;
-    float* rh = a.out0 + off;
-    float* ug = a.out1 + off;
-#pragma unroll
-    for (int k = 0; k < HID; ++k) {
-      const float r = sigmoid(acc[k] + a.bias[k]);
-      const float u = sigmoid(acc[HID + k] + a.bias[HID + k]);
-      rh[k * po] = r * h[k * po];
-      ug[k * po] = u;
-    }
-  } else if constexpr (EPI == kCand) {
-    const size_t off = static_cast<size_t>(b) * CO * po + pix;
-    float* h = a.h + off;
-    const float* ug = a.aux + off;
-#pragma unroll
-    for (int k = 0; k < CO; ++k) {
-      const float c = tanhf(acc[k] + a.bias[k]);
-      const float u = ug[k * po];
-      h[k * po] = u * h[k * po] + (1.f - u) * c;
-    }
-  } else if constexpr (EPI == kSkipRelu) {
-    const size_t off = static_cast<size_t>(b) * CO * po + pix;
-    const float* skip = a.aux + off;
-    float* o = a.out0 + off;
-#pragma unroll
-    for (int co = 0; co < CO; ++co) o[co * po] = fmaxf(acc[co] + a.bias[co] + skip[co * po], 0.f);
-  } else {
-    float* o = a.out0 + static_cast<size_t>(b) * CO * po + pix;
-#pragma unroll
-    for (int co = 0; co < CO; ++co) o[co * po] = acc[co] + a.bias[co];
-  }
-}
-
-template <int CO, int EPI, int KIND>
-void launch(const ConvArgs& a, int B, cudaStream_t s) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.Wo + kBX - 1) / kBX, (a.Ho + kBY - 1) / kBY, B);
-  const size_t smem = static_cast<size_t>(a.c0 + a.c1) * 9 * CO * sizeof(float);
-  cell_conv<CO, EPI, KIND><<<grid, block, smem, s>>>(a);
-}
-
-// weights: wc1, wg1, bg1, wn1, bn1, wc2, wg2, bg2, wn2, bn2, wu1, bu1, wh, bh
-template <int BASE>
-int run(int cin, int up, int D, int B, int h, int w, const float* vol, const float* const* wt,
-        float* cost, float* scratch, cudaStream_t s) {
-  constexpr int b = BASE;
-  const int hh = h / 2, wh = w / 2;
-  const size_t n1 = static_cast<size_t>(B) * b * h * w;
-  const size_t n2 = static_cast<size_t>(B) * 2 * b * hh * wh;
-  float* h1 = scratch;
-  float* h2 = h1 + n1;
-  float* c1 = h2 + n2;
-  float* rh1 = c1 + n1;
-  float* ug1 = rh1 + n1;
-  float* u1 = ug1 + n1;
-  float* c2 = u1 + n1;
-  float* rh2 = c2 + n2;
-  float* ug2 = rh2 + n2;
-  cudaError_t e = cudaMemsetAsync(h1, 0, (n1 + n2) * sizeof(float), s);  // zero GRU states
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int oh = up ? 2 * h : h, ow = up ? 2 * w : w;
-  for (int d = 0; d < D; ++d) {
-    const float* x = vol + static_cast<size_t>(d) * B * cin * h * w;
-    float* out = cost + static_cast<size_t>(d) * B * oh * ow;
-    launch<b, kRelu, kConv>(
-        ConvArgs{x, cin, nullptr, 0, h, w, wt[0], nullptr, c1, nullptr, nullptr, nullptr, h, w}, B, s);
-    launch<2 * b, kGates, kConv>(
-        ConvArgs{c1, b, h1, b, h, w, wt[1], wt[2], rh1, ug1, h1, nullptr, h, w}, B, s);
-    launch<b, kCand, kConv>(
-        ConvArgs{c1, b, rh1, b, h, w, wt[3], wt[4], nullptr, nullptr, h1, ug1, h, w}, B, s);
-    launch<2 * b, kRelu, kConvStride2>(
-        ConvArgs{h1, b, nullptr, 0, h, w, wt[5], nullptr, c2, nullptr, nullptr, nullptr, hh, wh}, B, s);
-    launch<4 * b, kGates, kConv>(
-        ConvArgs{c2, 2 * b, h2, 2 * b, hh, wh, wt[6], wt[7], rh2, ug2, h2, nullptr, hh, wh}, B, s);
-    launch<2 * b, kCand, kConv>(
-        ConvArgs{c2, 2 * b, rh2, 2 * b, hh, wh, wt[8], wt[9], nullptr, nullptr, h2, ug2, hh, wh}, B, s);
-    launch<b, kSkipRelu, kDeconvStride2>(
-        ConvArgs{h2, 2 * b, nullptr, 0, hh, wh, wt[10], wt[11], u1, nullptr, nullptr, h1, h, w}, B, s);
-    if (up)
-      launch<1, kBias, kDeconvStride2>(
-          ConvArgs{u1, b, nullptr, 0, h, w, wt[12], wt[13], out, nullptr, nullptr, nullptr, oh, ow}, B, s);
-    else
-      launch<1, kBias, kConv>(
-          ConvArgs{u1, b, nullptr, 0, h, w, wt[12], wt[13], out, nullptr, nullptr, nullptr, oh, ow}, B, s);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
-}
-
-}  // namespace f32
 
 // ------------------------------------------------- bfloat16, tensor cores --
 
@@ -885,35 +734,649 @@ int run_cin(int cin, int up, int D, int B, int h, int w, const bf16* vol, const 
 
 }  // namespace tc
 
-}  // namespace
+// ------------------------------------------- float32, split TF32 (3xTF32) --
 
-// K3 in float32: the whole recurrence of one stage. weights: wc1, wg1, bg1,
-// wn1, bn1, wc2, wg2, bg2, wn2, bn2, wu1, bu1, wh, bh (ops/red_scan.py::
-// pack_red_weights). Returns 0 or the first launch error.
-extern "C" int adamvs_red_scan_f32(int base, int cin, int up, int D, int B, int h, int w,
-                                   const void* vol, const void* wc1, const void* wg1,
-                                   const void* bg1, const void* wn1, const void* bn1,
-                                   const void* wc2, const void* wg2, const void* bg2,
-                                   const void* wn2, const void* bn2, const void* wu1,
-                                   const void* bu1, const void* wh, const void* bh, void* cost,
-                                   void* scratch, void* stream) {
-  const float* wt[14] = {
-      static_cast<const float*>(wc1), static_cast<const float*>(wg1),
-      static_cast<const float*>(bg1), static_cast<const float*>(wn1),
-      static_cast<const float*>(bn1), static_cast<const float*>(wc2),
-      static_cast<const float*>(wg2), static_cast<const float*>(bg2),
-      static_cast<const float*>(wn2), static_cast<const float*>(bn2),
-      static_cast<const float*>(wu1), static_cast<const float*>(bu1),
-      static_cast<const float*>(wh), static_cast<const float*>(bh)};
-  const float* v = static_cast<const float*>(vol);
-  float* c = static_cast<float*>(cost);
-  float* sc = static_cast<float*>(scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+namespace f32 {
+
+using tc::cdiv;
+using tc::Conv3Taps;
+using tc::cp_async;
+using tc::cp_commit;
+using tc::cp_wait;
+using tc::DeconvTaps;
+using tc::pitch;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// pixel pitch (floats) of the stride-2 convolution's input, 8 channels: output
+// pixels 1 apart read input pixels 24 floats apart, so 4 of them fall in
+// distinct 8-bank groups
+constexpr int kPitchS2 = 12;
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero): a float32 bit pattern whose low 13 mantissa bits are zero. Two
+// integer operations; cvt.rna compiles to four on sm_90 (a range test and a
+// select besides), and the split is most of the ALU work of the GEMMs.
+__device__ __forceinline__ uint32_t tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x as an mma operand rounded to TF32: the tensor cores read the top 19 bits
+// of a .tf32 operand and ignore the low 13, so adding half of the dropped
+// unit is the whole of the rounding (the same value as tf32(x)).
+__device__ __forceinline__ uint32_t tf32_operand(float x) { return __float_as_uint(x) + 0x1000u; }
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+// One warp's M tiles of an implicit GEMM over M rows, float32 operands as
+// three TF32 products: a_hi b_lo + a_lo b_hi + a_hi b_hi, float32 sums
+// (x = hi + lo, each rounded to TF32; a_lo b_lo, ~2^-22 of the product, is
+// left out). Tile i of the warp starts at row 16 (warp + kWarps (T0 + i));
+// the warp runs all MT of them, or none without `run`. Row m (clamped to
+// M-1, whose result is dropped) is output pixel (m / OW, m % OW), whose base
+// input position is (S (m / OW), S (m % OW)) in an input region IW pixels
+// wide with G 8-channel slices per pixel at pitch P; tap t reads the pixel
+// (dy(t), dx(t)) further.
+// K runs over (tap, slice), one m16n8k8 step each. Within a slice the k order
+// is permuted: k = q holds channel 2q and k = q + 4 channel 2q + 1, so a lane
+// loads its A elements of one row as one float2 and the packed B fragments
+// are the k8 layout of ops/red_scan.py::mma_fragments. wf: per (step, n-tile,
+// lane) the B fragment's words (b0_hi, b1_hi, b0_lo, b1_lo), read through L1
+// once per warp and step and used by all its tiles. A is loaded a step ahead
+// of the mma that use it and split as it leaves shared memory: hi needs its
+// low bits cleared, since lo = x - hi, but lo goes to the mma as
+// tf32_operand.
+template <typename Taps, int G, int P, int IW, int OW, int S, int NT, int MT, int T0>
+__device__ __forceinline__ void mma_tiles(const float* in, int M, bool run,
+                                          const uint4* __restrict__ wf, float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base[MT][2];  // the lane's rows m and m + 8 at tap (0, 0), channel 2q
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = min(16 * (warp + kWarps * (T0 + t)) + (lane >> 2) + 8 * r, M - 1);
+      base[t][r] = ((m / OW) * S * IW + (m % OW) * S) * P + 2 * (lane & 3);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][nt][i] = 0.f;
+  }
+  if (!run) return;
+  auto load_a = [&](float2 (&dst)[MT][2], int off) {
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) dst[t][r] = load2(in + base[t][r] + off);
+    }
+  };
+  auto tap_off = [](int tap) { return (Taps::dy(tap) * IW + Taps::dx(tap)) * P; };
+  float2 nxt[MT][2];
+  load_a(nxt, tap_off(0));
+  const uint4* w = wf + lane;
+#pragma unroll
+  for (int tap = 0; tap < Taps::n; ++tap) {
+    const int off = tap_off(tap);
+    const int off_next = tap + 1 < Taps::n ? tap_off(tap + 1) : off;
+#pragma unroll
+    for (int g = 0; g < G; ++g, w += NT * 32) {
+      float2 cur[MT][2];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) cur[t][0] = nxt[t][0], cur[t][1] = nxt[t][1];
+      if (g + 1 < G)
+        load_a(nxt, off + 8 * (g + 1));
+      else if (tap + 1 < Taps::n)
+        load_a(nxt, off_next);
+      uint32_t hi[MT][4], lo[MT][4];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        // a0 (row m, k q), a1 (row m + 8, k q), a2 (row m, k q + 4), a3 (row m + 8, k q + 4)
+        const float v[4] = {cur[t][0].x, cur[t][1].x, cur[t][0].y, cur[t][1].y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hi[t][i] = tf32(v[i]);
+          lo[t][i] = tf32_operand(v[i] - __uint_as_float(hi[t][i]));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint4 b = __ldg(w + nt * 32);
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          mma_tf32(acc[t][nt], hi[t], b.z, b.w);
+          mma_tf32(acc[t][nt], lo[t], b.x, b.y);
+          mma_tf32(acc[t][nt], hi[t], b.x, b.y);
+        }
+      }
+    }
+  }
+}
+
+// Tiles T0 .. T0 + MT - 1 of every warp of a GEMM over M rows (see gemm),
+// through their epilogue; with `run` false the warp does nothing.
+template <typename Taps, int G, int P, int IW, int OW, int S, int NT, int NB, int M, int MT, int T0,
+          typename Epi>
+__device__ __forceinline__ void gemm_pass(const float* in, const uint4* wf, const float* bias, bool run,
+                                          Epi& epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[MT][NT][4];
+  mma_tiles<Taps, G, P, IW, OW, S, NT, MT, T0>(in, M, run, wf, acc);
+  if (!run) return;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = nt * 8 + (lane & 3) * 2;
+    if (n >= NB) continue;
+    const float2 bv = bias ? make_float2(__ldg(bias + n), __ldg(bias + n + 1)) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = 16 * (warp + kWarps * (T0 + t)) + (lane >> 2) + 8 * r;
+        if (m < M) epi(m, n, acc[t][nt][2 * r] + bv.x, acc[t][nt][2 * r + 1] + bv.y);
+      }
+  }
+}
+
+// A whole GEMM over M rows (M a constant). Its NB real output channels (the
+// n-tiles may pad) get bias[n] (none when bias is null) and go to epi(m, n,
+// v0, v1) in pairs: row m, channels n and n+1. The M tiles go to the warps
+// in two passes: first every warp takes FULL tiles at once, then the REM
+// tiles left take one warp each while the other warps skip the pass. A
+// warp's tiles within a pass all run: a test of each tile against M around
+// the mma would make the compiler fence every mma with a warp barrier.
+template <typename Taps, int G, int P, int IW, int OW, int S, int NT, int NB, int M, typename Epi>
+__device__ __forceinline__ void gemm(const float* in, const uint4* wf, const float* bias, Epi epi) {
+  constexpr int TILES = cdiv(M, 16), FULL = TILES / kWarps, REM = TILES % kWarps;
+  if constexpr (FULL > 0)
+    gemm_pass<Taps, G, P, IW, OW, S, NT, NB, M, FULL, 0>(in, wf, bias, true, epi);
+  if constexpr (REM > 0)
+    gemm_pass<Taps, G, P, IW, OW, S, NT, NB, M, 1, FULL>(in, wf, bias, (threadIdx.x >> 5) < REM, epi);
+}
+
+// NHWC float32 src [H][W][C] on the RH x RW region whose origin is image pixel
+// (y0, x0) -> shared pixel rows of pitch P from channel C0: CF channels per
+// pixel, C of them loaded and the rest zero; zero outside the image, and
+// everywhere when `zero`. Async, in 16-byte pieces.
+template <int C, int CF, int C0, int P, int RH, int RW>
+__device__ __forceinline__ void load_nhwc(float* dst, const float* src, int H, int W, int y0, int x0,
+                                          bool zero) {
+  static_assert(C % 4 == 0 && CF % 4 == 0 && C0 % 4 == 0 && P % 4 == 0, "16-byte pieces");
+  constexpr int V = CF / 4;
+  for (int i = threadIdx.x; i < RH * RW * V; i += kThreads) {
+    const int p = i / V, v = i % V;
+    const int y = y0 + p / RW, x = x0 + p % RW;
+    const bool valid = v < C / 4 && !zero && y >= 0 && y < H && x >= 0 && x < W;
+    const float* s = valid ? src + (static_cast<size_t>(y) * W + x) * C + 4 * v : src;
+    cp_async<16>(dst + p * P + C0 + 4 * v, s, valid);
+  }
+}
+
+// NCHW float32 src [cin][H][W] on the RH x RW region at image pixel (y0, x0)
+// -> shared NHWC pixel rows of CP channels (cin <= CP) at pitch P, zero
+// outside the image and past cin. An item is 4 channels of one pixel,
+// neighbouring threads on neighbouring pixels: 4 loads and one 16-byte store,
+// 4 items' loads in flight per thread.
+template <int CP, int P, int RH, int RW>
+__device__ __forceinline__ void load_nchw(float* dst, const float* src, int cin, int H, int W, int y0,
+                                          int x0) {
+  constexpr int NP = RH * RW, N = NP * (CP / 4), U = 4;
+  const size_t plane = static_cast<size_t>(H) * W;
+  for (int i0 = threadIdx.x; i0 < N; i0 += U * kThreads) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      const int p = i % NP, c = 4 * (i / NP);
+      const int y = y0 + p / RW, x = x0 + p % RW;
+      float e[4] = {0.f, 0.f, 0.f, 0.f};
+      if (i < N && y >= 0 && y < H && x >= 0 && x < W) {
+        const float* s = src + static_cast<size_t>(y) * W + x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < cin) e[j] = __ldg(s + (c + j) * plane);
+      }
+      v[u] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < N) *reinterpret_cast<float4*>(dst + (i % NP) * P + 4 * (i / NP)) = v[u];
+    }
+  }
+}
+
+// One depth step's tensors; a phase reads the states of parity d&1 (h1, h2)
+// and writes those of the other (h1n, h2n).
+struct Step {
+  const float* x;  // volume slice [B][cin][h][w]
+  const float* h1;  // [B][h][w][b]
+  const float* h2;  // [B][h/2][w/2][2b]
+  float* h1n;
+  float* h2n;
+  float* cost;  // cost slice [B][oh][ow]
+  int cin, h, w;
+  int first;  // d == 0: h1 and h2 read as zero
+};
+
+struct Weights {
+  const uint4 *c1, *g1, *n1, *c2, *g2, *n2, *u1;  // split B fragments; u1: its four phases in turn
+  const float *bg1, *bn1, *bg2, *bn2, *bu1;     // biases
+  const float *wh, *bh;                         // head [(ci, ky, kx)] and its bias
+};
+
+// ---- phase A: c1, GRU1 at full resolution ----
+
+// CP: the volume's channels in shared memory (tc_width). The x window is
+// dead once c1 is computed, so [c1 | r*h1] on the tile + 1 and u on the tile
+// take its place.
+template <int BASE, int CP>
+struct LayoutA {
+  static constexpr int TY = CP <= 16 ? 16 : 8, TX = 16;
+  static constexpr int C2 = 2 * BASE;  // [c1 | h1] channels
+  static constexpr int XH = TY + 6, XW = TX + 6, PX = pitch(CP);
+  static constexpr int GH = TY + 4, GW = TX + 4, PG = pitch(C2);
+  static constexpr int NH = TY + 2, NW = TX + 2;
+  static constexpr int NTG = C2 / 8;
+  static constexpr int XS = XH * XW * PX, GS = GH * GW * PG, NS = NH * NW * PG, US = TY * TX * BASE;
+  static constexpr size_t bytes = ((XS > NS + US ? XS : NS + US) + GS) * sizeof(float);
+};
+
+template <int BASE, int CP>
+__global__ void __launch_bounds__(kThreads, 2) phase_a(Step st, Weights wt) {
+  using L = LayoutA<BASE, CP>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gs = reinterpret_cast<float*>(smem);  // [c1 | h1] on the tile + 2
+  float* xs = gs + L::GS;                      // x on the tile + 3
+  float* ns = xs;                              // then [c1 | r*h1] on the tile + 1
+  float* us = ns + L::NS;                      // and u on the tile
+  const int bi = blockIdx.z, Y0 = blockIdx.y * L::TY, X0 = blockIdx.x * L::TX;
+  const int h = st.h, w = st.w;
+  const size_t hw = static_cast<size_t>(h) * w;
+
+  load_nhwc<BASE, BASE, BASE, L::PG, L::GH, L::GW>(gs, st.h1 + bi * hw * BASE, h, w, Y0 - 2, X0 - 2,
+                                                  st.first);
+  cp_commit();
+  load_nchw<CP, L::PX, L::XH, L::XW>(xs, st.x + bi * st.cin * hw, st.cin, h, w, Y0 - 3, X0 - 3);
+  __syncthreads();
+
+  // c1 = relu(conv1(x)) on the tile + 2, zero outside the image
+  gemm<Conv3Taps, CP / 8, L::PX, L::XW, L::GW, 1, 1, BASE, L::GH * L::GW>(
+      xs, wt.c1, nullptr, [&](int m, int n, float v0, float v1) {
+        const int y = Y0 - 2 + m / L::GW, x = X0 - 2 + m % L::GW;
+        const bool in = y >= 0 && y < h && x >= 0 && x < w;
+        store2(gs + m * L::PG + n, in ? fmaxf(v0, 0.f) : 0.f, in ? fmaxf(v1, 0.f) : 0.f);
+      });
+  cp_wait<0>();  // h1
+  __syncthreads();
+
+  // gates on the tile + 1: c1 and r*h1 to ns, u on the tile
+  gemm<Conv3Taps, L::C2 / 8, L::PG, L::GW, L::NW, 1, L::NTG, 2 * BASE, L::NH * L::NW>(
+      gs, wt.g1, wt.bg1, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::NW, px = m % L::NW;
+        const float* g = gs + ((py + 1) * L::GW + px + 1) * L::PG;
+        if (n < BASE) {
+          const float2 c = load2(g + n), hv = load2(g + BASE + n);
+          store2(ns + m * L::PG + n, c.x, c.y);
+          store2(ns + m * L::PG + BASE + n, sigmoid(v0) * hv.x, sigmoid(v1) * hv.y);
+        } else if (py >= 1 && py <= L::TY && px >= 1 && px <= L::TX) {
+          store2(us + ((py - 1) * L::TX + px - 1) * BASE + n - BASE, sigmoid(v0), sigmoid(v1));
+        }
+      });
+  __syncthreads();
+
+  // candidate on the tile; h1' = u h1 + (1 - u) c
+  float* h1n = st.h1n + bi * hw * BASE;
+  gemm<Conv3Taps, L::C2 / 8, L::PG, L::NW, L::TX, 1, 1, BASE, L::TY * L::TX>(
+      ns, wt.n1, wt.bn1, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::TX, px = m % L::TX;
+        const int y = Y0 + py, x = X0 + px;
+        if (y >= h || x >= w) return;
+        const float2 hv = load2(gs + ((py + 2) * L::GW + px + 2) * L::PG + BASE + n);
+        const float2 u = load2(us + m * BASE + n);
+        const float c0 = tanhf(v0), c1 = tanhf(v1);
+        store2(h1n + (static_cast<size_t>(y) * w + x) * BASE + n, u.x * hv.x + (1.f - u.x) * c0,
+               u.y * hv.y + (1.f - u.y) * c1);
+      });
+}
+
+// ---- phase B: c2, GRU2 at half resolution ----
+
+// TY x TX half-resolution tiles; the h1' footprint is dead once c2 is
+// computed, so [c2 | r*h2] and u take its place
+template <int BASE, int TY_, int TX_>
+struct LayoutB {
+  static constexpr int TY = TY_, TX = TX_;
+  static constexpr int C2 = 2 * BASE, C4 = 4 * BASE;
+  static constexpr int RH = 2 * TY + 9, RW = 2 * TX + 9, P1 = kPitchS2;  // h1' footprint
+  static constexpr int GH = TY + 4, GW = TX + 4, PG = pitch(C4);         // [c2 | h2]
+  static constexpr int NH = TY + 2, NW = TX + 2;                         // [c2 | r*h2]
+  static constexpr int NTC = C2 / 8, NTG = C4 / 8;
+  static constexpr int RS = RH * RW * P1, GS = GH * GW * PG, NS = NH * NW * PG, US = TY * TX * C2;
+  static constexpr size_t bytes = ((RS > NS + US ? RS : NS + US) + GS) * sizeof(float);
+};
+
+template <int BASE, int TY, int TX>
+__global__ void __launch_bounds__(kThreads, 2) phase_b(Step st, Weights wt) {
+  using L = LayoutB<BASE, TY, TX>;
+  constexpr int C2 = L::C2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gs = reinterpret_cast<float*>(smem);  // [c2 | h2] on the tile + 2
+  float* rs = gs + L::GS;                      // h1' on the tile's footprint
+  float* ns = rs;                              // then [c2 | r*h2] on the tile + 1
+  float* us = ns + L::NS;                      // and u on the tile
+  const int bi = blockIdx.z, Y0 = blockIdx.y * TY, X0 = blockIdx.x * TX;
+  const int h = st.h, w = st.w, hh = h / 2, wh = w / 2;
+  const size_t hw = static_cast<size_t>(h) * w, qw = static_cast<size_t>(hh) * wh;
+
+  // half pixel Y reads full rows 2Y-1 .. 2Y+1; for Y in [Y0-2, Y0+TY+2) that is
+  // rows 2Y0-5 .. 2Y0+2TY+3
+  load_nhwc<BASE, 8, 0, L::P1, L::RH, L::RW>(rs, st.h1n + bi * hw * BASE, h, w, 2 * Y0 - 5,
+                                            2 * X0 - 5, false);
+  cp_commit();
+  load_nhwc<C2, C2, C2, L::PG, L::GH, L::GW>(gs, st.h2 + bi * qw * C2, hh, wh, Y0 - 2, X0 - 2,
+                                            st.first);
+  cp_commit();
+  cp_wait<1>();  // h1'
+  __syncthreads();
+
+  // c2 = relu(conv2 stride 2(h1')) on the tile + 2, zero outside the half image
+  gemm<Conv3Taps, 1, L::P1, L::RW, L::GW, 2, L::NTC, C2, L::GH * L::GW>(
+      rs, wt.c2, nullptr, [&](int m, int n, float v0, float v1) {
+        const int y = Y0 - 2 + m / L::GW, x = X0 - 2 + m % L::GW;
+        const bool in = y >= 0 && y < hh && x >= 0 && x < wh;
+        store2(gs + m * L::PG + n, in ? fmaxf(v0, 0.f) : 0.f, in ? fmaxf(v1, 0.f) : 0.f);
+      });
+  cp_wait<0>();  // h2
+  __syncthreads();
+
+  // gates on the tile + 1: c2 and r*h2 to ns, u on the tile
+  gemm<Conv3Taps, L::C4 / 8, L::PG, L::GW, L::NW, 1, L::NTG, L::C4, L::NH * L::NW>(
+      gs, wt.g2, wt.bg2, [&](int m, int n, float v0, float v1) {
+        const int py = m / L::NW, px = m % L::NW;
+        const float* g = gs + ((py + 1) * L::GW + px + 1) * L::PG;
+        if (n < C2) {
+          const float2 c = load2(g + n), hv = load2(g + C2 + n);
+          store2(ns + m * L::PG + n, c.x, c.y);
+          store2(ns + m * L::PG + C2 + n, sigmoid(v0) * hv.x, sigmoid(v1) * hv.y);
+        } else if (py >= 1 && py <= TY && px >= 1 && px <= TX) {
+          store2(us + ((py - 1) * TX + px - 1) * C2 + n - C2, sigmoid(v0), sigmoid(v1));
+        }
+      });
+  __syncthreads();
+
+  float* h2n = st.h2n + bi * qw * C2;
+  gemm<Conv3Taps, L::C4 / 8, L::PG, L::NW, TX, 1, L::NTC, C2, TY * TX>(
+      ns, wt.n2, wt.bn2, [&](int m, int n, float v0, float v1) {
+        const int py = m / TX, px = m % TX;
+        const int y = Y0 + py, x = X0 + px;
+        if (y >= hh || x >= wh) return;
+        const float2 hv = load2(gs + ((py + 2) * L::GW + px + 2) * L::PG + C2 + n);
+        const float2 u = load2(us + m * C2 + n);
+        const float c0 = tanhf(v0), c1 = tanhf(v1);
+        store2(h2n + (static_cast<size_t>(y) * wh + x) * C2 + n, u.x * hv.x + (1.f - u.x) * c0,
+               u.y * hv.y + (1.f - u.y) * c1);
+      });
+}
+
+// ---- phase C: u1 and the head ----
+
+// TY x TX full-resolution tiles, both even (so the half origin is whole)
+template <int BASE, int TY_, int TX_>
+struct LayoutC {
+  static constexpr int TY = TY_, TX = TX_;
+  static constexpr int C2 = 2 * BASE, G = C2 / 8;
+  static constexpr int UH = TY + 2, UW = TX + 2, PU = 8;                  // u1, h1' on the tile + 1
+  static constexpr int QH = TY / 2 + 2, QW = TX / 2 + 2, PQ = pitch(C2);  // h2'
+  static constexpr int SH = TY / 2 + 1, SW = TX / 2 + 1;  // pixels of one output phase
+  // fragment entries of the output phases (0, 0), (0, 1), (1, 0): 1, 2, 2 taps
+  static constexpr int F00 = 1 * G * 32, F01 = 2 * G * 32, F10 = 2 * G * 32;
+  static constexpr int US = UH * UW * PU, QS = QH * QW * PQ;
+  static constexpr size_t bytes = (2 * US + QS + 9 * BASE) * sizeof(float);
+};
+
+// u1 = relu(deconv(h2') + b + h1') at the region pixels of output phase (A, C)
+template <typename L, int BASE, int A, int C>
+__device__ __forceinline__ void u1_phase(const float* qs, const float* hs, float* us, const uint4* wf,
+                                         const float* bias, int Y0, int X0, int h, int w) {
+  gemm<DeconvTaps<A, C>, L::G, L::PQ, L::QW, L::SW, 1, 1, BASE, L::SH * L::SW>(
+      qs, wf, bias, [&](int m, int n, float v0, float v1) {
+        const int py = 2 * (m / L::SW) + 1 - A, px = 2 * (m % L::SW) + 1 - C;
+        const int y = Y0 - 1 + py, x = X0 - 1 + px;
+        const int o = (py * L::UW + px) * L::PU + n;
+        float2 v = make_float2(0.f, 0.f);
+        if (y >= 0 && y < h && x >= 0 && x < w) {
+          const float2 sk = load2(hs + o);
+          v = make_float2(fmaxf(v0 + sk.x, 0.f), fmaxf(v1 + sk.y, 0.f));
+        }
+        store2(us + o, v.x, v.y);
+      });
+}
+
+template <int BASE, int UP, int TY, int TX>
+__global__ void __launch_bounds__(kThreads, 2) phase_c(Step st, Weights wt) {
+  using L = LayoutC<BASE, TY, TX>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hs = reinterpret_cast<float*>(smem);  // h1' on the tile + 1
+  float* us = hs + L::US;                      // u1 on the tile + 1
+  float* qs = us + L::US;                      // h2' around the tile
+  float* whs = qs + L::QS;
+  const int bi = blockIdx.z, Y0 = blockIdx.y * TY, X0 = blockIdx.x * TX;
+  const int h = st.h, w = st.w, hh = h / 2, wh = w / 2;
+  const size_t hw = static_cast<size_t>(h) * w, qw = static_cast<size_t>(hh) * wh;
+
+  for (int i = threadIdx.x; i < 9 * BASE / 4; i += kThreads) cp_async<16>(whs + 4 * i, wt.wh + 4 * i, true);
+  load_nhwc<L::C2, L::C2, 0, L::PQ, L::QH, L::QW>(qs, st.h2n + bi * qw * L::C2, hh, wh, Y0 / 2 - 1,
+                                                  X0 / 2 - 1, false);
+  load_nhwc<BASE, BASE, 0, L::PU, L::UH, L::UW>(hs, st.h1n + bi * hw * BASE, h, w, Y0 - 1, X0 - 1,
+                                                false);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  u1_phase<L, BASE, 0, 0>(qs, hs, us, wt.u1, wt.bu1, Y0, X0, h, w);
+  u1_phase<L, BASE, 0, 1>(qs, hs, us, wt.u1 + L::F00, wt.bu1, Y0, X0, h, w);
+  u1_phase<L, BASE, 1, 0>(qs, hs, us, wt.u1 + L::F00 + L::F01, wt.bu1, Y0, X0, h, w);
+  u1_phase<L, BASE, 1, 1>(qs, hs, us, wt.u1 + L::F00 + L::F01 + L::F10, wt.bu1, Y0, X0, h, w);
+  __syncthreads();
+
+  // the head on the CUDA cores in float32; whs[(ci * 3 + ky) * 3 + kx], u1 at region (py + 1, px + 1)
+  const float bh = __ldg(wt.bh);
+  auto u1_at = [&](int py, int px, float (&v)[BASE]) {  // u1's channels at region pixel (py, px)
+#pragma unroll
+    for (int j = 0; j < BASE / 4; ++j) {
+      const float4 q = *reinterpret_cast<const float4*>(us + (py * L::UW + px) * L::PU + 4 * j);
+      v[4 * j] = q.x, v[4 * j + 1] = q.y, v[4 * j + 2] = q.z, v[4 * j + 3] = q.w;
+    }
+  };
+  auto dot = [&](const float (&v)[BASE], int ky, int kx, float s) {
+#pragma unroll
+    for (int n = 0; n < BASE; ++n) s = fmaf(v[n], whs[(n * 3 + ky) * 3 + kx], s);
+    return s;
+  };
+  for (int i = threadIdx.x; i < TY * TX; i += kThreads) {
+    const int py = i / TX, px = i % TX;
+    const int y = Y0 + py, x = X0 + px;
+    if (y >= h || x >= w) continue;
+    float v[BASE];
+    if constexpr (UP) {
+      // the 2x2 outputs (2y + a, 2x + c): an even output row reads ky=1 at row y, an odd one
+      // ky=2 at y and ky=0 at y+1 (oy = 2 iy - 1 + ky); columns alike
+      float o00 = bh, o01 = bh, o10 = bh, o11 = bh;
+      u1_at(py + 1, px + 1, v);
+      o00 = dot(v, 1, 1, o00), o01 = dot(v, 1, 2, o01), o10 = dot(v, 2, 1, o10), o11 = dot(v, 2, 2, o11);
+      u1_at(py + 1, px + 2, v);
+      o01 = dot(v, 1, 0, o01), o11 = dot(v, 2, 0, o11);
+      u1_at(py + 2, px + 1, v);
+      o10 = dot(v, 0, 1, o10), o11 = dot(v, 0, 2, o11);
+      u1_at(py + 2, px + 2, v);
+      o11 = dot(v, 0, 0, o11);
+      float* out = st.cost + static_cast<size_t>(bi) * 4 * hw + (2 * static_cast<size_t>(y)) * 2 * w + 2 * x;
+      store2(out, o00, o01);
+      store2(out + 2 * w, o10, o11);
+    } else {
+      float o = bh;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          u1_at(py + ky, px + kx, v);
+          o = dot(v, ky, kx, o);
+        }
+      st.cost[bi * hw + static_cast<size_t>(y) * w + x] = o;
+    }
+  }
+}
+
+// The three launches of a depth step: per phase its kernel, grid, tile and
+// shared memory. Phase A's tile follows the volume's width; phases B and C
+// take their larger tile where it gives every SM a block, else a smaller one,
+// so that small frames (the eval step's first stage) still fill the card.
+struct Plan {
+  void (*fn[3])(Step, Weights);
+  dim3 grid[3];
+  int tile[3][2];
+  size_t smem[3];
+};
+
+template <typename L, typename K>
+void set_phase(Plan& p, int i, K kernel, int h, int w, int B) {
+  p.fn[i] = kernel;
+  p.grid[i] = dim3(cdiv(w, L::TX), cdiv(h, L::TY), B);
+  p.tile[i][0] = L::TY;
+  p.tile[i][1] = L::TX;
+  p.smem[i] = L::bytes;
+}
+
+template <int BASE, int CP, int UP>
+cudaError_t make_plan(int B, int h, int w, Plan& p) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int hh = h / 2, wh = w / 2;
+  set_phase<LayoutA<BASE, CP>>(p, 0, phase_a<BASE, CP>, h, w, B);
+  if (cdiv(wh, 16) * cdiv(hh, 8) * B >= sms)
+    set_phase<LayoutB<BASE, 8, 16>>(p, 1, phase_b<BASE, 8, 16>, hh, wh, B);
+  else
+    set_phase<LayoutB<BASE, 4, 8>>(p, 1, phase_b<BASE, 4, 8>, hh, wh, B);
+  constexpr int CY = UP ? 16 : 32;  // the 2x head's outputs favour the shorter tile
+  if (cdiv(w, 32) * cdiv(h, CY) * B >= sms)
+    set_phase<LayoutC<BASE, CY, 32>>(p, 2, phase_c<BASE, UP, CY, 32>, h, w, B);
+  else
+    set_phase<LayoutC<BASE, 8, 16>>(p, 2, phase_c<BASE, UP, 8, 16>, h, w, B);
+  for (int i = 0; i < 3; ++i)
+    if ((e = tc::allow_smem(p.fn[i], p.smem[i])) != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
+// The recurrence over D depth steps, or with `info` only the plan: per phase
+// grid x, y, z, tile rows, tile columns, shared bytes and blocks per SM.
+template <int BASE, int CP, int UP>
+int run(int cin, int D, int B, int h, int w, const float* vol, const Weights& wt, float* cost,
+        float* scratch, cudaStream_t s, int* info) {
+  Plan p;
+  cudaError_t e = make_plan<BASE, CP, UP>(B, h, w, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (info) {
+    for (int i = 0; i < 3; ++i) {
+      int* o = info + 7 * i;
+      o[0] = p.grid[i].x, o[1] = p.grid[i].y, o[2] = p.grid[i].z;
+      o[3] = p.tile[i][0], o[4] = p.tile[i][1], o[5] = static_cast<int>(p.smem[i]);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(o + 6, p.fn[i], kThreads, p.smem[i]);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return 0;
+  }
+  const int hh = h / 2, wh = w / 2;
+  const size_t n1 = static_cast<size_t>(B) * h * w * BASE;
+  const size_t n2 = static_cast<size_t>(B) * hh * wh * 2 * BASE;
+  float* h1[2] = {scratch, scratch + n1};
+  float* h2[2] = {scratch + 2 * n1, scratch + 2 * n1 + n2};
+  const size_t out = static_cast<size_t>(B) * h * w * (UP ? 4 : 1);
+  for (int d = 0; d < D; ++d) {
+    const int q = d & 1;
+    const Step st{vol + static_cast<size_t>(d) * B * cin * h * w, h1[q], h2[q], h1[1 - q], h2[1 - q],
+                  cost + d * out, cin, h, w, d == 0};
+    for (int i = 0; i < 3; ++i) p.fn[i]<<<p.grid[i], kThreads, p.smem[i], s>>>(st, wt);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+template <int BASE, int CP>
+int run_up(int cin, int up, int D, int B, int h, int w, const float* vol, const Weights& wt,
+           float* cost, float* scratch, cudaStream_t s, int* info) {
+  return up ? run<BASE, CP, 1>(cin, D, B, h, w, vol, wt, cost, scratch, s, info)
+            : run<BASE, CP, 0>(cin, D, B, h, w, vol, wt, cost, scratch, s, info);
+}
+
+template <int BASE>
+int run_cin(int cin, int up, int D, int B, int h, int w, const float* vol, const Weights& wt,
+            float* cost, float* scratch, cudaStream_t s, int* info) {
+  if (cin < 1) return adamvs::kBadChannels;
+  if (cin <= 8) return run_up<BASE, 8>(cin, up, D, B, h, w, vol, wt, cost, scratch, s, info);
+  if (cin <= 16) return run_up<BASE, 16>(cin, up, D, B, h, w, vol, wt, cost, scratch, s, info);
+  if (cin <= 32) return run_up<BASE, 32>(cin, up, D, B, h, w, vol, wt, cost, scratch, s, info);
+  if (cin <= 64) return run_up<BASE, 64>(cin, up, D, B, h, w, vol, wt, cost, scratch, s, info);
+  return adamvs::kBadChannels;
+}
+
+int run_base(int base, int cin, int up, int D, int B, int h, int w, const float* vol,
+             const Weights& wt, float* cost, float* scratch, cudaStream_t s, int* info) {
   switch (base) {
-    case 4: return f32::run<4>(cin, up, D, B, h, w, v, wt, c, sc, s);
-    case 8: return f32::run<8>(cin, up, D, B, h, w, v, wt, c, sc, s);
+    case 4: return run_cin<4>(cin, up, D, B, h, w, vol, wt, cost, scratch, s, info);
+    case 8: return run_cin<8>(cin, up, D, B, h, w, vol, wt, cost, scratch, s, info);
     default: return adamvs::kBadBase;
   }
+}
+
+}  // namespace f32
+
+}  // namespace
+
+// K3 in float32 on the tensor cores (split TF32): the whole recurrence of one
+// stage, three launches per depth step. Split B fragments wc1, wg1, wn1, wc2,
+// wg2, wn2, wu1 and float32 bg1, bn1, bg2, bn2, bu1, wh, bh (ops/red_scan.py::
+// pack_red_fragments_tf32). Returns 0 or the first launch error.
+extern "C" int adamvs_red_scan_f32(int base, int cin, int up, int D, int B, int h, int w,
+                                   const void* vol, const void* wc1, const void* wg1,
+                                   const void* wn1, const void* wc2, const void* wg2,
+                                   const void* wn2, const void* wu1, const void* bg1,
+                                   const void* bn1, const void* bg2, const void* bn2,
+                                   const void* bu1, const void* wh, const void* bh, void* cost,
+                                   void* scratch, void* stream) {
+  const f32::Weights wt{
+      static_cast<const uint4*>(wc1), static_cast<const uint4*>(wg1),
+      static_cast<const uint4*>(wn1), static_cast<const uint4*>(wc2),
+      static_cast<const uint4*>(wg2), static_cast<const uint4*>(wn2),
+      static_cast<const uint4*>(wu1), static_cast<const float*>(bg1),
+      static_cast<const float*>(bn1), static_cast<const float*>(bg2),
+      static_cast<const float*>(bn2), static_cast<const float*>(bu1),
+      static_cast<const float*>(wh), static_cast<const float*>(bh)};
+  return f32::run_base(base, cin, up, D, B, h, w, static_cast<const float*>(vol), wt,
+                       static_cast<float*>(cost), static_cast<float*>(scratch),
+                       static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The float32 form's launches for one stage's shapes, without running them:
+// info[7 i ..] for phase i (A, B, C) = grid x, y, z, tile rows, tile columns,
+// shared bytes, blocks per SM. Returns 0 or an error.
+extern "C" int adamvs_red_scan_f32_plan(int base, int cin, int up, int B, int h, int w, void* info) {
+  return f32::run_base(base, cin, up, 1, B, h, w, nullptr, f32::Weights{}, nullptr, nullptr, nullptr,
+                       static_cast<int*>(info));
 }
 
 // K3 in bfloat16 on the tensor cores: the whole recurrence of one stage, three

@@ -11,8 +11,10 @@ Phases, in order; any failure exits nonzero:
 2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source;
    registers and spills of each sweep and K5 instance (no instance may
    spill); the atomics in the sweep_bwd library's
-   SASS (information); the count of tensor-core instructions (HMMA, HGMMA)
-   in the red_scan library's SASS, which must not be 0;
+   SASS (information); the tensor-core instructions (HMMA, HGMMA) of K3's
+   bf16 and float32 phase kernels in the red_scan library's SASS: the bf16
+   kernels must have some and the float32 ones TF32 mma only (3xTF32),
+   with the float32 kernels' registers and spills;
 3. kernels: K1 (corr sweep), K2 (fused sweep), K3 (red-scan recurrence), K4
    (variance sweep) and K6/K7 (bilinear sampler, one hypothesis slice per
    source view) against their plain PyTorch versions at every stage shape
@@ -24,8 +26,9 @@ Phases, in order; any failure exits nonzero:
    model), compared and timed per scan map; for K3
    its TFLOP/s, the bytes its phases move, the card's time in each phase (a
    trace) and its bf16 error against the float32 plain version
-   (information); K3's float32 form at the eval step's shapes (384x768
-   crop); then K5, the backward of the sweeps in its three modes
+   (information); K3's float32 form (3xTF32) at the eval step's shapes
+   (384x768 crop) and at the full frame's, with each phase's grid, tile,
+   shared memory and blocks per SM and its FMA and 3xTF32 roofs; then K5, the backward of the sweeps in its three modes
    (corr, fused, var), against the autograd VJP of the plain volumes at the
    training stage shapes (384x768 crop), float32 and bfloat16, timed in
    both with the forward's geometry handed in, as the training forms
@@ -71,7 +74,8 @@ Phases, in order; any failure exits nonzero:
    CPU under a jitter of the weights by about 4 float32 steps;
 5. main paths, each with every launch counter set to 0 just before it and
    read just after: PredictEngine with seeded random weights in bfloat16 at
-   full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map), on
+   full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map; then
+   the same fused form in float32, adamvs_f32, K3's float32 form), on
    MS-REDNet in its fused form and with the precomp regulariser (3 requests
    each: K4 3 per map; its recurrence timed per stage beside the stepped
    one, which the fused path times with the layers around it) and in its scan
@@ -128,7 +132,14 @@ Phases, in order; any failure exits nonzero:
 instead times K2 and K4 (csrc/sweep_fuse.cu), K5-fused and K5-var
 (csrc/sweep_bwd.cu), K1 (csrc/sweep_fuse.cu), K5-corr (csrc/sweep_bwd.cu)
 and K6/K7-bwd (csrc/bilinear_sample.cu) at their stage shapes as built and
-with parts of their work left out or their tiles reshaped (``ablate``). ``python3 chip_smoke.py --probe-parallel [1] [2] [3] [4] [5]``
+with parts of their work left out or their tiles reshaped (``ablate``). ``python3 chip_smoke.py --k3-f32 [TREE]`` instead times K3's float32 form of the
+port in TREE (a checkout's root) at both sets of shapes, as built and with
+its kernels emptied (for the direct kernels of PR 1 also without their weight
+loads; for the three-phase kernels also with one TF32 product of the three,
+and with the operands unsplit), the fused AdaMVS eval step and the float32
+fused map
+(``k3_f32_probe``), to compare two versions in one call.
+``python3 chip_smoke.py --probe-parallel [1] [2] [3] [4] [5]``
 instead measures what the parallel paths' checks and costs rest on
 (``probe_parallel``).
 """
@@ -167,10 +178,11 @@ DLOSSW = (0.5, 1.0, 2.0)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, float32 outside the tensor cores,
-# dense bf16 tensor cores
+# dense bf16 and TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 
 # tolerance on max|kernel - plain| relative to max|plain|
 TOL = {
@@ -223,6 +235,9 @@ SCAN_STEP = {"adamvs": sum(NDEPTHS) + CORR_BLOCKS, "msrednet": sum(NDEPTHS)}
 # (path, model, model options, requests, launches per depth map)
 PATHS = (
     ("adamvs", "adamvs", {}, 3, {"K1": 1, "K2": 3, "K3": 3}),
+    # the same fused form in float32 (predict --sweep_impl fused --reg_impl pallas at the
+    # CLI's default dtype): K3's float32 form at the full frame
+    ("adamvs_f32", "adamvs", {}, 3, {"K1": 1, "K2": 3, "K3": 3}),
     ("msrednet_fused", "msrednet", {"sweep_impl": "fused"}, 3, {"K4": 3}),
     ("msrednet_precomp", "msrednet", {"sweep_impl": "fused", "reg_impl": "precomp"}, 3,
      {"K4": 3}),
@@ -242,11 +257,12 @@ PATHS = (
      {"K6/7": SCAN_STEP["adamvs"]}),
 )
 # paths held card against CPU at base 8 only (phase_reference)
-BASE8_ONLY = ("adamvs_precomp", "adamvs_scan_pallas2bf16")
+BASE8_ONLY = ("adamvs_precomp", "adamvs_scan_pallas2bf16", "adamvs_f32")
 # forms held card against CPU beside the paths: MS-REDNet with the fpn feature net
 REFERENCE_FORMS = (("msrednet_fpn", "msrednet", {"sweep_impl": "fused", "arch_mode": "fpn"}),)
 # the dtype of each path: bf16, but the AdaMVS scan forms at the predict CLI's default
-PATH_DTYPE = {"adamvs_scan": torch.float32, "adamvs_scan_pallas2bf16": torch.float32}
+PATH_DTYPE = {"adamvs_scan": torch.float32, "adamvs_scan_pallas2bf16": torch.float32,
+              "adamvs_f32": torch.float32}
 # (training path, model, model options, train steps, launches per train step, launches
 # of the eval step); each path ends with one eval_epoch on the batch
 TRAIN_PATHS = (
@@ -440,13 +456,33 @@ def phase_build() -> None:
         ptx.pop((m.group(1), m.group(2)), None)
     if len(ptx) or "sample_bwd_tile_kernel" not in sass:
         fail(f"bilinear_sample: backward kernels missing from the SASS or ptxas report ({ptx})")
-    # the bf16 K3 must reach the tensor cores: count its matrix instructions in the SASS
+    # both K3 forms run on the tensor cores: count the matrix instructions of the bf16
+    # kernels (namespace tc) and of the float32 ones (namespace f32, split TF32) in the
+    # SASS; the float32 kernels' registers and spills from ptxas
     sass = subprocess.run([cuobjdump, "-sass", build._lib_path("red_scan")], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
-    log(f"[build] red_scan SASS: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA instructions")
-    if not sum(counts.values()):
-        fail("the red_scan library has no tensor-core instructions")
+    counts = {"bf16": {}, "f32": {}}
+    for block in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*?(2tc|3f32)\d+phase_[abc]", block)
+        if m:
+            form = counts["bf16" if m.group(1) == "2tc" else "f32"]
+            for op in re.findall(r"\b(HMMA\.[0-9A-Z.]+|HGMMA)", block):
+                form[op] = form.get(op, 0) + 1
+    for form, ops in counts.items():
+        log(f"[build] red_scan SASS, {form} phase kernels: "
+            + (", ".join(f"{k} {n}" for k, n in sorted(ops.items())) or "no tensor-core instructions"))
+    for block in reports.get("red_scan", "").split("Compiling entry function")[1:]:
+        m = re.search(r"3f32(\d+)(phase_[abc])I((?:Li\d+E)+)", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if m and regs:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(3)))
+            log(f"[build] red_scan f32 {m.group(2)}<{args}>: {regs.group(1)} registers, "
+                f"{spill.group(1) if spill else 0} bytes spill stores")
+    tf32 = sum(n for k, n in counts["f32"].items() if "TF32" in k)
+    if not sum(counts["bf16"].values()) or not tf32 or tf32 != sum(counts["f32"].values()):
+        fail("red_scan: the bf16 kernels must use the tensor cores and the float32 kernels TF32 "
+             f"mma (3xTF32) only: {counts}")
 
 
 def sweep_instances(report: str) -> list[tuple[str, int, int, int]]:
@@ -677,11 +713,18 @@ def red_scan_work(st: StageInputs, dtype) -> tuple[float, float, float]:
     return nbytes, 2 * macs * D, moved
 
 
-def red_scan_bound(st: StageInputs, dtype) -> tuple[float, str]:
-    """The least time of one K3 call (``red_scan_work``), its convolutions on
-    the bf16 tensor cores or as float32 FMAs."""
+def red_scan_bound(st: StageInputs, dtype, roof: str | None = None) -> tuple[float, str]:
+    """The least time of one K3 call (``red_scan_work``): its bytes over the
+    memory rate or its convolutions' operations over the rate of ``roof``,
+    whichever is larger: "bf16" (the bf16 tensor cores, the bf16 form's),
+    "3xtf32" (three TF32 products per float32 multiply-add on the tensor
+    cores, the float32 form's) or "fma" (float32 FMAs on the CUDA cores, the
+    roof of any design that stays off the tensor cores). By default the
+    form's own roof."""
     nbytes, flops, _ = red_scan_work(st, dtype)
-    return _bound(nbytes, flops, BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    roof = roof or ("bf16" if dtype == torch.bfloat16 else "3xtf32")
+    peak = {"bf16": BF16_TC_FLOPS, "3xtf32": TF32_TC_FLOPS / 3, "fma": F32_FLOPS}[roof]
+    return _bound(nbytes, flops, peak)
 
 
 def _compare(tag: str, key, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -1335,23 +1378,34 @@ def _cotangent(mode: str, st, dtype, gen):
     return torch.randn((st.D, 1, st.C, st.h, st.w), generator=gen, device=DEV).to(dtype)
 
 
-def phase_k3_f32(res: dict, reps: int = 3) -> None:
-    """K3's float32 form, which only the trainer's eval step runs (the fused
-    AdaMVS training paths), at that step's shapes (the 384x768 crop, stages
-    1-3: 96x192 C32 D48, 192x384 C16 D32, 384x768 C8 D8) on K2's float32
-    volume: against its plain version, its time by CUDA events beside the
-    kernels' own time in a trace, the plain version's and its bound
-    (``red_scan_bound`` in float32). Kept apart from the bf16 rows of the
-    kernels line (``f32_eval_stages``)."""
+# K3's float32 form: the eval step's stage shapes (the 384x768 training crop) and the
+# full frame's (2752x1856), the latter the shapes of predict --sweep_impl fused
+# --reg_impl pallas at the CLI's default float32
+K3_F32_FRAMES = (("eval", TRAIN_H, TRAIN_W), ("full", H, W))
+
+
+def k3_f32_stages(label: str, height: int, width: int, gen, reps: int = 3,
+                  variants: dict | None = None) -> list[dict]:
+    """K3's float32 form at the three stage shapes of a ``height`` x
+    ``width`` frame (stage 1 C32 D48, stage 2 C16 D32, stage 3 C8 D8, base
+    8) on K2's float32 volume: against its plain version (``TOL``), its time
+    by CUDA events (median of ``reps``), its kernels' time on the card in a
+    trace (all of them and by kernel), the plain version's time, and its
+    bound by the FMA roof and by the 3xTF32 roof; where the port has
+    ``red_scan_plan``, each phase's grid, tile, shared memory and blocks per
+    SM. ``variants``: {name: (lib, fn)} entries of text-edited builds of the
+    kernel, timed in the same way in turn (CUDA events and the card's busy
+    time)."""
     from adamvs_tpu_torch.nn.blocks import init_parameters
     from adamvs_tpu_torch.nn.costreg import AdaRedCell
     from adamvs_tpu_torch.ops import red_scan as rs
     from adamvs_tpu_torch.ops import sweep_fuse as sf
 
-    gen = torch.Generator(device=DEV).manual_seed(6)
-    rows = res["K3"].setdefault("f32_eval_stages", [])
+    f32 = torch.float32
+    rows = []
     for si in range(3):
-        st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
+        st = StageInputs(si, gen, height, width)
+        tag = f"K3 {label} stage{si + 1} f32 {st.h}x{st.w} C{st.C} D{st.D}"
         cell = AdaRedCell(st.C, BASE, st.up)
         init_parameters(cell, torch.Generator().manual_seed(10 + si))
         cell = cell.to(DEV).eval()
@@ -1360,20 +1414,60 @@ def phase_k3_f32(res: dict, reps: int = 3) -> None:
                                         st.lo, st.step, st.D)
             kern = lambda: rs.red_scan(cell, vol)
             plain = lambda: rs.red_scan_ref(cell, vol)
-            _record_err(res, "K3", "f32", _compare(f"K3 eval stage{si + 1} f32 {st.h}x{st.w}",
-                                                   ("K3", torch.float32), kern(), plain()))
+            err = _compare(tag, ("K3", f32), kern(), plain())
             ms, pms = time_ms(kern, reps), time_ms(plain, 1)
-            _, top = device_profile(kern, top=8)
-            kms = sum(t for n, t, _ in top if "cell_conv" in n)
-        bms, by = red_scan_bound(st, torch.float32)
-        rows.append({"stage": si + 1, "ms": ms, "kernel_ms": kms, "plain_ms": pms,
-                     "bound_ms": bms, "bound_by": by,
-                     "top": [[n[:60], round(t, 4), c] for n, t, c in top[:4]]})
-        log(f"[kernels] K3 eval stage{si + 1} f32 {st.h}x{st.w} C{st.C} D{st.D}: {ms:.3f} ms, "
-            f"its kernels {kms:.3f} ms on the card (plain {pms:.3f} ms, bound {bms:.3f} ms by "
-            f"{by}); top kernels {rows[-1]['top']}")
+            busy, top = device_profile(kern, top=16)
+            by_kernel = {n: t for n, t, _ in top if re.search(r"phase_[abc]|cell_conv", n)}
+            timed = {}
+            for name, entry in (variants or {}).items():
+                saved = rs._entry
+                rs._entry = lambda _, entry=entry: entry
+                try:
+                    timed[name] = (time_ms(kern, reps), device_busy_ms(kern))
+                finally:
+                    rs._entry = saved
+        fma, tf = red_scan_bound(st, f32, "fma"), red_scan_bound(st, f32, "3xtf32")
+        row = {"stage": si + 1, "shape": [st.h, st.w, st.C, st.D], "ms": ms,
+               "kernel_ms": sum(by_kernel.values()), "busy_ms": busy, "plain_ms": pms,
+               "bound_ms": tf[0], "bound_by": tf[1], "fma_bound_ms": fma[0],
+               "fma_bound_by": fma[1], "max_abs_err": err[0], "max_rel_err": err[1],
+               "kernels": [[n[:70], t, c] for n, t, c in top if n in by_kernel],
+               "variants": timed}
+        log(f"[kernels] {tag}: {ms:.3f} ms, its kernels {row['kernel_ms']:.3f} ms on the card "
+            f"(all device work {busy:.3f}); plain {pms:.3f} ms; bound {tf[0]:.3f} ms by {tf[1]} "
+            f"on the 3xTF32 roof, {fma[0]:.3f} ms by {fma[1]} on the FMA roof")
+        log(f"[kernels] {tag} by kernel (ms on the card, launches): "
+            + "; ".join(f"{n} {t:.3f} x{c}" for n, t, c in row["kernels"]))
+        if hasattr(rs, "red_scan_plan"):
+            row["plan"] = rs.red_scan_plan(BASE, st.C, st.up, 1, st.h, st.w)
+            log(f"[kernels] {tag} launches per depth step: "
+                + "; ".join(f"phase {p['phase']} grid {p['grid'][0]}x{p['grid'][1]}x{p['grid'][2]} "
+                            f"= {p['grid'][0] * p['grid'][1] * p['grid'][2]} blocks of tile "
+                            f"{p['tile'][0]}x{p['tile'][1]}, {p['smem_bytes']} bytes shared, "
+                            f"{p['blocks_per_sm']} blocks per SM" for p in row["plan"]))
+        for name, (t, b) in timed.items():
+            log(f"[kernels] {tag} {name}: {t:.3f} ms, card busy {b:.3f} ms")
+        rows.append(row)
         del st, vol, cell
         torch.cuda.empty_cache()
+    tot = {k: sum(r[k] for r in rows) for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                                                 "fma_bound_ms")}
+    log(f"[kernels] K3 {label} f32, the three stages: {tot['ms']:.3f} ms, its kernels "
+        f"{tot['kernel_ms']:.3f} ms (plain {tot['plain_ms']:.3f} ms); 3xTF32 roof "
+        f"{tot['bound_ms']:.3f} ms ({tot['ms'] / tot['bound_ms']:.1f}x), FMA roof "
+        f"{tot['fma_bound_ms']:.3f} ms ({tot['ms'] / tot['fma_bound_ms']:.2f}x)")
+    return rows
+
+
+def phase_k3_f32(res: dict, reps: int = 3) -> None:
+    """K3's float32 form, which the trainer's eval step (the fused AdaMVS
+    training paths) and the float32 fused predict path run, at the eval
+    step's and at the full frame's stage shapes (``k3_f32_stages``). Kept
+    apart from the bf16 rows of the kernels line (``f32_eval_stages``,
+    ``f32_full_stages``)."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    for label, height, width in K3_F32_FRAMES:
+        res["K3"][f"f32_{label}_stages"] = k3_f32_stages(label, height, width, gen, reps)
 
 
 def phase_k5(res: dict, reps: int = 3) -> None:
@@ -1819,7 +1913,10 @@ def phase_train_paths() -> tuple[dict, list]:
             log(f"[main] {path} step {i}: {times[-1]:.1f} ms, loss {loss:.4f}")
         if state.nan_steps != 0 or state.step != steps:
             fail(f"{path}: {state.nan_steps} skipped of {state.step} steps")
-        val = trainer.eval_epoch(0, [batch])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = trainer.eval_epoch(0, [batch])  # ends on the metrics' copy to the host
+        eval_ms = (time.perf_counter() - t0) * 1e3
         if not all(np.isfinite(x) for x in val.values()):
             fail(f"{path}: non-finite eval metrics {val}")
         launches = {k: fn.launches for k, fn in counted.items()}
@@ -1848,7 +1945,7 @@ def phase_train_paths() -> tuple[dict, list]:
                  "median_ms": statistics.median(times[1:]), "timed_ms": times[1:],
                  "warmup_ms": times[0], "peak_gib": peak, "launches": launches,
                  "device_busy_ms": busy, "top_kernels": top, "params_moved": moved,
-                 "params": len(params), "eval": val,
+                 "params": len(params), "eval": val, "eval_ms": eval_ms,
                  "phases_ms": train_phase_times(state, model_loss(name), batch)}
         stats.append(entry)
         dt = "bf16 (float32 master weights)" if "compute_dtype" in opts else "f32"
@@ -1858,8 +1955,8 @@ def phase_train_paths() -> tuple[dict, list]:
             f"{', '.join(f'{t:.1f}' for t in times[1:])}; warm-up {times[0]:.1f}), peak "
             f"{peak:.2f} GiB, {moved} of {len(params)} parameters and all {len(bn)} BatchNorm "
             f"statistics moved, launches {launches}, card busy in a traced step {busy:.1f} ms "
-            f"({busy / entry['ms_per_step']:.0%} of the mean); eval abs_depth_error "
-            f"{val['abs_depth_error']:.3f}, loss {val['loss']:.4f}")
+            f"({busy / entry['ms_per_step']:.0%} of the mean); eval step {eval_ms:.1f} ms, "
+            f"abs_depth_error {val['abs_depth_error']:.3f}, loss {val['loss']:.4f}")
         log(f"[main] {path} one step by phase (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in entry["phases_ms"].items()))
         log(f"[main] {path} top kernels of the traced step (ms on the card, launches): "
@@ -2912,7 +3009,8 @@ def kernels_line(res: dict, launches: dict) -> dict:
             "band_max_abs_err": {t[5:]: e[0] for t, e in res[k]["err"].items()
                                  if t.startswith("band ")} or None,
             "stages": stages,
-            **{key: res[k][key] for key in ("f32_eval_stages",) if key in res[k]},
+            **{key: res[k][key] for key in ("f32_eval_stages", "f32_full_stages")
+               if key in res[k]},
         })
     return {"kernels": out}
 
@@ -3399,6 +3497,140 @@ def ablate(groups=("sweep_fuse", "sweep_bwd", "corr", "corr_bwd", "sample_bwd"),
                 sf._bwd_entries = entries
 
 
+# text edits of csrc/red_scan.cu for k3_f32_probe, as in ABLATIONS; per variant the
+# alternatives for the float32 form of PR 1 (eight direct-convolution kernels per depth
+# step, cell_conv) and for its three phase kernels, the first whose anchors all occur
+# once in the source being used
+K3_F32_EDITS = {
+    "empty kernels": (
+        [("  extern __shared__ float ws[];\n", "  if (a.Ho > 0) return;\n  extern __shared__ float ws[];\n")],
+        [("  float* gs = reinterpret_cast<float*>(smem);  // [c1 | h1] on the tile + 2\n",
+          "  if (st.h > 0) return;\n  float* gs = reinterpret_cast<float*>(smem);\n"),
+         ("  float* gs = reinterpret_cast<float*>(smem);  // [c2 | h2] on the tile + 2\n",
+          "  if (st.h > 0) return;\n  float* gs = reinterpret_cast<float*>(smem);\n"),
+         ("  float* hs = reinterpret_cast<float*>(smem);  // h1' on the tile + 1\n",
+          "  if (st.h > 0) return;\n  float* hs = reinterpret_cast<float*>(smem);\n")]),
+    "no weight loads": (
+        [("  for (int i = threadIdx.y * kBX + threadIdx.x; i < nw; i += kBX * kBY) ws[i] = a.w[i];\n",
+          "  if (nw < 0) ws[0] = a.w[0];\n")],),
+    # the three-phase form: only a_hi b_hi of the three TF32 products, and the operands
+    # fed unsplit (what the correction products and the split cost)
+    "one TF32 product": (
+        [("          mma_tf32(acc[t][nt], hi[t], b.z, b.w);\n          mma_tf32(acc[t][nt], lo[t], b.x, b.y);\n",
+          "")],),
+    "no split": (
+        [("          hi[t][i] = tf32(v[i]);\n          lo[t][i] = tf32_operand(v[i] - __uint_as_float(hi[t][i]));\n",
+          "          hi[t][i] = __float_as_uint(v[i]);\n          lo[t][i] = hi[t][i];\n")],),
+}
+
+
+def k3_variants(edits: dict, root: str) -> dict:
+    """{name: (library, float32 entry)} of csrc/red_scan.cu built with each
+    variant of ``edits`` (as K3_F32_EDITS) whose anchors the source has, one
+    nvcc each, all at once, under ``root``."""
+    from adamvs_tpu_torch.kernels import build
+
+    text0 = open(os.path.join(build.CSRC, "red_scan.cu")).read()
+    jobs = {}
+    for name, alternatives in edits.items():
+        found = next((e for e in alternatives if all(text0.count(old) == 1 for old, _ in e)), None)
+        if found is None:
+            log(f"[k3] variant {name!r}: no anchor set found in this source, left out")
+            continue
+        text = text0
+        for old, new in found:
+            text = text.replace(old, new)
+        d = os.path.join(root, name.replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(build.CSRC, "common.cuh"), d)
+        with open(os.path.join(d, "red_scan.cu"), "w") as f:
+            f.write(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(d, "lib.so"),
+               os.path.join(d, "red_scan.cu")]
+        jobs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+    variants = {}
+    for name, (d, proc) in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"k3 variant {name!r} did not build:\n{out}")
+        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
+        variants[name] = (lib, build.bind(lib, "adamvs_red_scan_f32", n_ptr=17, n_int=7))
+    return variants
+
+
+def k3_f32_probe(tree: str | None = None, reps: int = 5) -> None:
+    """``python3 chip_smoke.py --k3-f32 [TREE]``: K3's float32 form of the port
+    in TREE (the root of a checkout; this one by default), to compare two
+    versions of it in one call, each in its own process. At the eval step's
+    and the full frame's stage shapes (``k3_f32_stages``), as built and as
+    each variant of K3_F32_EDITS that its source has (CUDA events and the
+    card's busy time), with the time by kernel of the trace; then the eval
+    step of the fused AdaMVS Trainer (float32, the bench's training batch:
+    host clock with a synchronize, median of ``reps`` after a warm-up, and
+    the card's busy time) and the float32 fused AdaMVS map through
+    PredictEngine (3 requests, the first a warm-up: ms, busy, peak). Ends
+    with a ``[k3] {...}`` JSON line."""
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    from adamvs_tpu_torch.kernels import build
+    from adamvs_tpu_torch.models import build_model, model_loss
+    from adamvs_tpu_torch.ops import red_scan as rs
+    from adamvs_tpu_torch.predict.engine import PredictEngine
+    from adamvs_tpu_torch.train.loop import Trainer
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[k3] {phase_device()}; the port at {os.path.dirname(rs.__file__)}")
+    build.build_all()
+    root = os.path.join(build.BUILD_DIR, "k3_f32_probe")
+    variants = k3_variants(K3_F32_EDITS, root)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    out = {"tree": os.path.dirname(os.path.dirname(rs.__file__))}
+    for label, height, width in K3_F32_FRAMES:
+        out[label] = k3_f32_stages(label, height, width, gen, 3, variants)
+    # the eval step of the fused AdaMVS training path, float32
+    model = _train_model("adamvs", {}, 0, DEV)
+    state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+    trainer = Trainer(state, model_loss("adamvs"), os.path.join(root, "train"), dlossw=DLOSSW,
+                      num_stages=3, ckpt_step_freq=0, log_fn=lambda m: None, device=DEV)
+    batch = train_batch(TRAIN_H, TRAIN_W)
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.eval_epoch(0, [batch])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    busy = device_busy_ms(lambda: trainer.eval_epoch(0, [batch]))
+    out["eval_step"] = {"median_ms": statistics.median(times[1:]), "timed_ms": times[1:],
+                        "busy_ms": busy}
+    log(f"[k3] train_adamvs eval step f32 {TRAIN_H}x{TRAIN_W}: median {out['eval_step']['median_ms']:.1f} "
+        f"ms (timed {', '.join(f'{t:.1f}' for t in times[1:])}), card busy {busy:.1f} ms")
+    del model, state, trainer
+    # the float32 fused map (predict --sweep_impl fused --reg_impl pallas, float32)
+    model = build_model("adamvs", seed=0, device=DEV, dtype=torch.float32, ndepths=NDEPTHS,
+                        depth_intervals_ratio=RATIOS, base=BASE, cr_base=(BASE,) * 3)
+    engine = PredictEngine(model, num_depth=NUM_DEPTH, device=DEV)
+    sample = _bench_sample()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        engine.predict_sample(sample)
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = device_busy_ms(lambda: engine.predict_sample(sample))
+    out["adamvs_f32_map"] = {"ms_per_map": statistics.mean(times[1:]), "timed_ms": times[1:],
+                             "busy_ms": busy, "peak_gib": peak}
+    log(f"[k3] adamvs f32 fused map {H}x{W}: {out['adamvs_f32_map']['ms_per_map']:.1f} ms "
+        f"(timed {', '.join(f'{t:.1f}' for t in times[1:])}), card busy {busy:.1f} ms, peak "
+        f"{peak:.2f} GiB")
+    log("[k3] " + json.dumps(out))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -3455,6 +3687,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             fail("no CUDA device: the probes need one GPU")
         probe_parallel(*([sys.argv[2:]] if sys.argv[2:] else []))
+    elif sys.argv[1:2] == ["--k3-f32"]:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: the probe needs one GPU")
+        k3_f32_probe(*sys.argv[2:3])
     elif sys.argv[1:2] == ["--ablate"]:
         if not torch.cuda.is_available():
             fail("no CUDA device: the ablation needs one GPU")

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from adamvs_tpu.ops.red_scan import ada_red_scan, pack_red_params, spatialize
 from adamvs_tpu_torch.nn.costreg import AdaRedCell
 from adamvs_tpu_torch.ops.red_scan import (DECONV_TAPS, _packed_weights, pack_red_fragments,
-                                          red_scan_ref, tc_width)
+                                          pack_red_fragments_tf32, red_scan_ref, tc_width,
+                                          tf32_split)
 from adamvs_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from adamvs_tpu_torch.train.state import (apply_updates_if_finite, create_train_state,
                                           make_optimizer)
@@ -168,18 +169,56 @@ def test_packed_weights_repack_after_loading_or_updating(how, tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(again, pack_red_fragments(cell)))
 
 
+def gemm_weights_tf32(cell) -> dict:
+    """The float32 kernel's GEMM operands read back from
+    ``pack_red_fragments_tf32``: each convolution's B as the pair (hi, lo)
+    of TF32 parts, and its biases and head."""
+    b, cin = cell.base, cell.conv1.conv.weight.shape[1]
+    packed = pack_red_fragments_tf32(cell)
+
+    def pair(frag, K, N):
+        return unpack_fragments(frag[..., :2], K, N), unpack_fragments(frag[..., 2:], K, N)
+
+    out = {}
+    for name, frag, ci, co in zip(("c1", "g1", "n1", "c2", "g2", "n2"), packed[:6],
+                                  (tc_width(cin), 2 * b, 2 * b, b, 4 * b, 4 * b),
+                                  (b, 2 * b, b, 2 * b, 4 * b, 2 * b)):
+        out[name] = pair(frag, 9 * 8 * -(-ci // 8), co)
+    s = 0
+    for a in (0, 1):
+        for c in (0, 1):
+            taps = len(DECONV_TAPS[a]) * len(DECONV_TAPS[c])
+            n = taps * -(-2 * b // 8)  # one m16n8k8 step per tap and 8-channel slice
+            out[f"u1_{a}{c}"] = pair(packed[6][s:s + n], taps * 8 * -(-2 * b // 8), b)
+            s += n
+    assert s == packed[6].shape[0]
+    out.update(zip(("bg1", "bn1", "bg2", "bn2", "bu1", "wh", "bh"), packed[7:]))
+    return out
+
+
+def _mm(a: torch.Tensor, b) -> torch.Tensor:
+    """a @ b; with b a pair (hi, lo) of TF32 parts, as the float32 kernel
+    multiplies: a split as it leaves shared memory, three TF32 products
+    a_hi b_lo + a_lo b_hi + a_hi b_hi summed in float32."""
+    if not isinstance(b, tuple):
+        return a @ b
+    hi, lo = b
+    a_hi, a_lo = tf32_split(a)
+    return a_hi @ lo + a_lo @ hi + a_hi @ hi
+
+
 def _conv_gemm(x: torch.Tensor, dense: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """3x3 conv (padding 1) of x [B, C, H, W] as the kernel's GEMM: row
     ((ky * 3 + kx) * G + g) * 8 + j of A is channel 8g + j at tap (ky, kx),
     G the 8-channel slices per tap of ``dense``, zero past C."""
     Bn, C, Hi, Wi = x.shape
-    c8 = dense.shape[0] // 9
+    c8 = (dense[0] if isinstance(dense, tuple) else dense).shape[0] // 9
     xp = F.pad(x, (1, 1, 1, 1, 0, c8 - C))
     ho, wo = (Hi - 1) // stride + 1, (Wi - 1) // stride + 1
     cols = [xp[:, :, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride]
             for ky in range(3) for kx in range(3)]
     a = torch.stack(cols, 1).permute(0, 3, 4, 1, 2).reshape(Bn, ho, wo, 9 * c8)
-    return (a @ dense).permute(0, 3, 1, 2)
+    return _mm(a, dense).permute(0, 3, 1, 2)
 
 
 def _deconv_phases(x: torch.Tensor, wts: dict, co: int) -> torch.Tensor:
@@ -198,21 +237,24 @@ def _deconv_phases(x: torch.Tensor, wts: dict, co: int) -> torch.Tensor:
                     oy, ox = (a + 1 - ky) // 2, (c + 1 - kx) // 2
                     cols.append(xp[:, :, oy:oy + hi, ox:ox + wi])
             cols = torch.stack(cols, 1).permute(0, 3, 4, 1, 2).reshape(Bn, hi, wi, -1)
-            out[:, :, a::2, c::2] = (cols @ wts[f"u1_{a}{c}"]).permute(0, 3, 1, 2)
+            out[:, :, a::2, c::2] = _mm(cols, wts[f"u1_{a}{c}"]).permute(0, 3, 1, 2)
     return out
 
 
-def three_phase_scan(cell, vol: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def three_phase_scan(cell, vol: torch.Tensor, dtype=torch.float32,
+                     split_tf32: bool = False) -> torch.Tensor:
     """The kernel's recurrence over whole planes: vol [D,B,cin,h,w] -> cost
     [D,B,oh,ow], float32. Each step runs phase A (c1, GRU1), phase B (c2,
     GRU2) and phase C (u1, head) on GEMMs of the packed weights; step d reads
     the states of parity d % 2 and writes the other, and only parity 0 starts
     at zero. With ``dtype`` bf16 every GEMM operand is rounded to bf16, as are
-    the states written and the cost; sums and elementwise work stay float32."""
+    the states written and the cost; sums and elementwise work stay float32.
+    With ``split_tf32`` (float32) the GEMMs are the float32 kernel's: its
+    split weights, and three TF32 products per multiply-add (``_mm``)."""
     def rnd(t):
         return t.to(dtype).float()
 
-    wts = gemm_weights(cell, dtype)
+    wts = gemm_weights_tf32(cell) if split_tf32 else gemm_weights(cell, dtype)
     b = cell.base
     Dn, Bn, _, hi, wi = vol.shape
     h1 = [torch.zeros((Bn, b, hi, wi)), None]
