@@ -1,2 +1,3 @@
-"""Host-side file codecs: camera texts, images and GT depths (PIL, the port's
-EXR codec), PFM (numpy)."""
+"""Host-side file codecs: camera texts, images and GT depths (the host
+library's PNG and EXR decoders, ``native.py``; PIL and the port's EXR codec
+for what they do not take), PFM (numpy)."""

@@ -1,5 +1,6 @@
 """Soft-argmax depth regression (counterpart of adamvs_tpu/ops/regression.py).
 
+``depth_regression`` is the full-volume form over a softmax volume.
 ``softmax_regression`` is the full-softmax tail the fused path runs over the
 regularised cost volume (adamvs_tpu/models/adamvs.py:755-766); the online
 (streamed) form carries a running max and gives the same result, and two of
@@ -26,6 +27,18 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
         mode="bilinear", align_corners=False,
     )
     return y.reshape(tuple(lead) + (height, width))
+
+
+def depth_regression(prob: torch.Tensor, depth_values: torch.Tensor) -> torch.Tensor:
+    """Soft-argmax depth ``Σ_d p(d)·d`` [B,H,W] of the softmax volume
+    ``prob`` [B,D,H,W] (module.py:617-625); ``depth_values`` [B,D] planes,
+    or [B,D,h,w] maps resized bilinearly to (H, W) (``resize_bilinear``)."""
+    H, W = prob.shape[2:]
+    if depth_values.ndim == 2:
+        dv = depth_values[:, :, None, None]
+    else:
+        dv = resize_bilinear(depth_values, H, W)
+    return (prob * dv).sum(dim=1)
 
 
 class OnlineSoftmax(NamedTuple):

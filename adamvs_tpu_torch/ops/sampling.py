@@ -26,3 +26,10 @@ def window_min_and_interval(prev_depth: torch.Tensor, ndepth: int, interval):
     hi = prev_depth + ndepth / 2 * interval
     step = (hi - lo) / (ndepth - 1)
     return lo, step
+
+
+def windowed_depth_samples(prev_depth: torch.Tensor, ndepth: int, interval) -> torch.Tensor:
+    """prev_depth [B,H,W] -> [B,D,H,W] per-pixel windowed hypotheses."""
+    lo, step = window_min_and_interval(prev_depth, ndepth, interval)
+    i = torch.arange(ndepth, dtype=torch.float32, device=prev_depth.device)[None, :, None, None]
+    return lo[:, None] + i * step[:, None]

@@ -2,7 +2,11 @@
 
 Counterpart of ``adamvs_tpu/ops/warp.py``, with the same semantics:
 
-- relative transform ``P = src_proj @ inv(ref_proj)`` in float32;
+- relative transform ``P = src_proj @ inv(ref_proj)`` in float32, or with
+  ``grid_dtype=torch.float64`` the transform and the coordinates in float64
+  (the reference's ``homo_warping_double``, module.py:571-612, for long focal
+  lengths where float32 pixel coordinates lose ulps), cast back to the
+  features' dtype before sampling;
 - reference pixel (x, y) back-projected at depth d: ``p = R·[x,y,1]·d + t``;
 - samples with ``z <= 1e-6`` (behind the camera) are pushed to -1e9 so the
   zeros padding drops them;
@@ -18,9 +22,10 @@ from __future__ import annotations
 import torch
 
 
-def warp_transform(src_proj: torch.Tensor, ref_proj: torch.Tensor):
-    """rot [...,3,3], trans [...,3] of the ref->src pixel-space transform."""
-    proj = src_proj.float() @ torch.linalg.inv(ref_proj.float())
+def warp_transform(src_proj: torch.Tensor, ref_proj: torch.Tensor, dtype=torch.float32):
+    """rot [...,3,3], trans [...,3] of the ref->src pixel-space transform,
+    computed in ``dtype``."""
+    proj = src_proj.to(dtype) @ torch.linalg.inv(ref_proj.to(dtype))
     return proj[..., :3, :3], proj[..., :3, 3]
 
 
@@ -35,11 +40,11 @@ def view_transforms(src_projs: torch.Tensor, ref_proj: torch.Tensor):
 
 
 def _source_coords(rot, trans, depth, height: int, width: int):
-    """(u, v) source pixel coordinates, each [B,D,H,W]. ``depth`` is [B,D]
-    (fronto-parallel planes) or [B,D,H,W]."""
+    """(u, v) source pixel coordinates, each [B,D,H,W], in the dtype of
+    ``rot``. ``depth`` is [B,D] (fronto-parallel planes) or [B,D,H,W]."""
     dev = rot.device
-    x = torch.arange(width, dtype=torch.float32, device=dev)
-    y = torch.arange(height, dtype=torch.float32, device=dev)
+    x = torch.arange(width, dtype=rot.dtype, device=dev)
+    y = torch.arange(height, dtype=rot.dtype, device=dev)
     rx = rot[:, :, 0][:, :, None, None] * x[None, None, None, :]
     ry = rot[:, :, 1][:, :, None, None] * y[None, None, :, None]
     rot_xyz = rx + ry + rot[:, :, 2][:, :, None, None]  # [B,3,H,W]
@@ -93,25 +98,33 @@ def sweep_coords(
     ref_proj: torch.Tensor,  # [B,4,4]
     depth: torch.Tensor,  # [B,D] or [B,D,H,W]
     grid_hw: tuple[int, int] | None = None,
+    grid_dtype: torch.dtype | None = None,
 ):
     """(u, v) [B,D,H,W], detached: where each reference pixel lands in the
     source at each depth. The reference grid (H, W) comes from a per-pixel
-    ``depth``, else from ``grid_hw``, else from the source shape."""
+    ``depth``, else from ``grid_hw``, else from the source shape. The
+    coordinates are float32, or with ``grid_dtype`` computed in it and cast
+    to the features' dtype."""
     if depth.ndim == 4:
         H, W = depth.shape[2:4]
     elif grid_hw is not None:
         H, W = grid_hw
     else:
         H, W = src_feat.shape[1:3]
-    rot, trans = warp_transform(src_proj, ref_proj)
-    u, v = _source_coords(rot, trans, depth.float(), H, W)
+    dtype = grid_dtype or torch.float32
+    rot, trans = warp_transform(src_proj, ref_proj, dtype)
+    u, v = _source_coords(rot, trans, depth.to(dtype), H, W)
+    if grid_dtype is not None:
+        u, v = u.to(src_feat.dtype), v.to(src_feat.dtype)
     return u.detach(), v.detach()
 
 
-def plane_sweep_warp(src_feat, src_proj, ref_proj, depth, grid_hw=None) -> torch.Tensor:
+def plane_sweep_warp(src_feat, src_proj, ref_proj, depth, grid_hw=None,
+                     grid_dtype=None) -> torch.Tensor:
     """Warp source features to the reference frustum. Returns [B,D,H,W,C]
-    (see ``sweep_coords`` for the grid)."""
-    return bilinear_sample(src_feat, *sweep_coords(src_feat, src_proj, ref_proj, depth, grid_hw))
+    in the features' dtype (see ``sweep_coords`` for the grid)."""
+    return bilinear_sample(src_feat, *sweep_coords(src_feat, src_proj, ref_proj, depth, grid_hw,
+                                                   grid_dtype))
 
 
 def pad_channels(x: torch.Tensor, Cp: int, dim: int = -1) -> torch.Tensor:

@@ -6,7 +6,8 @@ state_dict names, in ``model_{epoch:06d}[_{metric:.4f}][_step{N}].ckpt``.
 The latest is the one with the highest epoch; within an epoch an end-of-epoch
 save outranks a step save, and a later step outranks an earlier one.
 Resuming from an end-of-epoch save starts the next epoch, from a step save
-the same epoch again.
+the same epoch again. Saves are synchronous: JAX's async checkpointer and its
+``wait_for_checkpoints`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -55,6 +56,12 @@ def latest_checkpoint(logdir: str) -> str | None:
     return os.path.join(logdir, max(keyed)[1]) if keyed else None
 
 
+def checkpoint_epoch(path: str) -> int:
+    """The epoch in a checkpoint's name (0 for a name of another form)."""
+    m = _CKPT_RE.match(os.path.basename(path))
+    return int(m.group(1)) if m else 0
+
+
 def next_epoch_after(path: str) -> int:
     """The epoch to run next when resuming from ``path``."""
     m = _CKPT_RE.match(os.path.basename(path))
@@ -74,14 +81,19 @@ def _optimizer_matches(saved: dict, optimizer: torch.optim.Optimizer) -> bool:
         for g, s in zip(groups, saved_groups))
 
 
-def restore_checkpoint(path: str, state):
-    """Load ``path`` into ``state`` in place and return it. The optimizer
-    state is restored only when it fits the state's optimizer, so a run with
-    another optimizer still restores the model and the counters."""
+def restore_checkpoint(path: str, state, restore_opt: bool | None = None):
+    """Load ``path`` into ``state`` in place and return it: the model and the
+    counters, and the optimizer state by ``restore_opt``: with None when the
+    saved state fits the state's optimizer (so a run with another optimizer
+    still restores the rest), with True always (``ValueError`` if it does
+    not fit), with False never."""
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
+    fits = _optimizer_matches(ckpt["optimizer"], state.optimizer)
+    if restore_opt and not fits:
+        raise ValueError(f"{path}: the saved optimizer state does not fit the optimizer")
     state.model.load_state_dict(ckpt["model"])
-    if _optimizer_matches(ckpt["optimizer"], state.optimizer):
+    if fits and restore_opt is not False:
         state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     state.nan_steps = int(ckpt["nan_steps"])

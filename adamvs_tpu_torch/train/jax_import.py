@@ -6,7 +6,7 @@ PyTorch names, which the port's modules use, onto the flax tree. This module
 keeps its own copy of those tables, for AdaMVS and for MS-REDNet, and runs
 them backwards:
 
-- conv kernel, flax HWIO -> PyTorch OIHW;
+- conv kernel, flax HWIO -> PyTorch OIHW (DHWIO -> OIDHW in 3-D);
 - transposed-conv kernel, flax HWIO (spatially flipped, since flax
   correlates) -> PyTorch IOHW, un-flipped; MS-REDNet's stride-1 head
   ``upconv2d`` is a transposed conv in the reference and a plain conv in
@@ -14,6 +14,11 @@ them backwards:
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/
   running_var;
 - GroupNorm scale/bias -> weight/bias.
+
+``from_jax_extras`` does the same for one block of ``nn/extras.py``; a
+flax ``ConvTranspose`` there (``transpose_kernel=False``) correlates the
+dilated input with its kernel as it is, so the port's transposed conv takes
+it flipped, the same transform as the models' transposed convs.
 
 Inputs are nested mappings of numpy-convertible arrays (a flax
 ``{"params", "batch_stats"}`` tree); no JAX import is needed.
@@ -167,8 +172,8 @@ def _apply_plan(params: Mapping, stats: Mapping, prefix: str, plan, sd: dict) ->
             sd[f"{full}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
             continue
         k = np.asarray(node["kernel"], np.float32)
-        if kind == "conv":
-            w = k.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if kind == "conv":  # HWIO -> OIHW, DHWIO -> OIDHW
+            w = k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
         else:
             w = k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # HWIO -> IOHW, un-flipped
         sd[f"{full}.weight"] = _t(w)
@@ -206,4 +211,34 @@ def from_jax_msrednet_variables(variables: Mapping[str, Any]) -> "OrderedDict[st
     while f"reg{i + 1}" in params:
         _apply_plan(params[f"reg{i + 1}"], {}, f"cost_regularization.{i}.", _red_reg_plan(), sd)
         i += 1
+    return sd
+
+
+def _extras_plan(block) -> list[tuple[str, str, str]]:
+    """(port prefix, flax path, kind) of an ``nn/extras.py`` block."""
+    from ..nn import extras
+
+    if isinstance(block, extras.ConvLSTMCell):
+        return [("conv", "Conv_0", "conv")]
+    if isinstance(block, extras.ConvBn3D):
+        return [("conv", "Conv_0", "conv"), ("bn", "BatchNorm_0", "bn")]
+    if isinstance(block, extras.ConvGn):
+        return [("conv", "Conv_0", "conv"), ("gn", "GroupNorm_0", "gn")]
+    if isinstance(block, extras.ConvTransGnReLU):
+        return [("conv", "ConvTranspose_0", "convt"), ("gn", "GroupNorm_0", "gn")]
+    deform = [("offset", "offset", "conv"), ("mask", "mask", "conv"), ("proj", "proj", "conv")]
+    if isinstance(block, extras.DeformConvBlock):
+        return deform
+    if isinstance(block, extras.DeformConvGnReLU):
+        return [(f"conv.{t}", f"DeformConvBlock_0/{f}", k) for t, f, k in deform] + [
+            ("gn", "GroupNorm_0", "gn")]
+    raise TypeError(f"not a block of nn/extras.py: {type(block).__name__}")
+
+
+def from_jax_extras(block, variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """The state_dict of ``block``, a module of ``nn/extras.py``, holding the
+    weights of the matching flax block's ``{"params", "batch_stats"}`` tree
+    (an unmodulated ``DeformConvBlock`` has no ``mask``)."""
+    sd: dict = OrderedDict()
+    _apply_plan(variables["params"], variables.get("batch_stats", {}), "", _extras_plan(block), sd)
     return sd

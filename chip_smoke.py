@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases, in order; any failure exits nonzero:
 
 1. device: the card's name and power limit;
-2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source;
+2. build: every kernel under adamvs_tpu_torch/csrc/, one nvcc per source,
+   and the host library (csrc/host/*.cc, g++ with OpenMP and zlib);
    registers and spills of each sweep and K5 instance (no instance may
    spill); the atomics in the sweep_bwd library's
    SASS (information); the tensor-core instructions (HMMA, HGMMA) of K3's
@@ -72,6 +73,10 @@ Phases, in order; any failure exits nonzero:
    train step (float32 master weights) of each model in its fused form,
    card against CPU, each module's gradient within twice its noise on the
    CPU under a jitter of the weights by about 4 float32 steps;
+   then the blocks of nn/extras.py, the float64 warp grid and
+   depth_regression, card against CPU at 128x160 (forward and every
+   gradient), timed at the full frame's stage-1 shapes on the card alone,
+   and the float64 grid against the float32 one there (``phase_extras``);
 5. main paths, each with every launch counter set to 0 just before it and
    read just after: PredictEngine with seeded random weights in bfloat16 at
    full width on AdaMVS (3 requests: K1 1, K2 3, K3 3 launches per map; then
@@ -108,8 +113,11 @@ Phases, in order; any failure exits nonzero:
    Trainer in data-parallel mode, over nccl at world size 1 and over 2 gloo
    ranks in 2 processes sharing the card, against one process on the
    global batch (``phase_data_parallel``);
-6. cli: the port's predict command in this process on a synthetic tree of 6
-   aerial frames at 5504x3712 (PNG), each the reference of one work item of
+6. host_io and cli: the host library on the fixture's frames first (PNG
+   decode against PIL, EXR against the Python codec, centring and resizing,
+   ``phase_host_io``); then the port's predict command in this process on
+   that synthetic tree of 6 aerial frames at 5504x3712 (PNG, decoded by the
+   host library), each the reference of one work item of
    5 views: at the JAX CLI's defaults (AdaMVS scan form, float32), in the
    fused bf16 form (K1 1, K2 3, K3 3 per forward), and in that form with the
    feature cache and batches of 2; the output files, their maps and camera
@@ -125,8 +133,9 @@ Phases, in order; any failure exits nonzero:
    seconds and the loader's share, the records
    (metrics.jsonl, train_record.txt, checkpoints, TensorBoard events where
    tensorboardX imports);
-7. the kernels line (JSON; launches summed over phases 5 and 6), the card
-   line, and the final JSON line.
+7. the kernels line (JSON; launches summed over phases 5 and 6; with the
+   ``host_io`` and ``extras`` figures), the card line, and the final JSON
+   line.
 
 ``python3 chip_smoke.py --ablate [sweep_fuse] [sweep_bwd] [corr] [corr_bwd] [sample_bwd]``
 instead times K2 and K4 (csrc/sweep_fuse.cu), K5-fused and K5-var
@@ -139,6 +148,9 @@ loads; for the three-phase kernels also with one TF32 product of the three,
 and with the operands unsplit), the fused AdaMVS eval step and the float32
 fused map
 (``k3_f32_probe``), to compare two versions in one call.
+``python3 chip_smoke.py --cli-ab TREE`` instead runs the predict command's
+runs of ``phase_cli`` in TREE and in this checkout in turns on one fixture
+(``cli_ab``), an A/B of the command in one call.
 ``python3 chip_smoke.py --probe-parallel [1] [2] [3] [4] [5]``
 instead measures what the parallel paths' checks and costs rest on
 (``probe_parallel``).
@@ -156,6 +168,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -401,6 +414,11 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     reports = build.build_all()
     log(f"[build] {sorted(reports)} built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path, built = build.build_host()
+    log(f"[build] host library csrc/host/ -> {os.path.relpath(path, REPO)} "
+        f"{'built' if built else 'already built'} in {time.perf_counter() - t0:.1f} s "
+        f"({build.CXX} {' '.join(build.HOST_FLAGS + build.HOST_LIBS)})")
     for name, text in sorted(reports.items()):
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
@@ -1710,6 +1728,31 @@ class ReluReplay(torch.overrides.TorchFunctionMode):
         return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class BranchReplay(ReluReplay):
+    """``ReluReplay`` that replays ``torch.floor`` too: the card's floors of
+    the sample positions in ``ops/warp.py::bilinear_sample`` (the deformable
+    taps) are handed to the CPU, so a position within float32 rounding of an
+    integer takes the same cell of the bilinear interpolation on both: the
+    sample is continuous there, its gradient by the position is not.
+    ``flips`` counts both kinds of decisions the CPU would have taken
+    otherwise."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is not torch.floor:
+            return super().__torch_function__(func, types, args, kwargs)
+        out = func(*args, **(kwargs or {})).detach()  # the floor has no gradient
+        if not self.replay:
+            self.masks.append(out.cpu())
+            self.calls += 1
+            return out
+        if self.calls >= len(self.masks):
+            fail(f"the CPU made more decisions than the {len(self.masks)} recorded on the card")
+        want = self.masks[self.calls].to(out.device)
+        self.calls += 1
+        self.flips += int((want != out).sum())
+        return want
+
+
 def phase_train_reference() -> None:
     """One train step of each path of TRAIN_PATHS (each model in its fused
     and scan forms) on a 128x160 frame: the card (K1/K2/K4 forward, K5
@@ -1999,9 +2042,10 @@ def cli_fixture(root: str) -> tuple[str, float]:
     return tree, scene.depth_end - scene.depth_start
 
 
-def phase_cli() -> tuple[dict, list]:
+def phase_cli(tmp: str, tree: str, depth_range: float) -> tuple[dict, list]:
     """The port's predict command (``adamvs_tpu_torch.cli.main``) in this
-    process on a synthetic tree of CLI_VIEWS frames, once per CLI_RUNS: the
+    process on the synthetic tree ``tree`` of CLI_VIEWS frames (``cli_fixture``,
+    its outputs under ``tmp``), once per CLI_RUNS: the
     JAX CLI's defaults (AdaMVS scan form, float32), the fused bf16 form, and
     that form with the feature cache and batches of 2. Each run has every
     launch counter set to 0 just before it and read just after; its files are
@@ -2010,7 +2054,6 @@ def phase_cli() -> tuple[dict, list]:
     Returns (launches summed over the runs, per-run statistics)."""
     import contextlib
     import io
-    import tempfile
 
     from adamvs_tpu_torch.cli import main as cli_main
     from adamvs_tpu_torch.io.pfm import read_pfm
@@ -2022,83 +2065,467 @@ def phase_cli() -> tuple[dict, list]:
     want = [f"{n}{suffix}" for n in names
             for suffix in ("_init.pfm", "_prob.pfm", ".jpg", ".txt")]
     want += [f"color/{n}{suffix}" for n in names for suffix in ("_init.png", "_prob.png")]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        tree, depth_range = cli_fixture(tmp)
-        maps = {}
-        for run, flags, per_forward in CLI_RUNS:
-            out = os.path.join(tmp, run)
-            argv = ["predict", "--data_folder", tree, "--output_folder", out, "--device", DEV,
-                    *flags]
-            for fn in counted.values():
-                fn.launches = 0
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                engine = cli_main(argv)
-            wall = time.perf_counter() - t0
-            launches = {k: fn.launches for k, fn in counted.items()}
-            lines = [ln for ln in buf.getvalue().splitlines() if " done: " in ln]
-            for ln in lines:
-                log(f"[cli] {run}: {ln}")
-            per_item = [tuple(float(x) for x in re.search(r"([\d.]+)s infer, ([\d.]+)s save",
-                                                          ln).groups()) for ln in lines]
-            if len(per_item) != CLI_VIEWS:
-                fail(f"cli {run}: {len(per_item)} work items logged, expected {CLI_VIEWS}")
-            batch = int(flags[flags.index("--predict_batch") + 1]) if "--predict_batch" in flags else 1
-            forwards = -(-CLI_VIEWS // batch)
-            for k, n in launches.items():
-                if n != forwards * per_forward.get(k, 0):
-                    fail(f"cli {run}: {k} launched {n} times in {forwards} forwards, expected "
-                         f"{forwards * per_forward.get(k, 0)}")
-                total[k] += n
-            files = sorted(os.path.relpath(os.path.join(d, f), out)
-                           for d, _, fs in os.walk(out) for f in fs)
-            if files != sorted(os.path.join("1", f) for f in want):
-                fail(f"cli {run}: output files {files}")
-            run_maps = {}
-            for n in names:
-                depth = read_pfm(os.path.join(out, "1", f"{n}_init.pfm"))[0]
-                prob = read_pfm(os.path.join(out, "1", f"{n}_prob.pfm"))[0]
-                if depth.shape != (H, W) or prob.shape != (H, W):
-                    fail(f"cli {run} {n}: maps {depth.shape} {prob.shape}, expected {(H, W)}")
-                if not (np.isfinite(depth).all() and np.isfinite(prob).all()):
-                    fail(f"cli {run} {n}: non-finite depth or confidence")
-                if not (prob.min() > 0.0 and prob.max() <= 1.0):
-                    fail(f"cli {run} {n}: confidence outside (0, 1]: [{prob.min()}, {prob.max()}]")
-                with open(os.path.join(out, "1", f"{n}.txt")) as f:
-                    if not f.read().startswith("extrinsic: XrightYdown"):
-                        fail(f"cli {run} {n}: camera text does not start with its header")
-                run_maps[n] = (depth, prob)
-            entry = {"run": run, "flags": flags, "wall_s": wall, "items": CLI_VIEWS,
-                     "infer_s": [t[0] for t in per_item], "save_s": [t[1] for t in per_item],
-                     "launches": launches}
-            if engine.feature_cache:
-                lookups = engine.cache_hits + engine.cache_misses
-                entry["cache"] = {"hits": engine.cache_hits, "misses": engine.cache_misses}
-                if lookups != CLI_VIEWS * V or engine.cache_hits < lookups - CLI_VIEWS:
-                    fail(f"cli {run}: feature cache {engine.cache_hits} hits of {lookups} "
-                         f"lookups, expected at least {CLI_VIEWS * V - CLI_VIEWS} of "
-                         f"{CLI_VIEWS * V}")
-                base = maps["fused_bf16"]
-                derr = max(np.abs(run_maps[n][0] - base[n][0]).max() for n in names) / depth_range
-                cerr = max(np.abs(run_maps[n][1] - base[n][1]).max() for n in names)
-                entry.update(depth_err=float(derr), conf_err=float(cerr))
-                log(f"[cli] {run} against fused_bf16: depth err {derr:.2e} of the range (limit "
-                    f"1e-4), confidence err {cerr:.2e} (limit 1e-3)")
-                if not (derr < 1e-4 and cerr < 1e-3):
-                    fail(f"cli {run}: the cached, batched run disagrees with the uncached one")
-            maps[run] = run_maps
-            shutil.rmtree(out)
-            stats.append(entry)
-            cache = (f", feature cache {entry['cache']['hits']} hits of "
-                     f"{CLI_VIEWS * V} lookups" if "cache" in entry else "")
-            log(f"[cli] {run} ({' '.join(flags) or 'the JAX CLI defaults'}): {CLI_VIEWS} work "
-                f"items in {wall:.1f} s wall; per item infer {statistics.mean(entry['infer_s']):.3f}"
-                f" s (first {entry['infer_s'][0]:.3f}), save {statistics.mean(entry['save_s']):.3f}"
-                f" s; launches {launches}; files, shapes and values ok{cache}")
-            del engine
-            torch.cuda.empty_cache()
+    maps = {}
+    for run, flags, per_forward in CLI_RUNS:
+        out = os.path.join(tmp, run)
+        argv = ["predict", "--data_folder", tree, "--output_folder", out, "--device", DEV,
+                *flags]
+        for fn in counted.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            engine = cli_main(argv)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        lines = [ln for ln in buf.getvalue().splitlines() if " done: " in ln]
+        for ln in lines:
+            log(f"[cli] {run}: {ln}")
+        per_item = [tuple(float(x) for x in re.search(r"([\d.]+)s infer, ([\d.]+)s save",
+                                                      ln).groups()) for ln in lines]
+        if len(per_item) != CLI_VIEWS:
+            fail(f"cli {run}: {len(per_item)} work items logged, expected {CLI_VIEWS}")
+        batch = int(flags[flags.index("--predict_batch") + 1]) if "--predict_batch" in flags else 1
+        forwards = -(-CLI_VIEWS // batch)
+        for k, n in launches.items():
+            if n != forwards * per_forward.get(k, 0):
+                fail(f"cli {run}: {k} launched {n} times in {forwards} forwards, expected "
+                     f"{forwards * per_forward.get(k, 0)}")
+            total[k] += n
+        files = sorted(os.path.relpath(os.path.join(d, f), out)
+                       for d, _, fs in os.walk(out) for f in fs)
+        if files != sorted(os.path.join("1", f) for f in want):
+            fail(f"cli {run}: output files {files}")
+        run_maps = {}
+        for n in names:
+            depth = read_pfm(os.path.join(out, "1", f"{n}_init.pfm"))[0]
+            prob = read_pfm(os.path.join(out, "1", f"{n}_prob.pfm"))[0]
+            if depth.shape != (H, W) or prob.shape != (H, W):
+                fail(f"cli {run} {n}: maps {depth.shape} {prob.shape}, expected {(H, W)}")
+            if not (np.isfinite(depth).all() and np.isfinite(prob).all()):
+                fail(f"cli {run} {n}: non-finite depth or confidence")
+            if not (prob.min() > 0.0 and prob.max() <= 1.0):
+                fail(f"cli {run} {n}: confidence outside (0, 1]: [{prob.min()}, {prob.max()}]")
+            with open(os.path.join(out, "1", f"{n}.txt")) as f:
+                if not f.read().startswith("extrinsic: XrightYdown"):
+                    fail(f"cli {run} {n}: camera text does not start with its header")
+            run_maps[n] = (depth, prob)
+        entry = {"run": run, "flags": flags, "wall_s": wall, "items": CLI_VIEWS,
+                 "infer_s": [t[0] for t in per_item], "save_s": [t[1] for t in per_item],
+                 "launches": launches}
+        if engine.feature_cache:
+            lookups = engine.cache_hits + engine.cache_misses
+            entry["cache"] = {"hits": engine.cache_hits, "misses": engine.cache_misses}
+            if lookups != CLI_VIEWS * V or engine.cache_hits < lookups - CLI_VIEWS:
+                fail(f"cli {run}: feature cache {engine.cache_hits} hits of {lookups} "
+                     f"lookups, expected at least {CLI_VIEWS * V - CLI_VIEWS} of "
+                     f"{CLI_VIEWS * V}")
+            base = maps["fused_bf16"]
+            derr = max(np.abs(run_maps[n][0] - base[n][0]).max() for n in names) / depth_range
+            cerr = max(np.abs(run_maps[n][1] - base[n][1]).max() for n in names)
+            entry.update(depth_err=float(derr), conf_err=float(cerr))
+            log(f"[cli] {run} against fused_bf16: depth err {derr:.2e} of the range (limit "
+                f"1e-4), confidence err {cerr:.2e} (limit 1e-3)")
+            if not (derr < 1e-4 and cerr < 1e-3):
+                fail(f"cli {run}: the cached, batched run disagrees with the uncached one")
+        maps[run] = run_maps
+        shutil.rmtree(out)
+        stats.append(entry)
+        cache = (f", feature cache {entry['cache']['hits']} hits of "
+                 f"{CLI_VIEWS * V} lookups" if "cache" in entry else "")
+        log(f"[cli] {run} ({' '.join(flags) or 'the JAX CLI defaults'}): {CLI_VIEWS} work "
+            f"items in {wall:.1f} s wall; per item infer {statistics.mean(entry['infer_s']):.3f}"
+            f" s (first {entry['infer_s'][0]:.3f}), save {statistics.mean(entry['save_s']):.3f}"
+            f" s; launches {launches}; files, shapes and values ok{cache}")
+        del engine
+        torch.cuda.empty_cache()
     return total, stats
+
+
+HOST_IO_REPS = 3  # decodes of each fixture frame per reader, for the medians
+
+
+def _host_ms(fn, *args):
+    """(result, host milliseconds) of one call."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_host_io(tree: str) -> dict:
+    """The host library (``csrc/host/``, built by phase_build) on the CLI
+    fixture's CLI_VIEWS PNG frames (5504x3712 RGB): its PNG decode against
+    PIL's, bit for bit, and the median milliseconds per frame of each on this
+    machine's host (HOST_IO_REPS decodes a frame, the two readers in turns);
+    the EXR depth of a 2752x1856 map written by the port's codec in each
+    compression (float32, and float16 zip), against the port's Python codec
+    bit for bit; ``center_image`` against the pipeline's formula in float64
+    (within 1e-4; the pipeline's own float32 numpy version loses ~1e-1 to its
+    float32 sums at this size, printed) and ``resize_bilinear`` against OpenCV at the predict
+    pipeline's halving (|Δ| <= 1, at least 97 % exact), each timed once.
+    Returns the figures."""
+    import glob
+
+    import cv2
+    from PIL import Image
+
+    from adamvs_tpu_torch.data.pipeline import center_image
+    from adamvs_tpu_torch.io import exr, native
+
+    def pil_png(path):
+        with Image.open(path) as im:
+            return np.array(im.convert("RGB"))
+
+    frames = sorted(glob.glob(os.path.join(tree, "images", "*.png")))
+    if len(frames) != CLI_VIEWS:
+        fail(f"host_io: {len(frames)} fixture frames, expected {CLI_VIEWS}")
+    ms = {"native": [], "pil": []}
+    for path in frames:
+        for _ in range(HOST_IO_REPS):
+            got, t = _host_ms(native.read_png, path)
+            ms["native"].append(t)
+            want, t = _host_ms(pil_png, path)
+            ms["pil"].append(t)
+        if got.shape != (*CLI_RAW, 3) or got.dtype != np.uint8 or not np.array_equal(got, want):
+            fail(f"host_io: the native PNG decode of {path} differs from PIL's "
+                 f"({got.shape} {got.dtype})")
+    out = {"frame": [*CLI_RAW, 3], "frames": len(frames), "reps": HOST_IO_REPS,
+           "png_native_ms": statistics.median(ms["native"]),
+           "png_pil_ms": statistics.median(ms["pil"])}
+    log(f"[host_io] PNG {CLI_RAW[0]}x{CLI_RAW[1]} RGB, {len(frames)} frames x {HOST_IO_REPS}: "
+        f"native {out['png_native_ms']:.1f} ms, PIL {out['png_pil_ms']:.1f} ms per frame "
+        f"(median; min {min(ms['native']):.1f} / {min(ms['pil']):.1f}); bit-equal ok")
+
+    img = got
+    gen = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    depth = (DMIN + 0.3 * xx - 0.2 * yy + gen.rand(H, W) * 5).astype(np.float32)
+    out["exr"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exr_") as tmp:
+        for compression, dtype in (("none", np.float32), ("zips", np.float32),
+                                   ("zip", np.float32), ("zip", np.float16)):
+            path = os.path.join(tmp, f"depth_{compression}.exr")
+            exr.write_exr(path, {"Z": depth.astype(dtype)}, compression=compression)
+            got, t_native = _host_ms(native.read_exr_depth, path)
+            want, t_py = _host_ms(exr.read_exr_depth, path)
+            if not (np.array_equal(got, want) and np.array_equal(got, depth.astype(dtype))):
+                fail(f"host_io: the native EXR depth ({compression}, {np.dtype(dtype).name}) "
+                     f"differs from the Python codec's")
+            key = f"{compression}_{np.dtype(dtype).name}"
+            out["exr"][key] = {"native_ms": t_native, "python_ms": t_py}
+            log(f"[host_io] EXR {H}x{W} {key}: native {t_native:.1f} ms, Python codec "
+                f"{t_py:.1f} ms; bit-equal ok")
+
+    got, t_native = _host_ms(native.center_image, img)
+    numpy32, t_np = _host_ms(center_image, img)
+    f64 = img.astype(np.float64)
+    want = (f64 - f64.mean(axis=(0, 1))) / (f64.std(axis=(0, 1)) + 1e-8)
+    err, err32 = float(np.abs(got - want).max()), float(np.abs(numpy32 - want).max())
+    out["center_image"] = {"max_abs_err": err, "numpy_f32_max_abs_err": err32,
+                           "native_ms": t_native, "numpy_ms": t_np}
+    log(f"[host_io] center_image {img.shape}: max|native - float64| {err:.2e} (limit 1e-4); "
+        f"the pipeline's float32 numpy version {err32:.2e} (information: float32 sums over "
+        f"{img.shape[0] * img.shape[1]} pixels); native {t_native:.1f} ms, numpy {t_np:.1f} ms")
+    if not err <= 1e-4:
+        fail("host_io: native center_image disagrees with the pipeline's formula in float64")
+    got, t_native = _host_ms(native.resize_bilinear, img, H, W)
+    want, t_cv = _host_ms(lambda a: cv2.resize(a, None, fx=0.5, fy=0.5,
+                                               interpolation=cv2.INTER_LINEAR), img)
+    if got.shape != want.shape:
+        fail(f"host_io: resize_bilinear gave {got.shape}, OpenCV {want.shape}")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    exact = float((diff == 0).mean())
+    out["resize"] = {"max_abs_diff": int(diff.max()), "exact_share": exact,
+                     "native_ms": t_native, "opencv_ms": t_cv}
+    log(f"[host_io] resize_bilinear {img.shape[:2]} -> {got.shape[:2]}: max|native - OpenCV| "
+        f"{diff.max()} (limit 1), exact {100 * exact:.2f} % (limit 97 %), native "
+        f"{t_native:.1f} ms, OpenCV {t_cv:.1f} ms")
+    if diff.max() > 1 or exact < 0.97:
+        fail("host_io: native resize_bilinear disagrees with OpenCV")
+    return out
+
+
+EXTRAS_CROP = (128, 160)  # the card-against-CPU frame of phase_extras
+EXTRAS_FWD_TOL, EXTRAS_GRAD_TOL = 1e-5, 1e-4  # of max|CPU|, per output and per gradient
+EXTRAS_FULL_C, EXTRAS_FULL_D = 32, 48  # stage 1 of the 2752x1856 frame: 32 channels, 48 depths
+
+
+@torch.no_grad()
+def _seed_extras(module, seed: int) -> None:
+    """Seeded weights, none at their init value: conv weights uniform(±1/sqrt
+    (fan_in)) (the deformable offset head x4, so taps move by a few pixels),
+    norm weights 1 + 0.3·N, biases 0.3·N."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in module.named_parameters():
+        z = torch.randn(p.shape, generator=gen)
+        if p.dim() > 1:
+            bound = 1.0 / float(np.sqrt(p[0].numel()))
+            p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound
+                    * (4.0 if "offset" in name else 1.0))
+        elif name.endswith("bias"):
+            p.copy_(0.3 * z)
+        else:
+            p.copy_(1 + 0.3 * z)
+
+
+def long_focal_utm_projs(height: int, width: int) -> np.ndarray:
+    """[source, reference] projections [2,4,4] float32 of a nadir pair with a
+    focal length of 4e4 px, camera centres at UTM-sized coordinates (5e5, 4e6)
+    and 10 cm apart, the source turned by 1e-4 rad, for depths near 1000: the
+    float32 grid lands about a pixel from the float64 one (as in
+    tests/test_torch_port_extras.py)."""
+    def proj(centre, angle):
+        k = np.eye(4)
+        k[0, 0] = k[1, 1] = 4.0e4
+        k[0, 2], k[1, 2] = width / 2, height / 2
+        rot = np.array([[np.cos(angle), -np.sin(angle), 0], [np.sin(angle), np.cos(angle), 0],
+                        [0, 0, 1]])
+        ext = np.eye(4)
+        ext[:3, :3] = rot
+        ext[:3, 3] = -rot @ np.asarray(centre)
+        return k @ ext
+    return np.stack([proj([5.0e5 + 0.1, 4.0e6 + 0.05, -1000.0], 1e-4),
+                     proj([5.0e5, 4.0e6, -1000.0], 0.0)]).astype(np.float32)
+
+
+def _extras_cases(height: int, width: int, C: int, D: int) -> list:
+    """(name, module, input shapes, train mode, call) of each extras block,
+    the float64-grid warp and depth_regression at a height x width frame with
+    C channels and D depths; ``call(module, *inputs)`` returns the output."""
+    from adamvs_tpu_torch import ops
+    from adamvs_tpu_torch.nn import extras
+
+    def block(m, x):
+        return m(x)
+
+    def lstm(m, c, h, x):
+        return torch.cat(m((c, h), x)[0], dim=1)
+
+    def warp64(m, feat, projs, depth):
+        return ops.plane_sweep_warp(feat, projs[:1], projs[1:], depth, grid_dtype=torch.float64)
+
+    def regression(m, cost, depth):
+        return ops.depth_regression(torch.softmax(cost, dim=1), depth)
+
+    hw, vol = (1, C, height, width), (1, 8, D, height, width)
+    return [
+        ("ConvGnReLU", extras.ConvGnReLU(C, C), [hw], False, block),
+        ("ConvGn stride 2", extras.ConvGn(C, 2 * C, stride=2), [hw], False, block),
+        ("ConvTransGnReLU", extras.ConvTransGnReLU(C, C // 2), [hw], False, block),
+        ("ConvBnReLU3D train", extras.ConvBnReLU3D(8, 8), [vol], True, block),
+        ("ConvBn3D stride 2", extras.ConvBn3D(8, 8, stride=2), [vol], False, block),
+        ("ConvLSTMCell", extras.ConvLSTMCell(C, C), [hw, hw, hw], False, lstm),
+        ("DeformConvBlock", extras.DeformConvBlock(C, C), [hw], False, block),
+        ("DeformConvGnReLU", extras.DeformConvGnReLU(C, C), [hw], False, block),
+        ("plane_sweep_warp float64 grid", None, [(1, height, width, C), "projs", (1, D)],
+         False, warp64),
+        ("depth_regression", None, [(1, D, height, width), (1, D, height // 4, width // 4)],
+         False, regression),
+    ]
+
+
+def _extras_inputs(shapes, seed: int, height: int, width: int, D: int) -> list:
+    """Seeded CPU inputs of an extras case: "projs" is the reference and
+    source projection of the bench geometry at height x width; a (1, D)
+    shape holds D depths in [DMIN, DMAX], a (1, D, h, w) one of a
+    regression per-pixel depths around them."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for shape in shapes:
+        if shape == "projs":
+            p = bench_projs(height, width, 2, FOCAL * width / W)["stage3"]
+            out.append(torch.tensor(p[[1, 0]]))
+        elif len(shape) == 2:
+            out.append(torch.linspace(DMIN, DMAX, shape[1])[None])
+        elif len(shape) == 4 and shape[1] == D and shape[2] < height:
+            out.append(torch.linspace(DMIN, DMAX, D)[None, :, None, None]
+                       + 5 * torch.rand(shape, generator=gen))
+        else:
+            out.append(torch.randn(shape, generator=gen))
+    return out
+
+
+def phase_extras() -> dict:
+    """``nn/extras.py``, the float64 warp grid and ``depth_regression`` on
+    the card: (1) at a 128x160 frame (16 channels, 8 depths), card against
+    CPU with the same seeded weights and inputs, float32 with TF32 off: the
+    output within EXTRAS_FWD_TOL of max|CPU|, and the gradients of Σ y·g (g
+    seeded) for every input and parameter within EXTRAS_GRAD_TOL of each
+    gradient's max|CPU| (the DeformConvBlock's taps move by a few pixels,
+    fractional and outside the frame; the 3-D train-mode block's running
+    statistics too), the CPU replaying the card's ReLU decisions and the
+    floors of the sample positions (``BranchReplay``), cuDNN restricted to
+    its deterministic algorithms (with its default choice, runs on identical
+    inputs moved the seeded ConvLSTMCell's distance from the CPU past the
+    forward limit: the bar would test cuDNN's choice, as in
+    ``phase_depth_shards``); (2) at the stage-1 shapes of the 2752x1856
+    frame, on the card alone ([1,32,688,464] features, a [1,8,48,688,464]
+    volume for the 3-D blocks): finite outputs, the forward and forward+backward times
+    (CUDA events, median of 3) and the peak memory; (3) the float64 grid at
+    that stage against the float32 one, the largest coordinate difference in
+    pixels, at the bench geometry and at ``long_focal_utm_projs``. Returns
+    the figures."""
+    out = {"crop": {}, "full": {}, "grid64": {}}
+    torch.backends.cudnn.deterministic = True
+    try:
+        _extras_crop(out["crop"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _extras_full(out)
+    return out
+
+
+def _extras_crop(out: dict) -> None:
+    """Part (1) of ``phase_extras``: card against CPU at EXTRAS_CROP."""
+    h, w = EXTRAS_CROP
+    for i, (name, module, shapes, train, call) in enumerate(_extras_cases(h, w, 16, 8)):
+        if module is not None:
+            _seed_extras(module, i)
+            module.train(train)
+        card_module = copy.deepcopy(module).to(DEV) if module is not None else None
+        inputs = _extras_inputs(shapes, 100 + i, h, w, 8)
+        results = []
+        record = BranchReplay()
+        for dev, m, mode in ((DEV, card_module, record), ("cpu", module, None)):
+            mode = mode or BranchReplay(record.masks)
+            xs = [x.detach().to(dev).requires_grad_(x.dim() > 3) for x in inputs]
+            with mode:
+                y = call(m, *xs)
+            g = torch.randn(y.shape, generator=torch.Generator().manual_seed(7)).to(dev)
+            (y * g).sum().backward()
+            grads = {f"input {j}": x.grad for j, x in enumerate(xs) if x.grad is not None}
+            if m is not None:
+                grads.update({n: p.grad for n, p in m.named_parameters()})
+                grads.update({n: b for n, b in m.named_buffers() if "running" in n})
+            results.append((y.detach().cpu(), {k: v.detach().cpu() for k, v in grads.items()}))
+        (y_card, g_card), (y_cpu, g_cpu) = results
+        decisions = sum(m.numel() for m in record.masks)
+        flips = mode.flips
+        if mode.calls != record.calls or flips > ReluReplay.MAX_FLIPS * max(decisions, 1):
+            fail(f"extras {name}: the CPU took {flips} of {decisions} ReLU and floor decisions "
+                 f"otherwise than the card ({mode.calls} calls, {record.calls} recorded)")
+        if not torch.isfinite(y_card).all():
+            fail(f"extras {name}: non-finite output on the card")
+        fwd = ((y_card - y_cpu).abs().max() / y_cpu.abs().max()).item()
+        worst, worst_name = 0.0, ""
+        for k, want in g_cpu.items():
+            rel = ((g_card[k] - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+            if rel > worst:
+                worst, worst_name = rel, k
+        ok = fwd <= EXTRAS_FWD_TOL and worst <= EXTRAS_GRAD_TOL
+        out[name] = {"forward_rel": fwd, "grad_rel": worst, "grad_worst": worst_name,
+                     "tensors": len(g_cpu), "decisions": decisions, "replayed_flips": flips}
+        log(f"[extras] {name} {h}x{w} card vs cpu: forward {fwd:.2e} (limit "
+            f"{EXTRAS_FWD_TOL:.0e}), {len(g_cpu)} gradients and statistics worst {worst:.2e} "
+            f"({worst_name}, limit {EXTRAS_GRAD_TOL:.0e}); the CPU replays the card's "
+            f"{decisions} ReLU and floor decisions, {flips} of them flipped "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"extras {name}: card disagrees with CPU")
+
+
+def _extras_full(out: dict) -> None:
+    """Parts (2) and (3) of ``phase_extras``: the stage-1 shapes of the full
+    frame on the card alone, and the float64 grid against the float32 one."""
+    from adamvs_tpu_torch.ops.warp import _source_coords, warp_transform
+
+    fh, fw = H // 4, W // 4
+    for i, (name, module, shapes, train, call) in enumerate(
+            _extras_cases(fh, fw, EXTRAS_FULL_C, EXTRAS_FULL_D)):
+        if module is None:
+            continue
+        _seed_extras(module, i)
+        module.to(DEV).train(train)
+        inputs = [x.to(DEV) for x in _extras_inputs(shapes, 100 + i, fh, fw, EXTRAS_FULL_D)]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            y = call(module, *inputs)
+            if not torch.isfinite(y).all():
+                fail(f"extras {name} at full width: non-finite output")
+            fwd_ms = time_ms(lambda: call(module, *inputs), 3)
+        xs = [x.requires_grad_(True) for x in inputs]
+
+        def step():
+            module.zero_grad(set_to_none=True)
+            call(module, *xs).sum().backward()
+
+        step_ms = time_ms(step, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out["full"][name] = {"in": [list(x.shape) for x in inputs], "out": list(y.shape),
+                             "forward_ms": fwd_ms, "forward_backward_ms": step_ms,
+                             "peak_gib": peak}
+        log(f"[extras] {name} full width {list(inputs[-1].shape)} -> {list(y.shape)}: forward "
+            f"{fwd_ms:.2f} ms, forward+backward {step_ms:.2f} ms, peak {peak:.2f} GiB; finite ok")
+        del module, inputs, xs, y
+        torch.cuda.empty_cache()
+
+    geometries = (
+        ("bench", torch.tensor(bench_projs(H, W, 2, FOCAL)["stage1"], device=DEV),
+         torch.linspace(DMIN, DMAX, EXTRAS_FULL_D, device=DEV)[None]),
+        ("long_focal_utm", torch.tensor(long_focal_utm_projs(fh, fw), device=DEV),
+         torch.linspace(1000.0, 1004.0, EXTRAS_FULL_D, device=DEV)[None]))
+    for geometry, p, depth in geometries:
+        coords = {}
+        for dt in (torch.float32, torch.float64):
+            rot, trans = warp_transform(p[1:], p[:1], dt)
+            coords[dt] = _source_coords(rot, trans, depth.to(dt), fh, fw)
+        du, dv = (float((a.double() - b).abs().max())
+                  for a, b in zip(coords[torch.float32], coords[torch.float64]))
+        ms = {str(dt)[6:]: time_ms(lambda: _source_coords(
+            *warp_transform(p[1:], p[:1], dt), depth.to(dt), fh, fw), 3)
+            for dt in (torch.float32, torch.float64)}
+        out["grid64"][geometry] = {"max_du_px": du, "max_dv_px": dv, "ms": ms}
+        log(f"[extras] grid {geometry} {EXTRAS_FULL_D}x{fh}x{fw}: max|float32 - float64| u "
+            f"{du:.3e} px, v {dv:.3e} px; coordinates float32 {ms['float32']:.2f} ms, float64 "
+            f"{ms['float64']:.2f} ms")
+
+
+# One side of cli_ab, run by ``python3 -c`` in a checkout's root with (side, fixture tree,
+# depth range): that checkout's phase_cli on the given fixture, one JSON line out. A tree
+# whose phase_cli renders its own fixture (before PR 14) gets this one through cli_fixture.
+CLI_AB_WORKER = r"""
+import inspect, json, sys, tempfile, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+from adamvs_tpu_torch.kernels import build
+build.build_all()
+side, tree, depth_range = sys.argv[1], sys.argv[2], float(sys.argv[3])
+with tempfile.TemporaryDirectory() as out:
+    if inspect.signature(cs.phase_cli).parameters:
+        _, stats = cs.phase_cli(out, tree, depth_range)
+    else:
+        cs.cli_fixture = lambda root: (tree, depth_range)
+        _, stats = cs.phase_cli()
+print("[cli_ab] " + json.dumps({"side": side, "runs": [
+    {"run": e["run"], "wall_s": e["wall_s"], "infer_s": sum(e["infer_s"]),
+     "save_s": sum(e["save_s"])} for e in stats]}), flush=True)
+"""
+
+
+def cli_ab(tree: str) -> None:
+    """The predict command's runs of ``phase_cli`` in TREE (a checkout's
+    root, e.g. the parent unpacked under ``_checkout/``) and in this
+    checkout, in turns (TREE, this, this, TREE), each in a process of its
+    own on one fixture rendered here: per run the wall and the summed infer
+    and save seconds, for an A/B of the command in one call."""
+    import tempfile
+
+    sides = (("base", os.path.abspath(tree)), ("this", REPO), ("this", REPO),
+             ("base", os.path.abspath(tree)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_ab_") as tmp:
+        fixture, depth_range = cli_fixture(tmp)
+        for side, root in sides:
+            proc = subprocess.run([sys.executable, "-c", CLI_AB_WORKER, side, fixture,
+                                   str(depth_range)], cwd=root, capture_output=True, text=True,
+                                  timeout=900)
+            for line in proc.stdout.splitlines():
+                if line.startswith("[cli_ab]") or (line.startswith("[cli] ") and "work items" in line):
+                    log(line)
+            if proc.returncode:
+                fail(f"cli_ab: the {side} side in {root} failed:\n{proc.stderr[-3000:]}")
 
 
 # The training commands' fixture: a WHU_OMVS tree of CLI_TRAIN_VIEWS views at the training
@@ -3660,12 +4087,18 @@ def main() -> None:
     timed(phase_reference)
     timed(phase_train_reference)
     bf16_reference = timed(phase_train_reference_bf16)
+    extras = timed(phase_extras)
     launches, main_stats = timed(phase_main_path)
     train_launches, train_stats = timed(phase_train_paths)
     tiled_launches, tiled_stats = timed(phase_tiled)
     shard_launches, shard_stats = timed(phase_depth_shards)
     dp_launches, dp_stats = timed(phase_data_parallel)
-    cli_launches, cli_stats = timed(phase_cli)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        t0 = time.perf_counter()
+        tree, depth_range = cli_fixture(tmp)
+        log(f"[time] cli_fixture: {time.perf_counter() - t0:.1f} s")
+        host_io = timed(phase_host_io, tree)
+        cli_launches, cli_stats = timed(phase_cli, tmp, tree, depth_range)
     cli_train_launches, cli_train_stats = timed(phase_cli_train)
     line = kernels_line(res, {k: n + train_launches[k] + tiled_launches[k] + shard_launches[k]
                               + dp_launches[k] + cli_launches[k] + cli_train_launches[k]
@@ -3673,6 +4106,8 @@ def main() -> None:
     line["main_path"] = main_stats + train_stats + tiled_stats + shard_stats + dp_stats
     line["train_reference_bf16"] = bf16_reference
     line["cli"] = cli_stats + cli_train_stats
+    line["host_io"] = host_io
+    line["extras"] = extras
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
@@ -3691,6 +4126,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             fail("no CUDA device: the probe needs one GPU")
         k3_f32_probe(*sys.argv[2:3])
+    elif sys.argv[1:2] == ["--cli-ab"]:
+        if not torch.cuda.is_available() or len(sys.argv) != 3:
+            fail("--cli-ab TREE needs one GPU and a checkout's root")
+        cli_ab(sys.argv[2])
     elif sys.argv[1:2] == ["--ablate"]:
         if not torch.cuda.is_available():
             fail("no CUDA device: the ablation needs one GPU")
