@@ -89,8 +89,9 @@ from ..ops.sweep_fuse import (
     fused_sweep_volume,
     fused_sweep_volume_t,
 )
-from ..ops.warp import view_transforms
+from ..ops.warp import band_ref_proj, view_transforms
 from ..ops.warp_sample import sample_views
+from ..parallel.halo import gather_rows, tile_context
 from ..parallel.mesh import run_blocks
 
 # cost up-sampling by stage: stages 1 and 2 emit at 2x, stage 3 does not
@@ -171,6 +172,21 @@ def stage_views(feat, B: int, V: int, dtype: torch.dtype) -> tuple:
     C, h, w = f.shape[1:]
     f = f.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)  # [B,V,h,w,C]
     return f[:, 0].contiguous(), f[:, 1:].transpose(0, 1).contiguous()
+
+
+def tile_sources(srcs: torch.Tensor, projs: torch.Tensor, h: int) -> tuple:
+    """A stage's sources [Vs,B,h,w,C] and projections [B,V,4,4] as the
+    cascade takes them. Inside ``parallel.halo.tile_rows`` (training with
+    image rows sharded over a tile group) the features are this rank's row
+    band of ``h`` rows: the sources are gathered to the frame's rows over
+    the group (``gather_rows``: a band's reference pixel may sample any
+    source row, and the gradient of every band reaches the rows' owner), and
+    the reference projection is shifted to the band's first row
+    (``band_ref_proj``). Otherwise both are returned as they are."""
+    tiles = tile_context()
+    if tiles is None:
+        return srcs, projs
+    return gather_rows(srcs, dim=2), band_ref_proj(projs, tiles.index * h)
 
 
 def correlation_volumes(ref_feat: torch.Tensor, srcs: torch.Tensor, transforms: tuple,
@@ -403,9 +419,9 @@ class AdaMVS(nn.Module):
             net = self.DepthNet[si]
             ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
             h, w = ref.shape[1:3]
+            srcs, projs = tile_sources(srcs, proj_matrices[key].float(), h)
             # the scan form's sources, rounded once per stage (JAX prepare_warp_sources)
             srcs_w = srcs.to(self.sample_dtype) if scan and self.sample_dtype else srcs
-            projs = proj_matrices[key].float()
             ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
             # the scan forms' per-view transforms, once per stage
             transforms = view_transforms(src_projs, ref_proj) if scan else None
@@ -432,8 +448,7 @@ class AdaMVS(nn.Module):
                 pair_results = tuple(pdepth.reshape(Vs, B, h, w))
                 weights = pair_conf
             else:
-                weights = F.interpolate(pair_conf, size=(h, w), mode="bilinear",
-                                        align_corners=False)
+                weights = resize_bilinear(pair_conf, h, w)
                 ratio = self.depth_intervals_ratio[si]
                 lo, step = window_min_and_interval(prev_depth, D, (ratio * interval)[:, None, None])
 

@@ -74,7 +74,7 @@ from ..ops.sampling import window_min_and_interval
 from ..ops.sweep_fuse import var_sweep_volume, var_sweep_volume_t
 from ..ops.warp import view_transforms
 from ..ops.warp_sample import sample_views
-from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features, stage_views
+from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features, stage_views, tile_sources
 
 REG_IMPLS = ("scan", "precomp")
 # depths per chunk of red_precomp_depth (the JAX default)
@@ -255,9 +255,9 @@ class MSREDNet(nn.Module):
             key = f"stage{si + 1}"
             ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
             h, w = ref.shape[1:3]
+            srcs, projs = tile_sources(srcs, proj_matrices[key].float(), h)
             if self.sweep_impl == "scan" and self.sample_dtype:
                 srcs = srcs.to(self.sample_dtype)  # once per stage (JAX prepare_warp_sources)
-            projs = proj_matrices[key].float()
             ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
             # the scan form's per-view transforms, once per stage
             transforms = (view_transforms(src_projs, ref_proj) if self.sweep_impl == "scan"

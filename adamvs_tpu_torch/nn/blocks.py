@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.distributed import data_group
+from ..parallel.halo import halo_conv2d, halo_conv_transpose2d, tile_context
 
 BN_EPS = 1e-5
 GN_EPS = 1e-5
@@ -47,21 +48,29 @@ GN_EPS = 1e-5
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in the dtype of its input: weight and bias are cast to
-    it at the call."""
+    it at the call. Inside ``parallel.halo.tile_rows`` a kernel taller than
+    one row runs on the band with its halo (``halo_conv2d``)."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.kernel_size[0] > 1 and tile_context() is not None:
+            return halo_conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                               self.dilation, self.groups)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` in the dtype of its input: weight and bias are
-    cast to it at the call."""
+    cast to it at the call. Inside ``parallel.halo.tile_rows`` a kernel
+    taller than one row runs on the band with its halo
+    (``halo_conv_transpose2d``)."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation)
+        conv = (halo_conv_transpose2d if self.kernel_size[0] > 1 and tile_context() is not None
+                else F.conv_transpose2d)
+        return conv(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                    self.output_padding, self.groups, self.dilation)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -103,6 +112,28 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def _global_moments(x32: torch.Tensor, dims: tuple, group) -> tuple:
+    """(x32 less its mean, mean, biased variance, count) of ``x32`` over the
+    axes ``dims`` and over the ranks of ``group``, one statistic per index of
+    the axis left out: every sum over the pixels in float64, one all-reduce
+    of the sums and the count, then one of the squares about the global mean
+    (one pass of squares about 0 would lose the variance to cancellation
+    where the mean is far from 0 against the spread)."""
+    keep = next(a for a in range(4) if a not in dims)
+    K = x32.shape[keep]
+    sums = torch.cat([x32.sum(dim=dims, dtype=torch.float64),
+                      x32.new_full((1,), x32.numel() // K, dtype=torch.float64)])
+    dist.all_reduce(sums, group=group)
+    n = sums[-1]
+    mean = (sums[:K] / n).float()
+    shape = [1, 1, 1, 1]
+    shape[keep] = K
+    d = x32 - mean.view(shape)
+    sq = (d * d).sum(dim=dims, dtype=torch.float64)
+    dist.all_reduce(sq, group=group)
+    return d, mean, (sq / n).float(), float(n)
+
+
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch normalisation of ``x`` [N,C,H,W] with the statistics
     of the global batch over the ranks of ``group``: returns (y in the dtype
@@ -110,34 +141,24 @@ class _GlobalBatchNorm(torch.autograd.Function):
     in float64 (as PyTorch's CPU kernel does), and every sum over the ranks
     is one all-reduce: the sums and the count, then the squares about the
     global mean (one pass of squares about 0 would lose the variance to
-    cancellation where a channel's mean is far from 0 against its spread),
-    and in the backward the sums of the cotangent and of its product with
-    the normalised input. The backward is BatchNorm's, ``dx = w rstd / n
-    (n g - Σg - x̂ Σ g x̂)`` with the sums global; each rank's weight and bias
-    gradients are its own pixels' sums, which data parallelism then sums
-    over the ranks with the other gradients. Written by hand because
+    cancellation where a channel's mean is far from 0 against its spread;
+    ``_global_moments``), and in the backward the sums of the cotangent and
+    of its product with the normalised input. The backward is BatchNorm's,
+    ``dx = w rstd / n (n g - Σg - x̂ Σ g x̂)`` with the sums global; each
+    rank's weight and bias gradients are its own pixels' sums, which data
+    parallelism then sums over the ranks with the other gradients. Written by hand because
     autograd through the two all-reduces (``all_reduce_sum``) makes a
     data-parallel AdaMVS train step ~30 % slower on an H100 (PERF.md §6)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, group, eps):
-        C = x.shape[1]
-        x32 = x.float()
-        sums = torch.cat([x32.sum(dim=(0, 2, 3), dtype=torch.float64),
-                          x32.new_full((1,), x.numel() // C, dtype=torch.float64)])
-        dist.all_reduce(sums, group=group)
-        n = sums[-1]
-        mean = (sums[:C] / n).float()
-        d = x32 - mean[None, :, None, None]
-        sq = (d * d).sum(dim=(0, 2, 3), dtype=torch.float64)
-        dist.all_reduce(sq, group=group)
-        var = (sq / n).float()
+        d, mean, var, n = _global_moments(x.float(), (0, 2, 3), group)
         rstd = torch.rsqrt(var + eps)
         xhat = d * rstd[None, :, None, None]
         w32 = weight.float()
         y = xhat * w32[None, :, None, None] + bias.float()[None, :, None, None]
         ctx.save_for_backward(xhat, rstd, w32)
-        ctx.group, ctx.n, ctx.dtypes = group, float(n), (x.dtype, weight.dtype, bias.dtype)
+        ctx.group, ctx.n, ctx.dtypes = group, n, (x.dtype, weight.dtype, bias.dtype)
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -230,12 +251,53 @@ def group_norm1(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
     ``norm(x)`` does; PyTorch's own kernel reduces each (sample, group) in a
     single thread block, so with one group a full-resolution map is reduced
     by one block at a time, where ``var_mean`` spreads the reduction over
-    the card."""
+    the card. Inside ``parallel.halo.tile_rows`` ``x`` is a row band and the
+    statistics are each sample's over every band of the tile group
+    (``_TileGroupNorm``)."""
+    tiles = tile_context()
+    if tiles is not None:
+        return _TileGroupNorm.apply(x, norm.weight, norm.bias, tiles.group, norm.eps)
     x32 = x.float()
     var, mean = torch.var_mean(x32, dim=(1, 2, 3), correction=0, keepdim=True)
     scale = norm.weight.float()[None, :, None, None] * torch.rsqrt(var + norm.eps)
     shift = norm.bias.float()[None, :, None, None] - mean * scale
     return torch.addcmul(shift, x32, scale).to(x.dtype)
+
+
+class _TileGroupNorm(torch.autograd.Function):
+    """GroupNorm with one group of a row band ``x`` [B,C,h,w] with each
+    sample's statistics over (C, H, W) of the whole frame, summed over the
+    ranks of ``group`` (``_global_moments``): returns y in the dtype of
+    ``x``. The backward is the normalisation's, ``dx = rstd / n (n gy - Σgy
+    - x̂ Σ gy x̂)`` with ``gy = g w`` and each sample's sums over the group
+    (one all-reduce); the weight and bias gradients are this band's sums,
+    which the train step sums over the ranks with the other gradients."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, eps):
+        d, _, var, n = _global_moments(x.float(), (1, 2, 3), group)
+        rstd = torch.rsqrt(var + eps)[:, None, None, None]
+        xhat = d * rstd
+        w32 = weight.float()
+        y = xhat * w32[None, :, None, None] + bias.float()[None, :, None, None]
+        ctx.save_for_backward(xhat, rstd, w32)
+        ctx.group, ctx.n, ctx.dtypes = group, n, (x.dtype, weight.dtype, bias.dtype)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, rstd, w32 = ctx.saved_tensors
+        B = xhat.shape[0]
+        g32 = g.float()
+        gy = g32 * w32[None, :, None, None]
+        sums = torch.cat([gy.sum(dim=(1, 2, 3), dtype=torch.float64),
+                          (gy * xhat).sum(dim=(1, 2, 3), dtype=torch.float64)])
+        dist.all_reduce(sums, group=ctx.group)
+        sg, sgx = (t.float()[:, None, None, None] for t in (sums[:B], sums[B:]))
+        dx = rstd / ctx.n * (ctx.n * gy - sg - xhat * sgx)
+        xdt, wdt, bdt = ctx.dtypes
+        return (dx.to(xdt), (g32 * xhat).sum(dim=(0, 2, 3)).to(wdt),
+                g32.sum(dim=(0, 2, 3)).to(bdt), None, None)
 
 
 class GNConvGRUCell(nn.Module):

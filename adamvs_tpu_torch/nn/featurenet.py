@@ -19,11 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.regression import resize_bilinear
 from .blocks import Conv2d, ConvBlock, DeConvFuse
-
-
-def _resize_bilinear(x, h: int, w: int):
-    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
 
 
 class _SPPBranch(nn.Sequential):
@@ -35,7 +32,7 @@ class _SPPBranch(nn.Sequential):
         super().__init__(nn.AvgPool2d(pool, pool), ConvBlock(cin, cout, kernel=1))
 
     def forward(self, x):
-        return _resize_bilinear(super().forward(x), x.shape[2], x.shape[3])
+        return resize_bilinear(super().forward(x), x.shape[2], x.shape[3])
 
 
 def _trunk(module: nn.Module, b: int) -> None:

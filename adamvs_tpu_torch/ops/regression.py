@@ -14,18 +14,23 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.halo import halo_resize_bilinear, tile_context
+
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """``F.interpolate(mode='bilinear', align_corners=False)`` on the trailing
     two dims of an arbitrarily batched tensor (the JAX package's
-    ``antialias=False`` resize)."""
+    ``antialias=False`` resize). Inside ``parallel.halo.tile_rows`` ``x`` is
+    a row band and ``height`` the band's rows after the resize
+    (``halo_resize_bilinear``)."""
     if x.shape[-2] == height and x.shape[-1] == width:
         return x
     lead = x.shape[:-2]
-    y = F.interpolate(
-        x.reshape((-1, 1) + tuple(x.shape[-2:])), size=(height, width),
-        mode="bilinear", align_corners=False,
-    )
+    flat = x.reshape((-1, 1) + tuple(x.shape[-2:]))
+    if tile_context() is not None:
+        y = halo_resize_bilinear(flat, height, width)
+    else:
+        y = F.interpolate(flat, size=(height, width), mode="bilinear", align_corners=False)
     return y.reshape(tuple(lead) + (height, width))
 
 

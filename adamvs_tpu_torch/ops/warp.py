@@ -22,6 +22,16 @@ from __future__ import annotations
 import torch
 
 
+def band_ref_proj(proj_stage: torch.Tensor, row_start: int) -> torch.Tensor:
+    """``proj_stage`` [B,V,4,4] with the reference view's principal row
+    shifted for a band starting at ``row_start`` (stage-resolution rows)
+    (JAX ``_band_ref_proj``): a band's reference pixel ``(x, y)`` is the
+    frame's ``(x, y + row_start)``."""
+    out = proj_stage.clone()
+    out[:, 0, 1, :] = proj_stage[:, 0, 1, :] - row_start * proj_stage[:, 0, 2, :]
+    return out
+
+
 def warp_transform(src_proj: torch.Tensor, ref_proj: torch.Tensor, dtype=torch.float32):
     """rot [...,3,3], trans [...,3] of the ref->src pixel-space transform,
     computed in ``dtype``."""

@@ -15,10 +15,13 @@ or with torchrun, whose ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
 
     torchrun --nproc_per_node 4 -m adamvs_tpu_torch.cli train --distributed --data_parallel 0 ...
 
-``data_parallel(group)`` sets the data group while a step runs: the
+``data_parallel(group)`` sets the statistics group while a step runs: the
 train-mode BatchNorm statistics (``nn/blocks.py``) and the losses' masked
 means (``models/losses.py``) are then those of the global batch over the
-group's ranks, as JAX computes them over its global array.
+group's ranks, as JAX computes them over its global array. The train step
+passes its mesh's ``stats_group``: the data group, or, when image rows are
+sharded over a tile axis too, every rank of the mesh, whose row bands make
+up the global batch together (``parallel/halo.py``).
 """
 
 from __future__ import annotations
@@ -109,7 +112,8 @@ _DATA_GROUPS: list = []
 
 @contextlib.contextmanager
 def data_parallel(group):
-    """While active, ``data_group()`` is ``group`` (None: no data parallelism)."""
+    """While active, ``data_group()`` is ``group``, the ranks whose parts
+    make up the global batch (None: one process holds it)."""
     _DATA_GROUPS.append(group)
     try:
         yield

@@ -8,9 +8,11 @@ nccl rank per card or, with ``--device cpu``, gloo ranks on the CPU, and
 makes JAX's three checks at flagship-shaped stages (AdaMVS, ndepths
 48/32/8, 256x64 frames, base 4, the scan form, seeded weights):
 
-1. one ``Trainer`` epoch over a data group of every rank, one sample each,
-   gives a finite loss equal to one process's on the global batch (within
-   1e-4 relative);
+1. one ``Trainer`` epoch over JAX's mesh, (data=2, tile=ranks/2) for 4
+   ranks or more, else (data=ranks, tile=1): one sample per data slice,
+   with ``tile`` > 1 each rank holding one row band of its sample (256 rows
+   over 2 bands: 128 a band), gives a finite loss equal to one process's on
+   the global batch (within 1e-4 relative);
 2. row bands (``predict/tiled.py``) against the unbanded forward: one band
    per rank with a 96-row halo (median |Δ| < 1e-3, 97 % within 1e-2), then
    two bands over pairs of ranks with a 128-row halo (max < 1e-2, median
@@ -18,9 +20,6 @@ makes JAX's three checks at flagship-shaped stages (AdaMVS, ndepths
 3. depth blocks (``AdaMVS(depth_shards=...)``) over up to 4 ranks against the
    unsharded forward: max |Δ| < 1e-3.
 
-JAX's dry run also trains with image rows sharded over a ``tile`` axis
-(``adamvs_tpu/parallel/mesh.py:60-72``); no command uses that, it needs
-convolutions with halo exchange, and it is not ported: the run says so.
 Each rank, and each collective, waits at most ``--timeout`` seconds. Exits
 0 when every rank passed its checks.
 """
@@ -97,9 +96,10 @@ def rank_main(rank: int, ranks: int, port: int, timeout_s: float, device: str) -
     def model(**kw):
         return build_model("adamvs", seed=0, device=dev, **CFG, **kw)
 
-    # 1. data-parallel Trainer epoch against one process on the global batch
-    batch = train_batch(ranks)
-    mesh = make_mesh(data=ranks, tile=1)
+    # 1. Trainer epoch over JAX's dry-run mesh against one process on the global batch
+    data, tile = (2, ranks // 2) if ranks >= 4 else (ranks, 1)
+    batch = train_batch(data)
+    mesh = make_mesh(data=data, tile=tile)
     with tempfile.TemporaryDirectory() as tmp:
         m = model()
         state = create_train_state(m, make_optimizer(m.parameters(), lr=1e-3))
@@ -115,10 +115,9 @@ def rank_main(rank: int, ranks: int, port: int, timeout_s: float, device: str) -
                          log_fn=lambda s: None, device=dev)
             loss1 = tr.train_epoch(0, [batch])["loss"]
         check(abs(loss - loss1) < 1e-4 * max(1.0, abs(loss1)), f"loss {loss} vs {loss1}")
-        say(f"Trainer epoch OK: data group of {ranks} {device} ranks, ndepths={NDEPTHS}, {H}x{W}, "
-            f"loss={loss:.6f} (one process {loss1:.6f}, Δ={abs(loss - loss1):.2e})")
-    say("row-sharded training (JAX's tile axis in training) is not ported: it needs "
-        "convolutions with halo exchange (ROADMAP.md queue 3)")
+        say(f"Trainer epoch OK: mesh=(data={data}, tile={tile}) of {device} ranks, "
+            f"ndepths={NDEPTHS}, {H}x{W} ({H // tile} rows a band), loss={loss:.6f} (one process "
+            f"{loss1:.6f}, Δ={abs(loss - loss1):.2e})")
     dist.barrier()
 
     # 2. row bands against the unbanded forward

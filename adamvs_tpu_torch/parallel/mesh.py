@@ -9,12 +9,15 @@ process group along each axis:
   (``shard_batch``) after rank 0's parameters were broadcast (``replicate``);
 - ``tile``: the ranks that share a data index; row bands (``predict/
   tiled.py``) and depth blocks (``models/adamvs.py``) take one index each.
+  In training with ``tile`` > 1 each of them holds one row band of its data
+  slice (``shard_batch``, as JAX's shards image rows over ``tile``): the
+  train step runs under ``parallel.halo.tile_rows`` over the tile group,
+  and its batch statistics, masked means and gradient average span the
+  whole mesh (``stats_group``).
 
 Work split by ``(index, count)`` runs through ``run_blocks``: one process
 runs the indices one after another, a group gives one to each rank and
-gathers the results. JAX's ``shard_batch`` also shards image rows over
-``tile`` while training; that needs convolutions with halo exchange and is
-not ported (``shard_batch`` raises for it).
+gathers the results.
 """
 
 from __future__ import annotations
@@ -45,6 +48,16 @@ class Mesh:
     def tile_index(self) -> int:
         return rank() % self.tile
 
+    @property
+    def stats_group(self):
+        """The ranks over which a train step's batch statistics, masked
+        means and gradient average run: the data group, or with row bands
+        (``tile`` > 1) every rank of the mesh, which is the world
+        (``make_mesh`` covers all ranks). None without a process group."""
+        if self.tile_group is None or self.tile == 1:
+            return self.data_group
+        return dist.group.WORLD
+
 
 def make_mesh(data: int | None = None, tile: int = 1) -> Mesh:
     """A (data, tile) mesh over every rank; ``data=None`` takes the ranks
@@ -71,33 +84,56 @@ def make_mesh(data: int | None = None, tile: int = 1) -> Mesh:
     return Mesh(data, tile, groups["data", r % tile], groups["tile", r // tile])
 
 
+# the rows of a band must halve five times: twice in the feature net, three more
+# times in stage 1's CostRegNet2D (and in its SPP pool of 8)
+BAND_ROW_MULTIPLE = 32
+
+
 def shard_batch(batch, mesh: Mesh):
     """This rank's contiguous slice of a global batch (nested dicts of
-    arrays, batch leading) over ``data``."""
+    arrays, batch leading) over ``data``; with ``tile`` > 1 also this rank's
+    row band of it, as JAX's ``shard_batch`` (adamvs_tpu/parallel/mesh.py:
+    45-76): ``imgs`` [B,V,H,W,3] on axis 2, every stage's ``depth`` and
+    ``mask`` [B,h,w] on axis 1, band ``tile_index`` of ``tile``. Raises
+    ``ValueError`` unless the band's rows H/tile are a multiple of 32."""
     if mesh.tile > 1:
-        raise NotImplementedError("training with image rows sharded over the tile axis is not "
-                                  "ported (ROADMAP.md queue 3)")
+        H = batch["imgs"].shape[2]
+        if H % (mesh.tile * BAND_ROW_MULTIPLE):
+            raise ValueError(
+                f"{H} image rows over tile={mesh.tile} give bands of {H / mesh.tile:g} rows; a "
+                f"band needs a multiple of {BAND_ROW_MULTIPLE} rows (the feature net halves them "
+                f"twice, then stage 1's CostRegNet2D and SPP pool three more times)")
 
-    def cut(x):
+    def rows(x, axis):
+        n = x.shape[axis] // mesh.tile
+        band = [slice(None)] * x.ndim
+        band[axis] = slice(mesh.tile_index * n, (mesh.tile_index + 1) * n)
+        return x[tuple(band)]
+
+    def cut(x, top=None):
         if isinstance(x, dict):
-            return {k: cut(v) for k, v in x.items()}
+            return {k: cut(v, k if top is None else top) for k, v in x.items()}
         if x.shape[0] % mesh.data:
             raise ValueError(f"batch {x.shape[0]} is not divisible by the data axis {mesh.data}")
         b = x.shape[0] // mesh.data
-        return x[mesh.data_index * b:(mesh.data_index + 1) * b]
+        x = x[mesh.data_index * b:(mesh.data_index + 1) * b]
+        if mesh.tile > 1 and top in ("imgs", "depth", "mask"):
+            x = rows(x, 2 if top == "imgs" else 1)
+        return x
 
     return cut(batch)
 
 
 @torch.no_grad()
 def replicate(module: torch.nn.Module, mesh: Mesh) -> None:
-    """Broadcast the parameters and buffers of the data group's first rank
-    to the group's other ranks, in place."""
-    if mesh.data_group is None:
+    """Broadcast the parameters and buffers of the first rank of the mesh's
+    statistics group (``Mesh.stats_group``: the data group, or every rank
+    with row bands) to the group's other ranks, in place."""
+    group = mesh.stats_group
+    if group is None:
         return
-    src = mesh.tile_index  # the group's rank at data index 0
     for t in list(module.parameters()) + list(module.buffers()):
-        dist.broadcast(t.data, src=src, group=mesh.data_group)
+        dist.broadcast(t.data, src=0, group=group)  # rank 0 is the group's first
 
 
 def run_blocks(fn, count: int, group=None) -> list:

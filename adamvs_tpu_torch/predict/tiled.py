@@ -24,20 +24,12 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.warp import band_ref_proj
 from ..parallel.mesh import run_blocks
 
 # covers the stage-1 regulariser's receptive field (~50 px at 1/4 resolution,
 # ~200 full-resolution rows) and the recurrent cells'
 HALO_ROWS = 256
-
-
-def band_ref_proj(proj_stage: torch.Tensor, row_start: int) -> torch.Tensor:
-    """``proj_stage`` [B,V,4,4] with the reference view's principal row
-    shifted for a band starting at ``row_start`` (stage-resolution rows)
-    (JAX ``_band_ref_proj``)."""
-    out = proj_stage.clone()
-    out[:, 0, 1, :] = proj_stage[:, 0, 1, :] - row_start * proj_stage[:, 0, 2, :]
-    return out
 
 
 def band_geometry(band: int, count: int, H: int, halo: int = HALO_ROWS) -> tuple[int, int, int]:

@@ -37,25 +37,32 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..ops.regression import resize_bilinear
 from ..parallel.distributed import data_parallel, rank
+from ..parallel.halo import gather_rows_nograd, tile_rows
 from ..parallel.mesh import average_gradients, replicate
 from .checkpoint import latest_checkpoint, next_epoch_after, restore_checkpoint, save_checkpoint
 from .metrics import eval_metrics
 from .state import TrainState, apply_updates_if_finite
 
 
-def make_train_step(loss_fn: Callable, dlossw, group=None) -> Callable:
+def make_train_step(loss_fn: Callable, dlossw, group=None, tile_group=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics, depth_est)`` on a
-    batch of tensors; updates ``state`` in place. With a data ``group`` the
-    batch is this rank's slice of the global batch and the step is one
-    device's step on the global batch: BatchNorm statistics and the loss are
-    the global batch's (``parallel.data_parallel``), and the gradients are
-    summed over the ranks and divided by their number once. Each rank's
-    gradient of the global loss is the group's size times its share, since
-    the loss's sums reach every rank through the all-reduce."""
+    batch of tensors; updates ``state`` in place. With a ``group`` (the
+    mesh's ``stats_group``) the batch is this rank's part of the global
+    batch and the step is one device's step on the global batch: BatchNorm
+    statistics and the loss are the global batch's (``parallel.
+    data_parallel``), and the gradients are summed over the ranks and
+    divided by their number once. Each rank's gradient of the global loss is
+    the group's size times its share, since the loss's sums reach every rank
+    through the all-reduce. With a ``tile_group`` the part is one row band
+    of a data slice (``shard_batch``) and the model runs under
+    ``parallel.halo.tile_rows``: convolutions and resizes exchange halo rows
+    and the sources are gathered per stage, each with its exact adjoint, so
+    the argument holds for the mesh's every rank; ``depth_est`` is the
+    band's."""
     def train_step(state: TrainState, batch):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        with data_parallel(group):
+        with data_parallel(group), tile_rows(tile_group):
             out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"], train=True)
             loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
         loss.backward()
@@ -68,15 +75,21 @@ def make_train_step(loss_fn: Callable, dlossw, group=None) -> Callable:
     return train_step
 
 
-def make_eval_step(loss_fn: Callable, dlossw, num_stages: int, group=None) -> Callable:
+def make_eval_step(loss_fn: Callable, dlossw, num_stages: int, group=None,
+                   tile_group=None) -> Callable:
     """``eval_step(state, batch) -> (metrics, depth, confidence)`` on a
     batch of tensors. With a data ``group`` (every rank's batch of one size)
     the metrics are the global batch's: the loss through its global masked
-    means, the per-image metrics averaged over the ranks."""
+    means, the per-image metrics averaged over the ranks. With a
+    ``tile_group`` the batch is a row band: its rows are gathered over the
+    group and the unbanded inference form runs on the whole frames, alike on
+    every rank of the group (as XLA runs a custom call it cannot partition),
+    so the kernels see the shapes they are checked at."""
     final = f"stage{num_stages}"
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
+        batch = gather_batch_rows(batch, tile_group)
         model = state.model.eval()
         with data_parallel(group):
             out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
@@ -94,6 +107,18 @@ def make_eval_step(loss_fn: Callable, dlossw, num_stages: int, group=None) -> Ca
         return metrics, out["depth"], out["photometric_confidence"]
 
     return eval_step
+
+
+def gather_batch_rows(batch: dict, group) -> dict:
+    """A row-banded batch (``shard_batch`` over a tile ``group``) with the
+    rows of ``imgs`` and of every stage's ``depth`` and ``mask`` gathered
+    over the group, the whole frames; ``batch`` itself without a group."""
+    if group is None:
+        return batch
+    out = dict(batch, imgs=gather_rows_nograd(batch["imgs"], 2, group))
+    for key in ("depth", "mask"):
+        out[key] = {k: gather_rows_nograd(v, 1, group) for k, v in batch[key].items()}
+    return out
 
 
 def to_device(batch, device: torch.device):
@@ -127,12 +152,15 @@ class Trainer:
     ``ckpt_step_freq`` steps and every ``save_freq`` epochs in ``logdir``.
 
     ``mesh`` (``parallel.make_mesh``): data-parallel training over its data
-    group (JAX's ``mesh=``, adamvs_tpu/train/loop.py:111-155). Rank 0's
+    group (JAX's ``mesh=``, adamvs_tpu/train/loop.py:111-155) and, with
+    ``tile`` > 1, image rows sharded over its tile groups. Rank 0's
     parameters and buffers are broadcast at the start; each batch is this
-    rank's slice of the global batch (``parallel.shard_batch``), and a step
+    rank's part of the global batch (``parallel.shard_batch``: its data
+    slice, and with row bands its band of the slice's rows), and a step
     equals one device's step on the global batch (``make_train_step``);
-    scalar metrics are global. Only rank 0 writes the records and the
-    checkpoints."""
+    scalar metrics are global. The eval step gathers a banded batch's rows
+    and runs the unbanded inference form (``make_eval_step``). Only rank 0
+    writes the records and the checkpoints."""
 
     def __init__(self, state: TrainState, loss_fn, logdir: str, dlossw=(0.5, 1.0, 2.0),
                  num_stages: int = 3, summary_freq: int = 50, save_freq: int = 1,
@@ -146,12 +174,15 @@ class Trainer:
         self.save_freq = save_freq
         self.ckpt_step_freq = ckpt_step_freq
         self.log = log_fn
-        group = mesh.data_group if mesh is not None else None
+        group = mesh.stats_group if mesh is not None else None
+        self.tile_group = mesh.tile_group if mesh is not None and mesh.tile > 1 else None
         if group is not None:
             replicate(state.model, mesh)
         self.is_primary = rank() == 0
-        self.train_step = make_train_step(loss_fn, dlossw, group)
-        self.eval_step = make_eval_step(loss_fn, dlossw, num_stages, group)
+        self.train_step = make_train_step(loss_fn, dlossw, group, self.tile_group)
+        self.eval_step = make_eval_step(loss_fn, dlossw, num_stages,
+                                        mesh.data_group if mesh is not None else None,
+                                        self.tile_group)
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = os.path.join(logdir, "metrics.jsonl")
         # host seconds per train step: waiting for the batch, and the step itself
@@ -189,15 +220,18 @@ class Trainer:
 
     def _record_images(self, kind: str, step: int, batch, depth_est: torch.Tensor):
         """Depth, GT and error images of the first sample (the reference's
-        save_images, utils.py:127-147), each min-max normalised."""
+        save_images, utils.py:127-147), each min-max normalised; a row-banded
+        step's rows gathered over the tile group first, on every rank of
+        it."""
+        final = f"stage{len(batch['depth'])}"
+        est, gt, mask = (gather_rows_nograd(t[:1].contiguous(), 1, self.tile_group)
+                         for t in (depth_est, batch["depth"][final], batch["mask"][final]))
         if self._tb is None:
             return
-        final = f"stage{len(batch['depth'])}"
-        gt = batch["depth"][final][0].float()
-        est = depth_est[0].float()
+        gt, est = gt[0].float(), est[0].float()
         if est.shape != gt.shape:
             est = resize_bilinear(est[None], gt.shape[0], gt.shape[1])[0]
-        err = (est - gt).abs() * batch["mask"][final][0].float()
+        err = (est - gt).abs() * mask[0].float()
 
         def norm(img):
             img = img.cpu().numpy()

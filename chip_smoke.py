@@ -112,7 +112,14 @@ Phases, in order; any failure exits nonzero:
    blocks against the unsharded scan form (``phase_depth_shards``), and the
    Trainer in data-parallel mode, over nccl at world size 1 and over 2 gloo
    ranks in 2 processes sharing the card, against one process on the
-   global batch (``phase_data_parallel``);
+   global batch (``phase_data_parallel``); then training with image rows
+   sharded over a tile axis: K1/K2/K4, K5 and K6/K7 with its gradient at
+   the band shapes of the training crop cut into 2 and 4 row bands (a band's
+   reference rows against full-height sources), float32 and bf16, then the
+   Trainer over a (data=1, tile=2) mesh, one row band a rank (2 gloo ranks
+   sharing the card, or nccl with 2 cards), one step of AdaMVS in the scan
+   and fused forms and of fused MS-REDNet on the training batch against one
+   process on the whole frame (``phase_tile_train``);
 6. host_io and cli: the host library on the fixture's frames first (PNG
    decode against PIL, EXR against the Python codec, centring and resizing,
    ``phase_host_io``); then the port's predict command in this process on
@@ -133,7 +140,9 @@ Phases, in order; any failure exits nonzero:
    seconds and the loader's share, the records
    (metrics.jsonl, train_record.txt, checkpoints, TensorBoard events where
    tensorboardX imports);
-7. the kernels line (JSON; launches summed over phases 5 and 6; with the
+7. the kernels line (JSON; launches summed over phases 5 and 6, of the tile
+   phase rank 0's; the band errors of phase_tile_train under
+   ``tile_train_max_abs_err``; with the
    ``host_io`` and ``extras`` figures), the card line, and the final JSON
    line.
 
@@ -3037,6 +3046,32 @@ def _dp_result(model, loss: float) -> dict:
             "state": {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}}
 
 
+def step_errors(got: dict, want: dict) -> tuple[float, float, float, float]:
+    """(loss, gradient, parameter step, BatchNorm statistics) errors of one
+    train step's result ``got`` against ``want`` (``_dp_result``): the loss
+    relative; the gradient by relative L2; each parameter less ``want``'s
+    against RMSprop's first step of ``got``'s gradient less that of
+    ``want``'s (the step turns the rounding of a gradient near 0 into a
+    whole step); the running statistics relative to max(1, |want|)."""
+    keys = list(want["grads"])
+    bn = [k for k in want["state"] if k.endswith(("running_mean", "running_var"))]
+
+    def flat(grads):
+        return torch.cat([grads[k].flatten() for k in keys])
+
+    def step(g):
+        return -1e-3 * g / ((0.1 * g * g).sqrt() + 1e-8)
+
+    gw = flat(want["grads"])
+    return (abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            float((flat(got["grads"]) - gw).norm() / gw.norm()),
+            max(float(((got["state"][k] - want["state"][k])
+                       - (step(got["grads"][k]) - step(want["grads"][k]))).abs().max())
+                for k in keys),
+            max(float(((got["state"][k] - want["state"][k]).abs()
+                       / want["state"][k].abs().clamp(min=1.0)).max()) for k in bn))
+
+
 def dp_worker(rank: int, port: int, out: str) -> None:
     """One of 2 gloo ranks sharing the card (``--dp-worker``): one
     data-parallel train step of fused AdaMVS on its half of ``dp_batch``;
@@ -3158,28 +3193,7 @@ def phase_data_parallel() -> tuple[dict, list]:
         if n != steps * per_step.get(k, 0):
             fail(f"train_adamvs_data_parallel: {k} launched {n} times over {steps} steps, "
                  f"expected {steps * per_step.get(k, 0)}")
-    keys = list(fp["grads"])
-    bn = [k for k in fp["state"] if k.endswith(("running_mean", "running_var"))]
-
-    def flat(grads):
-        return torch.cat([grads[k].flatten() for k in keys])
-
-    def step(g):
-        return -1e-3 * g / ((0.1 * g * g).sqrt() + 1e-8)
-
-    def compare(got, want):
-        """(loss, gradient, parameter step, BatchNorm statistics) errors of
-        one step's result ``got`` against ``want`` (``_dp_result``)."""
-        gw = flat(want["grads"])
-        return (abs(got["loss"] - want["loss"]) / abs(want["loss"]),
-                float((flat(got["grads"]) - gw).norm() / gw.norm()),
-                max(float(((got["state"][k] - want["state"][k])
-                           - (step(got["grads"][k]) - step(want["grads"][k]))).abs().max())
-                    for k in keys),
-                max(float(((got["state"][k] - want["state"][k]).abs()
-                           / want["state"][k].abs().clamp(min=1.0)).max()) for k in bn))
-
-    lerr, gerr, perr, serr = compare(fd, fp)
+    lerr, gerr, perr, serr = step_errors(fd, fp)
     later = max(abs(a - b) / abs(b) for a, b in zip(ld[1:], lp[1:]))
     share = replay.flips / max(sum(m.numel() for m in record.masks), 1)
     log(f"[data_parallel] world 1 over nccl, fused AdaMVS {TRAIN_H}x{TRAIN_W} float32, {steps} "
@@ -3238,7 +3252,7 @@ def phase_data_parallel() -> tuple[dict, list]:
              f"{replay.flips} decisions of its own differ")
     errs = []
     for r, got in enumerate(ranks):
-        lrel, grel, prel, srel = compare(got, one)
+        lrel, grel, prel, srel = step_errors(got, one)
         errs.append((lrel, grel, prel, srel))
         log(f"[data_parallel] gloo rank {r} of 2 on one card, 1 step of fused AdaMVS on its "
             f"half of a 2-sample batch (uneven masks): loss {got['loss']:.6f} against one "
@@ -3262,6 +3276,299 @@ def phase_data_parallel() -> tuple[dict, list]:
         f"{ranks[1]['step_ms']:.1f} ms); one process took {replay.flips} of "
         f"{sum(m.numel() for m in replay.masks)} ReLU decisions from the ranks; the ranks' "
         f"states are equal")
+    return launches, stats
+
+
+# training with image rows over a tile axis (phase_tile_train): 2 row bands of the
+# training crop, each a rank; the forms, each with its launches per train step
+TILE_RANKS = 2
+TILE_FORMS = (("tile_adamvs_scan", "adamvs", {"sweep_impl": "scan", "reg_impl": "scan"},
+               TRAIN_PATHS[2][4]),
+              ("tile_adamvs_fused", "adamvs", {}, TRAIN_PATHS[0][4]),
+              ("tile_msrednet_fused", "msrednet", {"sweep_impl": "fused"}, TRAIN_PATHS[1][4]))
+# the row bands whose kernel shapes phase_tile_train checks: band 1 of 2 and of 4
+TILE_BANDS = ((1, 2), (1, 4))
+
+
+def tile_batch() -> dict:
+    """The training batch (384x768, V=5, one sample) with its masks zero on
+    the left half of the 64 frame rows around the middle, where two bands
+    meet: a band's own masked means would differ from the frame's."""
+    batch = train_batch(TRAIN_H, TRAIN_W)
+    for m in batch["mask"].values():
+        s = TRAIN_H // m.shape[1]
+        m[:, (TRAIN_H // 2 - 32) // s:(TRAIN_H // 2 + 32) // s, : m.shape[2] // 2] = 0.0
+    return batch
+
+
+def tile_band_inputs(si: int, gen: torch.Generator, band: int, count: int) -> StageInputs:
+    """StageInputs at the training crop's stage ``si`` cut to row band
+    ``band`` of ``count`` (as ``shard_batch`` cuts a train batch): the
+    band's reference rows, weights and hypothesis window, the full-height
+    sources, and the reference projection shifted to the band's first row
+    (``ops.warp.band_ref_proj``)."""
+    from adamvs_tpu_torch.ops.warp import band_ref_proj
+
+    st = StageInputs(si, gen, TRAIN_H, TRAIN_W)
+    bh = st.h // count
+    r0 = band * bh
+    st.h = bh
+    st.ref = st.ref[:, r0:r0 + bh].contiguous()
+    st.weights = st.weights[:, :, r0:r0 + bh].contiguous()
+    st.lo, st.step = st.lo[:, r0:r0 + bh].contiguous(), st.step[:, r0:r0 + bh].contiguous()
+    st.ref_proj = band_ref_proj(st.ref_proj[:, None], r0)[:, 0]
+    st.rows = (r0, bh)
+    return st
+
+
+def tile_kernels(res: dict) -> None:
+    """The training kernels at the shapes of row-sharded training: band 1
+    of 2 and of 4 of the training crop (192 and 96 of 384 rows, stage 1 48
+    and 24 of 96), each band's reference rows against the full-height
+    sources with the shifted reference projection, in float32 and bf16:
+    K1/K2/K4 and K5-corr/K5-fused/K5-var against the plain volumes and their
+    autograd VJPs (TOL, max relative), K6/K7 and K6/K7-bwd at the scan
+    form's calls (stage 1 16 hypotheses a call, stages 2 and 3 one; all 4
+    source views a call) against their plain versions (K6/K7-bwd by relative
+    L2). The errors go in the kernels line under ``tile_train f32|bf16``."""
+    from adamvs_tpu_torch.ops import sweep_fuse as sf
+    from adamvs_tpu_torch.ops import warp_sample as ws
+    from adamvs_tpu_torch.ops.warp import sweep_coords
+
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    for band, count in TILE_BANDS:
+        for si in range(3):
+            st = tile_band_inputs(si, gen, band, count)
+            N = 16 if si == 0 else 1
+            d0 = (st.D - N) // 2
+            hyp = st.lo[:, None] + (d0 + torch.arange(N, device=DEV))[None, :, None, None] * st.step[:, None]
+            uv = [sweep_coords(st.srcs[i], st.src_projs[i], st.ref_proj, hyp) for i in range(V - 1)]
+            u, v = torch.cat([a for a, _ in uv]), torch.cat([b for _, b in uv])
+            wn = sf.normalize_weights(st.weights)
+            geo = (st.src_projs, st.ref_proj, st.lo, st.step)
+            tag = (f"band {band} of {count} stage{si + 1} ({st.rows[0]}-{sum(st.rows) - 1} of "
+                   f"{st.srcs.shape[2]} rows)")
+            for dtype in (torch.float32, torch.bfloat16):
+                tn = "f32" if dtype == torch.float32 else "bf16"
+                key = f"tile_train {tn}"
+                ref, srcs = st.feats(dtype)
+                with torch.no_grad():
+                    fwd = [("K2", sf.fused_sweep_volume(ref, srcs, st.weights, *geo, st.D),
+                            sf.fused_volume_ref(ref, srcs, st.weights, *geo, st.D)),
+                           ("K4", sf.var_sweep_volume(ref, srcs, *geo, st.D),
+                            sf.var_volume_ref(ref, srcs, *geo, st.D)),
+                           ("K6/7", ws.sample_bilinear(srcs.flatten(0, 1), u, v),
+                            ws.sample_bilinear_ref(srcs.flatten(0, 1), u, v))]
+                    if si == 0:
+                        fwd.insert(0, ("K1", sf.corr_sweep_volume(ref, srcs, *geo, st.D),
+                                       sf.corr_volume_ref(ref, srcs, *geo, st.D)))
+                for k, got, want in fwd:
+                    _record_err(res, k, key, _compare(f"{k} {tag} {tn}", (k, dtype), got, want))
+                del fwd
+                for mode in ("corr", "fused", "var")[0 if si == 0 else 1:]:
+                    k = f"K5-{mode}"
+                    kern, plain = _k5_calls(mode, _cotangent(mode, st, dtype, gen), ref, srcs,
+                                            wn, geo)
+                    _record_err(res, k, key, _compare_grads(f"{k} {tag} {tn}", (k, dtype),
+                                                            kern(), plain()))
+                dout = torch.randn((V - 1, N, st.h, st.w, st.C), generator=gen,
+                                   device=DEV).to(dtype)
+                H_src, W_src = srcs.shape[2:4]
+                _record_err(res, "K6/7-bwd", key, _compare_l2(
+                    f"K6/7-bwd {tag} N{N} {tn}", ("K6/7-bwd", dtype),
+                    ws.sample_bilinear_bwd(dout, u, v, H_src, W_src),
+                    ws.sample_bilinear_bwd_ref(dout, u, v, H_src, W_src)))
+                del ref, srcs, dout
+            del st, u, v, uv, hyp, wn, geo
+            torch.cuda.empty_cache()
+
+
+def _tile_backend() -> str:
+    """nccl with a card per rank, else gloo: the ranks share the one card."""
+    return "nccl" if torch.cuda.device_count() >= TILE_RANKS else "gloo"
+
+
+def _stage_depths(model) -> tuple[dict, object]:
+    """(a dict that the next forward of ``model`` fills with every stage's
+    depth on the CPU, the hook's handle)."""
+    depth = {}
+
+    def keep(module, args, out):
+        if not depth:
+            depth.update({f"stage{i + 1}": out[f"stage{i + 1}"]["depth"].detach().cpu()
+                          for i in range(len(NDEPTHS))})
+
+    return depth, model.register_forward_hook(keep)
+
+
+def tile_worker(rank: int, port: int, out: str) -> None:
+    """One of ``TILE_RANKS`` ranks (``--tile-worker``) of a (data=1,
+    tile=TILE_RANKS) mesh: per form of TILE_FORMS one Trainer step on its
+    row band of ``tile_batch``, with the launch counters set to 0 just
+    before and read just after and its ReLU decisions recorded; writes its
+    loss, gradients, state, every stage's depth, launches, decisions and
+    step time (the recording's copies included) to ``out``."""
+    import torch.distributed as dist
+
+    from adamvs_tpu_torch.models import model_loss
+    from adamvs_tpu_torch.parallel import initialize_distributed, make_mesh, shard_batch
+    from adamvs_tpu_torch.train.loop import Trainer
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = _tile_backend()
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    initialize_distributed(f"localhost:{port}", TILE_RANKS, rank, backend=backend, timeout_s=300)
+    counted = wrappers()
+    batch = tile_batch()
+    for path, name, opts, _ in TILE_FORMS:
+        model = _train_model(name, opts, 0, DEV)
+        mesh = make_mesh(data=1, tile=TILE_RANKS)
+        state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+        trainer = Trainer(state, model_loss(name), os.path.join(out, f"{path}{rank}"),
+                          dlossw=DLOSSW, num_stages=3, ckpt_step_freq=0, log_fn=lambda m: None,
+                          device=DEV, mesh=mesh)
+        part = shard_batch(batch, mesh)
+        depth, hook = _stage_depths(model)
+        record = ReluReplay()
+        dist.barrier()
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with record:
+            loss = trainer.train_epoch(0, [part])["loss"]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches for k, fn in counted.items()}
+        hook.remove()
+        result = _dp_result(model, loss)
+        result.update(launches=launches, masks=record.masks, depth=depth, step_ms=step_ms)
+        torch.save(result, os.path.join(out, f"{path}_rank{rank}.pt"))
+        del model, trainer, state, record, result
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def phase_tile_train(res: dict) -> tuple[dict, list]:
+    """Training with image rows sharded over a tile axis (JAX's
+    ``shard_batch`` with tile > 1; ``parallel/halo.py``):
+
+    1. the training kernels at the band shapes (``tile_kernels``);
+    2. the Trainer over a (data=1, tile=2) mesh: 2 nccl ranks on 2 cards,
+       or 2 gloo ranks in 2 processes sharing the one card, one train step
+       per form of TILE_FORMS (AdaMVS scan and fused, MS-REDNet fused) at
+       the bench's training batch (384x768, V=5, base 8, ndepths 48/32/8,
+       float32, TF32 off; ``tile_batch``'s uneven masks), each rank on its
+       row band, against one process on the whole frame on the card
+       replaying the ranks' ReLU decisions (each rank's, concatenated along
+       the rows): the loss within 1e-4 relative on both ranks (JAX's bar,
+       __graft_entry__.py:119), the averaged gradient within 1e-3 relative
+       L2, each rank's parameters less the one process's equal to RMSprop's
+       step of the one gradient less the other's within 1e-6, the BatchNorm
+       statistics within 1e-4, every stage's depth at every row within 1e-4
+       of the depth range; each rank's launches per step as TILE_FORMS
+       says. The step times (the ranks' recording and the one process's
+       replay of the ReLU decisions included) and the sampler's launches per
+       rank and step are logged as information.
+    Returns (rank 0's launches, per-path statistics)."""
+    from adamvs_tpu_torch.models import model_loss
+    from adamvs_tpu_torch.parallel.dryrun import free_port
+    from adamvs_tpu_torch.train.loop import Trainer
+    from adamvs_tpu_torch.train.state import create_train_state, make_optimizer
+
+    tile_kernels(res)
+    root = os.path.join(REPO, "adamvs_tpu_torch", "_build", "chip_smoke_tile")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    backend = _tile_backend()
+    t0 = time.perf_counter()
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tile-worker", str(r),
+                               str(port), root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=REPO) for r in range(TILE_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"tile rank {r} over {backend} exited {p.returncode}: {out[-3000:]}")
+    wall = (time.perf_counter() - t0) * 1e3
+    batch = tile_batch()
+    launches = {k: 0 for k in KERNELS}
+    stats = []
+    for path, name, opts, per_step in TILE_FORMS:
+        ranks = [torch.load(os.path.join(root, f"{path}_rank{r}.pt"), weights_only=False)
+                 for r in range(TILE_RANKS)]
+        masks = [r.pop("masks") for r in ranks]
+        if len({len(m) for m in masks}) != 1:
+            fail(f"{path}: the ranks made different numbers of ReLU calls")
+        replay = ReluReplay([torch.cat(calls, dim=2) for calls in zip(*masks)])
+        del masks
+        model = _train_model(name, opts, 0, DEV)
+        state = create_train_state(model, make_optimizer(model.parameters(), lr=1e-3))
+        trainer = Trainer(state, model_loss(name), os.path.join(root, f"{path}_one"),
+                          dlossw=DLOSSW, num_stages=3, ckpt_step_freq=0, log_fn=lambda m: None,
+                          device=DEV)
+        depth, hook = _stage_depths(model)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with replay:
+            loss = trainer.train_epoch(0, [batch])["loss"]
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) * 1e3
+        one = _dp_result(model, loss)
+        hook.remove()
+        del model, trainer, state
+        torch.cuda.empty_cache()
+        share = replay.flips / max(sum(m.numel() for m in replay.masks), 1)
+        if replay.calls != len(replay.masks) or share > ReluReplay.MAX_FLIPS:
+            fail(f"{path}: one process made {replay.calls} ReLU calls of the ranks' "
+                 f"{len(replay.masks)}, {replay.flips} decisions of its own differ")
+        derr = max(float((torch.cat([r["depth"][k] for r in ranks], dim=1) - d).abs().max())
+                   for k, d in depth.items()) / (DMAX - DMIN)
+        errs = [step_errors(r, one) for r in ranks]
+        for r, (got, (lrel, grel, prel, srel)) in enumerate(zip(ranks, errs)):
+            log(f"[tile_train] {path} rank {r} of {TILE_RANKS} over {backend}, rows "
+                f"{r * TRAIN_H // TILE_RANKS}-{(r + 1) * TRAIN_H // TILE_RANKS - 1} of "
+                f"{TRAIN_H}x{TRAIN_W}: loss {got['loss']:.6f} against one process's "
+                f"{one['loss']:.6f} (rel {lrel:.2e}, limit 1e-4); gradient rel L2 {grel:.2e} "
+                f"(limit 1e-3); parameters against RMSprop's step {prel:.2e} (limit 1e-6); "
+                f"BatchNorm statistics {srel:.2e} (limit 1e-4); launches {got['launches']}")
+            if not (lrel < 1e-4 and grel < 1e-3 and prel < 1e-6 and srel < 1e-4):
+                fail(f"{path}: tile rank {r} disagrees with one process")
+            if {k: n for k, n in got["launches"].items() if n} != per_step:
+                fail(f"{path}: rank {r} launched {got['launches']}, expected {per_step}")
+        log(f"[tile_train] {path}: every stage's depth, both bands' rows, within {derr:.2e} of "
+            f"the depth range of one process's (limit 1e-4); {replay.flips} of "
+            f"{sum(m.numel() for m in replay.masks)} ReLU decisions of one process differ from "
+            f"the ranks'; step {ranks[0]['step_ms']:.1f} / {ranks[1]['step_ms']:.1f} ms per rank "
+            f"recording the decisions, one process's {one_ms:.1f} ms replaying them "
+            f"(information; the {backend} ranks "
+            f"{'share one card' if backend == 'gloo' else 'each have a card'}); K6/7 "
+            f"{ranks[0]['launches']['K6/7']} and K6/7-bwd {ranks[0]['launches']['K6/7-bwd']} "
+            f"launches per rank and step")
+        if derr >= 1e-4:
+            fail(f"{path}: the bands' depth lies {derr:.2e} of the depth range from one "
+                 f"process's")
+        for k, n in ranks[0]["launches"].items():
+            launches[k] += n
+        stats.append({"path": path, "tiles": TILE_RANKS, "backend": backend,
+                      "step_ms_per_rank": [r["step_ms"] for r in ranks], "one_process_ms": one_ms,
+                      "launches_per_rank": ranks[0]["launches"],
+                      "loss_rel_err": max(e[0] for e in errs), "grad_rel_l2": max(e[1] for e in errs),
+                      "param_step_err": max(e[2] for e in errs), "bn_err": max(e[3] for e in errs),
+                      "depth_err": derr, "relu_flips": replay.flips})
+        del ranks, replay, one, depth
+    log(f"[tile_train] {TILE_RANKS} {backend} ranks: {wall / 1e3:.1f} s for both processes "
+        f"(start-up, the build's libraries loaded, one step of each of {len(TILE_FORMS)} forms)")
     return launches, stats
 
 
@@ -3435,6 +3742,9 @@ def kernels_line(res: dict, launches: dict) -> dict:
             # at the row bands of predict --tiles 4 (phase_bands)
             "band_max_abs_err": {t[5:]: e[0] for t, e in res[k]["err"].items()
                                  if t.startswith("band ")} or None,
+            # at the row bands of training over a tile axis (phase_tile_train)
+            "tile_train_max_abs_err": {t[11:]: e[0] for t, e in res[k]["err"].items()
+                                       if t.startswith("tile_train ")} or None,
             "stages": stages,
             **{key: res[k][key] for key in ("f32_eval_stages", "f32_full_stages")
                if key in res[k]},
@@ -4093,6 +4403,7 @@ def main() -> None:
     tiled_launches, tiled_stats = timed(phase_tiled)
     shard_launches, shard_stats = timed(phase_depth_shards)
     dp_launches, dp_stats = timed(phase_data_parallel)
+    tile_launches, tile_stats = timed(phase_tile_train, res)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         t0 = time.perf_counter()
         tree, depth_range = cli_fixture(tmp)
@@ -4101,9 +4412,10 @@ def main() -> None:
         cli_launches, cli_stats = timed(phase_cli, tmp, tree, depth_range)
     cli_train_launches, cli_train_stats = timed(phase_cli_train)
     line = kernels_line(res, {k: n + train_launches[k] + tiled_launches[k] + shard_launches[k]
-                              + dp_launches[k] + cli_launches[k] + cli_train_launches[k]
-                              for k, n in launches.items()})
-    line["main_path"] = main_stats + train_stats + tiled_stats + shard_stats + dp_stats
+                              + dp_launches[k] + tile_launches[k] + cli_launches[k]
+                              + cli_train_launches[k] for k, n in launches.items()})
+    line["main_path"] = (main_stats + train_stats + tiled_stats + shard_stats + dp_stats
+                         + tile_stats)
     line["train_reference_bf16"] = bf16_reference
     line["cli"] = cli_stats + cli_train_stats
     line["host_io"] = host_io
@@ -4118,6 +4430,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--tile-worker"]:
+        tile_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--probe-parallel"]:
         if not torch.cuda.is_available():
             fail("no CUDA device: the probes need one GPU")

@@ -134,8 +134,7 @@ def test_dryrun_on_four_ranks():
                            "4", "--device", "cpu", "--timeout", str(PROC_TIMEOUT)], cwd=REPO,
                           capture_output=True, text=True, timeout=PROC_TIMEOUT + 120)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
-    for line in ("Trainer epoch OK", "row bands OK", "row bands (halo >= receptive field) OK",
-                 "depth blocks OK", "row-sharded training (JAX's tile axis in training) is not "
-                 "ported", "dryrun OK"):
+    for line in ("Trainer epoch OK: mesh=(data=2, tile=2)", "row bands OK",
+                 "row bands (halo >= receptive field) OK", "depth blocks OK", "dryrun OK"):
         assert line in proc.stdout, line
     assert np.isfinite(float(proc.stdout.split("loss=")[1].split()[0]))

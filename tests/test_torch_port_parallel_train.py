@@ -106,9 +106,9 @@ def results(outs: list[str]) -> dict:
     return got
 
 
-def global_batch() -> dict:
-    """Two samples at 32x64, V=3, with x-baselines, three stages; sample 1 has its mask
-    zero on the left half of every stage."""
+def global_batch(H: int = H) -> dict:
+    """Two samples at 32x64 (or ``H`` rows), V=3, with x-baselines, three stages; sample 1
+    has its mask zero on the left half of every stage."""
     rng = np.random.RandomState(0)
     imgs = rng.randn(B, V, H, W, 3).astype(np.float32)
     proj = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
@@ -258,10 +258,19 @@ def test_one_process_loss_matches_jax_trainer(dp_case, tmp_path):
 
 
 def test_shard_batch_takes_contiguous_slices():
-    """Without a process group this process is rank 0: the first half."""
+    """Without a process group this process is rank 0: the first half of the
+    batch over data; over (data=1, tile=2) the first half of the rows of
+    every view and of each stage's depth and mask (64 rows: bands of 32)."""
     batch = global_batch()
     cut = shard_batch(batch, Mesh(2, 1))
     np.testing.assert_array_equal(cut["imgs"], batch["imgs"][:1])
     np.testing.assert_array_equal(cut["mask"]["stage2"], batch["mask"]["stage2"][:1])
-    with pytest.raises(NotImplementedError, match="tile axis"):
-        shard_batch(batch, Mesh(1, 2))
+    batch = global_batch(64)
+    cut = shard_batch(batch, Mesh(1, 2))
+    np.testing.assert_array_equal(cut["imgs"], batch["imgs"][:, :, :32])
+    for key in ("depth", "mask"):
+        for k, v in batch[key].items():
+            np.testing.assert_array_equal(cut[key][k], v[:, :v.shape[1] // 2])
+    for k, v in batch["proj_matrices"].items():
+        np.testing.assert_array_equal(cut["proj_matrices"][k], v)
+    np.testing.assert_array_equal(cut["depth_values"], batch["depth_values"])
