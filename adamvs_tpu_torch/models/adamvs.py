@@ -93,6 +93,7 @@ from ..ops.warp import band_ref_proj, view_transforms
 from ..ops.warp_sample import sample_views
 from ..parallel.halo import gather_rows, tile_context
 from ..parallel.mesh import run_blocks
+from ..tracing import span
 
 # cost up-sampling by stage: stages 1 and 2 emit at 2x, stage 3 does not
 _UP_BY_STAGE = (True, True, False)
@@ -401,9 +402,10 @@ class AdaMVS(nn.Module):
         dtype = self.compute_dtype
         dmin, dmax, interval = parse_depth_values(depth_values.float(), num_depth)
         if features is None:
-            B, V = imgs.shape[:2]
-            feats = self.feature(
-                imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
+            with span("model.features"):
+                B, V = imgs.shape[:2]
+                feats = self.feature(
+                    imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
         else:
             feats, B, V = stage_features(features, self.chans)
         Vs = V - 1
@@ -416,62 +418,70 @@ class AdaMVS(nn.Module):
         prev_depth = pair_conf = None
         for si, D in enumerate(self.ndepths):
             key = f"stage{si + 1}"
-            net = self.DepthNet[si]
-            ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
-            h, w = ref.shape[1:3]
-            srcs, projs = tile_sources(srcs, proj_matrices[key].float(), h)
-            # the scan form's sources, rounded once per stage (JAX prepare_warp_sources)
-            srcs_w = srcs.to(self.sample_dtype) if scan and self.sample_dtype else srcs
-            ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
-            # the scan forms' per-view transforms, once per stage
-            transforms = view_transforms(src_projs, ref_proj) if scan else None
+            with span(f"model.{key}"):
+                net = self.DepthNet[si]
+                ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
+                h, w = ref.shape[1:3]
+                srcs, projs = tile_sources(srcs, proj_matrices[key].float(), h)
+                # the scan form's sources, rounded once per stage (JAX prepare_warp_sources)
+                srcs_w = srcs.to(self.sample_dtype) if scan and self.sample_dtype else srcs
+                ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
+                # the scan forms' per-view transforms, once per stage
+                transforms = view_transforms(src_projs, ref_proj) if scan else None
 
-            pair_results: tuple = ()
-            if si == 0:
-                lo = dmin[:, None, None].expand(B, h, w).contiguous()
-                step = ((dmax - dmin) / (D - 1))[:, None, None].expand(B, h, w).contiguous()
-                hyp0 = uniform_depth_samples(torch.stack([dmin, dmax], dim=1), D)  # [B,D]
-                if scan:
-                    corr = correlation_volumes(ref, srcs_w, transforms, hyp0, CORR_BLOCK).to(dtype)
+                pair_results: tuple = ()
+                if si == 0:
+                    lo = dmin[:, None, None].expand(B, h, w).contiguous()
+                    step = ((dmax - dmin) / (D - 1))[:, None, None].expand(B, h, w).contiguous()
+                    hyp0 = uniform_depth_samples(torch.stack([dmin, dmax], dim=1), D)  # [B,D]
+                    with span(f"model.{key}.match"):
+                        if scan:
+                            corr = correlation_volumes(ref, srcs_w, transforms, hyp0,
+                                                       CORR_BLOCK).to(dtype)
+                        else:
+                            corr = corr_fn(ref, srcs, src_projs, ref_proj, lo, step, D).to(dtype)
+                        if train:  # per view, so BatchNorm takes each view's batch statistics
+                            logits = torch.cat([net.reg(corr[v]) for v in range(Vs)])
+                        else:
+                            logits = net.reg(corr.reshape(Vs * B, D, h, w))
+                        # in the compute dtype, as JAX's softmax of the bf16 logits; the
+                        # confidences stay in it (the visibility weights), the depth is float32
+                        prob = torch.softmax(logits, dim=1)  # rows v*B + b
+                        conf = prob.amax(dim=1).reshape(Vs, B, h, w)
+                        pdepth = (prob.float() * hyp0.repeat(Vs, 1)[:, :, None, None]).sum(dim=1)
+                        pair_conf = conf.transpose(0, 1).contiguous()  # [B,Vs,h,w]
+                        pair_results = tuple(pdepth.reshape(Vs, B, h, w))
+                    weights = pair_conf
                 else:
-                    corr = corr_fn(ref, srcs, src_projs, ref_proj, lo, step, D).to(dtype)
-                if train:  # per view, so BatchNorm takes each view's batch statistics
-                    logits = torch.cat([net.reg(corr[v]) for v in range(Vs)])
-                else:
-                    logits = net.reg(corr.reshape(Vs * B, D, h, w))
-                # in the compute dtype, as JAX's softmax of the bf16 logits; the
-                # confidences stay in it (the visibility weights), the depth is float32
-                prob = torch.softmax(logits, dim=1)  # rows v*B + b
-                conf = prob.amax(dim=1).reshape(Vs, B, h, w)
-                pdepth = (prob.float() * hyp0.repeat(Vs, 1)[:, :, None, None]).sum(dim=1)
-                pair_conf = conf.transpose(0, 1).contiguous()  # [B,Vs,h,w]
-                pair_results = tuple(pdepth.reshape(Vs, B, h, w))
-                weights = pair_conf
-            else:
-                weights = resize_bilinear(pair_conf, h, w)
-                ratio = self.depth_intervals_ratio[si]
-                lo, step = window_min_and_interval(prev_depth, D, (ratio * interval)[:, None, None])
+                    weights = resize_bilinear(pair_conf, h, w)
+                    ratio = self.depth_intervals_ratio[si]
+                    lo, step = window_min_and_interval(prev_depth, D,
+                                                       (ratio * interval)[:, None, None])
 
-            cell = net.reg_fuse
-            if sharded:
-                depth, conf = self._sharded_stage(cell, ref, srcs_w, transforms, weights, lo, step,
-                                                  D, train)
-            elif scan:
-                depth, conf = self._scan_stage(cell, ref, srcs_w, transforms, weights, lo, step, D)
-            else:
-                fused = fused_fn(ref, srcs, weights, src_projs, ref_proj, lo, step, D)
-                if train or self.reg_impl == "pallas":
-                    # K3 has no backward: training steps the cell under autograd
-                    cost = (red_scan_ref if train else red_scan)(cell, fused)
-                    oh, ow = cost.shape[2:]  # [D,B,oh,ow]
-                    depth, conf = softmax_regression(
-                        cost, resize_bilinear(lo, oh, ow), resize_bilinear(step, oh, ow))
-                elif self.reg_impl == "precomp":
-                    oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
-                    depth, conf = ada_precomp_depth(cell, fused, resize_bilinear(lo, oh, ow),
-                                                    resize_bilinear(step, oh, ow))
-                else:
-                    depth, conf = self._stepped_stage(cell, fused, lo, step)
+                cell = net.reg_fuse
+                if not (sharded or scan):
+                    with span(f"model.{key}.volume"):
+                        fused = fused_fn(ref, srcs, weights, src_projs, ref_proj, lo, step, D)
+                # the scan forms interleave slices and cell steps: the whole sweep is the reg
+                with span(f"model.{key}.reg"):
+                    if sharded:
+                        depth, conf = self._sharded_stage(cell, ref, srcs_w, transforms, weights,
+                                                          lo, step, D, train)
+                    elif scan:
+                        depth, conf = self._scan_stage(cell, ref, srcs_w, transforms, weights, lo,
+                                                       step, D)
+                    elif train or self.reg_impl == "pallas":
+                        # K3 has no backward: training steps the cell under autograd
+                        cost = (red_scan_ref if train else red_scan)(cell, fused)
+                        oh, ow = cost.shape[2:]  # [D,B,oh,ow]
+                        depth, conf = softmax_regression(
+                            cost, resize_bilinear(lo, oh, ow), resize_bilinear(step, oh, ow))
+                    elif self.reg_impl == "precomp":
+                        oh, ow = (2 * h, 2 * w) if cell.up else (h, w)
+                        depth, conf = ada_precomp_depth(cell, fused, resize_bilinear(lo, oh, ow),
+                                                        resize_bilinear(step, oh, ow))
+                    else:
+                        depth, conf = self._stepped_stage(cell, fused, lo, step)
             outputs[key] = {
                 "depth": depth,
                 "photometric_confidence": conf,

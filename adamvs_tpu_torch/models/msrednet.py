@@ -74,6 +74,7 @@ from ..ops.sampling import window_min_and_interval
 from ..ops.sweep_fuse import var_sweep_volume, var_sweep_volume_t
 from ..ops.warp import view_transforms
 from ..ops.warp_sample import sample_views
+from ..tracing import span
 from .adamvs import SWEEP_IMPLS, parse_depth_values, stage_features, stage_views, tile_sources
 
 REG_IMPLS = ("scan", "precomp")
@@ -238,9 +239,10 @@ class MSREDNet(nn.Module):
         dtype = self.compute_dtype
         dmin, dmax, interval = parse_depth_values(depth_values.float(), num_depth)
         if features is None:
-            B, V, H, W = imgs.shape[:4]
-            feats = self.feature(
-                imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
+            with span("model.features"):
+                B, V, H, W = imgs.shape[:4]
+                feats = self.feature(
+                    imgs.reshape((B * V,) + imgs.shape[2:]).permute(0, 3, 1, 2).to(dtype))
         else:
             feats, B, V = stage_features(features, self.chans)
             last = feats[f"stage{len(self.ndepths)}"]
@@ -253,40 +255,46 @@ class MSREDNet(nn.Module):
         prev_depth = None
         for si, D in enumerate(self.ndepths):
             key = f"stage{si + 1}"
-            ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
-            h, w = ref.shape[1:3]
-            srcs, projs = tile_sources(srcs, proj_matrices[key].float(), h)
-            if self.sweep_impl == "scan" and self.sample_dtype:
-                srcs = srcs.to(self.sample_dtype)  # once per stage (JAX prepare_warp_sources)
-            ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
-            # the scan form's per-view transforms, once per stage
-            transforms = (view_transforms(src_projs, ref_proj) if self.sweep_impl == "scan"
-                          else None)
-            if prev_depth is None:
-                lo = dmin[:, None, None].expand(B, h, w).contiguous()
-                step = ((dmax - dmin) / (D - 1))[:, None, None].expand(B, h, w).contiguous()
-            else:
-                prev_full = resize_bilinear(prev_depth, H, W)
-                ratio = self.depth_intervals_ratio[si]
-                lo_f, step_f = window_min_and_interval(prev_full, D,
-                                                       (ratio * interval)[:, None, None])
-                lo = resize_bilinear(lo_f, h, w).contiguous()
-                step = resize_bilinear(step_f, h, w).contiguous()
+            with span(f"model.{key}"):
+                ref, srcs = stage_views(feats[key], B, V, dtype)  # [B,h,w,C], [Vs,B,H,W,C]
+                h, w = ref.shape[1:3]
+                srcs, projs = tile_sources(srcs, proj_matrices[key].float(), h)
+                if self.sweep_impl == "scan" and self.sample_dtype:
+                    srcs = srcs.to(self.sample_dtype)  # once per stage (JAX prepare_warp_sources)
+                ref_proj, src_projs = projs[:, 0], projs[:, 1:].transpose(0, 1)
+                # the scan form's per-view transforms, once per stage
+                transforms = (view_transforms(src_projs, ref_proj) if self.sweep_impl == "scan"
+                              else None)
+                if prev_depth is None:
+                    lo = dmin[:, None, None].expand(B, h, w).contiguous()
+                    step = ((dmax - dmin) / (D - 1))[:, None, None].expand(B, h, w).contiguous()
+                else:
+                    prev_full = resize_bilinear(prev_depth, H, W)
+                    ratio = self.depth_intervals_ratio[si]
+                    lo_f, step_f = window_min_and_interval(prev_full, D,
+                                                           (ratio * interval)[:, None, None])
+                    lo = resize_bilinear(lo_f, h, w).contiguous()
+                    step = resize_bilinear(step_f, h, w).contiguous()
 
-            cell = self.cost_regularization[si]
-            vol = (var_fn(ref, srcs, src_projs, ref_proj, lo, step, D)
-                   if self.sweep_impl == "fused" else None)  # [D,B,C,h,w]
-            if self.reg_impl == "precomp" and not train:
-                depth, conf = red_precomp_depth(cell, vol, lo, step)
-            else:
-                state = cell.init_state(B, h, w, dtype, device)
-                acc = online_softmax_init((B, h, w), device=device)
-                for d in range(D):
-                    hyp = lo + float(d) * step
-                    x = vol[d] if vol is not None else variance_slice(ref, srcs, transforms, hyp)
-                    state, cost = cell(state, x)
-                    acc = online_softmax_update(acc, cost[:, 0].float(), hyp)
-                depth, conf = online_softmax_finalize(acc)
+                cell = self.cost_regularization[si]
+                vol = None
+                if self.sweep_impl == "fused":
+                    with span(f"model.{key}.volume"):
+                        vol = var_fn(ref, srcs, src_projs, ref_proj, lo, step, D)  # [D,B,C,h,w]
+                # the scan form interleaves slices and cell steps: the whole sweep is the reg
+                with span(f"model.{key}.reg"):
+                    if self.reg_impl == "precomp" and not train:
+                        depth, conf = red_precomp_depth(cell, vol, lo, step)
+                    else:
+                        state = cell.init_state(B, h, w, dtype, device)
+                        acc = online_softmax_init((B, h, w), device=device)
+                        for d in range(D):
+                            hyp = lo + float(d) * step
+                            x = (vol[d] if vol is not None
+                                 else variance_slice(ref, srcs, transforms, hyp))
+                            state, cost = cell(state, x)
+                            acc = online_softmax_update(acc, cost[:, 0].float(), hyp)
+                        depth, conf = online_softmax_finalize(acc)
             outputs[key] = {"depth": depth, "photometric_confidence": conf}
             prev_depth = depth
 

@@ -41,6 +41,7 @@ from ..geom.camera import legacy_cam_array
 from ..io.cams_text import write_red_cam
 from ..io.pfm import write_pfm
 from ..parallel.distributed import rank, world_size
+from ..tracing import span
 from .tiled import HALO_ROWS, tiled_forward
 from .viridis import viridis_rgb
 
@@ -131,10 +132,12 @@ class PredictEngine:
     def _forward(self, imgs: np.ndarray | None, projs: dict, depth_values: np.ndarray,
                  features: dict | None = None):
         dev = self.device
-        if imgs is not None:
-            imgs = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(dev)
-        projs = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev) for k, v in projs.items()}
-        dv = torch.from_numpy(np.asarray(depth_values, np.float32)).to(dev)
+        with span("engine.upload"):  # pageable copies: the host waits for each
+            if imgs is not None:
+                imgs = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(dev)
+            projs = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+                     for k, v in projs.items()}
+            dv = torch.from_numpy(np.asarray(depth_values, np.float32)).to(dev)
         if self.tiles > 1:
             depth, conf = tiled_forward(self.model, imgs, projs, dv, self.tiles,
                                         num_depth=self.num_depth, halo=self.halo,
@@ -142,7 +145,8 @@ class PredictEngine:
         else:
             out = self.model(imgs, projs, dv, num_depth=self.num_depth, features=features)
             depth, conf = out["depth"], out["photometric_confidence"]
-        return depth.float().cpu().numpy(), conf.float().cpu().numpy()
+        with span("engine.download"):  # waits for the forward's tail
+            return depth.float().cpu().numpy(), conf.float().cpu().numpy()
 
     def predict_sample(self, sample) -> tuple[np.ndarray, np.ndarray]:
         """(depth [H,W], confidence [H,W]) of one sample."""
@@ -154,20 +158,21 @@ class PredictEngine:
         In row bands (``tiles`` > 1), one sample after another."""
         if self.tiles > 1 and len(samples) > 1:
             return [self.predict_batch([s])[0] for s in samples]
-        padded = [_pad_to_multiple(np.asarray(s.imgs)) for s in samples]
-        # one sample: a view, not a copy of its [V,H,W,3] float32 frames
-        imgs = padded[0][0][None] if len(padded) == 1 else np.stack([p[0] for p in padded])
-        projs = {k: np.stack([np.asarray(s.proj_matrices[k]) for s in samples])
-                 for k in samples[0].proj_matrices}
-        dv = np.stack([np.asarray(s.depth_values) for s in samples])
-        if self.feature_cache and all(getattr(s, "view_ids", ()) for s in samples):
-            per_sample = [self._cached_features(s, imgs[i]) for i, s in enumerate(samples)]
-            features = {k: torch.stack([f[k] for f in per_sample]) for k in per_sample[0]}
-            depth, prob = self._forward(None, projs, dv, features)  # {stageK: [B,V,C,h,w]}
-        else:
-            depth, prob = self._forward(imgs, projs, dv)
-        return [(depth[i][: p[1], : p[2]], prob[i][: p[1], : p[2]])
-                for i, p in enumerate(padded)]
+        with span("engine.request"):
+            padded = [_pad_to_multiple(np.asarray(s.imgs)) for s in samples]
+            # one sample: a view, not a copy of its [V,H,W,3] float32 frames
+            imgs = padded[0][0][None] if len(padded) == 1 else np.stack([p[0] for p in padded])
+            projs = {k: np.stack([np.asarray(s.proj_matrices[k]) for s in samples])
+                     for k in samples[0].proj_matrices}
+            dv = np.stack([np.asarray(s.depth_values) for s in samples])
+            if self.feature_cache and all(getattr(s, "view_ids", ()) for s in samples):
+                per_sample = [self._cached_features(s, imgs[i]) for i, s in enumerate(samples)]
+                features = {k: torch.stack([f[k] for f in per_sample]) for k in per_sample[0]}
+                depth, prob = self._forward(None, projs, dv, features)  # {stageK: [B,V,C,h,w]}
+            else:
+                depth, prob = self._forward(imgs, projs, dv)
+            return [(depth[i][: p[1], : p[2]], prob[i][: p[1], : p[2]])
+                    for i, p in enumerate(padded)]
 
     # -- cross-sample feature caching -----------------------------------
     @torch.no_grad()
@@ -179,10 +184,12 @@ class PredictEngine:
             feats = self._feat_cache.pop(image_id)
         else:
             self.cache_misses += 1
-            x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(self.device)
+            with span("engine.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(self.device)
             dtype = next(self.model.parameters()).dtype
-            feats = {k: v[0] for k, v in
-                     self.model.feature_module()(x.permute(2, 0, 1)[None].to(dtype)).items()}
+            with span("model.features"):
+                feats = {k: v[0] for k, v in
+                         self.model.feature_module()(x.permute(2, 0, 1)[None].to(dtype)).items()}
         self._feat_cache[image_id] = feats  # most recently used last
         while len(self._feat_cache) > self.feature_cache:
             del self._feat_cache[next(iter(self._feat_cache))]

@@ -39,6 +39,7 @@ from ..ops.regression import resize_bilinear
 from ..parallel.distributed import data_parallel, rank
 from ..parallel.halo import gather_rows_nograd, tile_rows
 from ..parallel.mesh import average_gradients, replicate
+from ..tracing import span
 from .checkpoint import latest_checkpoint, next_epoch_after, restore_checkpoint, save_checkpoint
 from .metrics import eval_metrics
 from .state import TrainState, apply_updates_if_finite
@@ -62,10 +63,11 @@ def make_train_step(loss_fn: Callable, dlossw, group=None, tile_group=None) -> C
     def train_step(state: TrainState, batch):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        with data_parallel(group), tile_rows(tile_group):
+        with data_parallel(group), tile_rows(tile_group), span("train.forward"):
             out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"], train=True)
             loss, depth_loss = loss_fn(out, batch["depth"], batch["mask"], dlossw)
-        loss.backward()
+        with span("train.backward"):  # the host waits here while autograd's device thread runs
+            loss.backward()
         if group is not None:
             average_gradients(model, group)
         apply_updates_if_finite(state, loss)
@@ -253,18 +255,21 @@ class Trainer:
         it = iter(batches)
         for i in itertools.count():
             t_wait = time.time()
-            batch = next(it, None)
+            with span("train.data"):
+                batch = next(it, None)
             if batch is None:
                 break
             t0 = time.time()
-            batch = to_device(batch, self.device)
-            _, metrics, depth_est = self.train_step(self.state, batch)
-            step = self.state.step
-            scalars = {k: float(v) for k, v in metrics.items()}
-            meter.update(scalars)
-            if step % self.summary_freq == 0:
-                self._record("train", step, scalars)
-                self._record_images("train", step, batch, depth_est)
+            with span("train.step"):
+                batch = to_device(batch, self.device)
+                _, metrics, depth_est = self.train_step(self.state, batch)
+                step = self.state.step
+                with span("train.scalars"):  # a host sync on the step's metrics
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                meter.update(scalars)
+                if step % self.summary_freq == 0:
+                    self._record("train", step, scalars)
+                    self._record_images("train", step, batch, depth_est)
             t1 = time.time()
             self.times["data_s"].append(t0 - t_wait)
             self.times["step_s"].append(t1 - t0)

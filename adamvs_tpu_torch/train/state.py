@@ -16,6 +16,8 @@ from typing import Callable
 
 import torch
 
+from ..tracing import span
+
 
 def parse_lrepochs(s: str) -> tuple[tuple[int, ...], float]:
     """``"10,12,14:2"`` -> ((10, 12, 14), gamma 1/2)."""
@@ -65,7 +67,8 @@ def apply_updates_if_finite(state: TrainState, loss: torch.Tensor) -> bool:
     is finite; otherwise leave parameters and optimizer state as they are and
     count the step in ``nan_steps``. ``step`` advances either way. Returns
     whether the update was applied."""
-    finite = bool(torch.isfinite(loss))
+    with span("train.finite_check"):  # a host sync on the loss
+        finite = bool(torch.isfinite(loss))
     if finite:
         if state.lr_schedule is not None:
             lr = state.lr_schedule(state.step - state.nan_steps)

@@ -1,0 +1,14 @@
+"""Device: the share of the program's ``train.backward`` spans (host time) in
+which no kernel, copy or fill ran on the card, in %, over the traced
+window (a gap put down to the innermost of a step's phase spans)."""
+
+from mvsbench import spans
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    host = spans.host_s(run.trace, "train.backward")
+    if not host:
+        return None
+    return 100.0 * spans.idle_s(run.trace, spans.STEP_PHASES)["train.backward"] / host

@@ -9,7 +9,7 @@ tests/test_e2e.py, on a WHU_OMVS tree the JAX writer wrote:
 - ``train --resume`` continues at the next epoch;
 - ``test`` exports the maps (tests/test_e2e.py:56-73) and its metrics equal
   the last val record of the run it loads;
-- ``profile`` writes a trace;
+- ``profile`` writes a trace that holds the port's model spans;
 - the eval step's metrics on the trained weights against JAX
   ``make_eval_step`` on the same batch and weights;
 - MS-REDNet trains through the command too; the parallel flags run as one
@@ -159,6 +159,10 @@ def test_profile_writes_a_trace(run):
     assert os.path.getsize(run["trace"]) > 0
     trace = json.load(open(run["trace"]))
     assert trace["traceEvents"]
+    # the port's own spans (adamvs_tpu_torch/tracing.py), recorded while the window is open
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"adamvs.model.features", "adamvs.model.stage1", "adamvs.model.stage1.match",
+            "adamvs.model.stage2.reg"} <= names
 
 
 def test_eval_step_matches_jax(run):
