@@ -18,6 +18,24 @@ the reference, so a cached pyramid is the one the uncached forward computes;
 it runs the feature net per view (batch 1), the uncached forward on all B·V
 views at once.
 
+How frames reach the device: the model's first operation on them is a cast
+to the dtype it computes in, so the engine stages them in that dtype (the
+dtype of the parameters on the feature-cache path, which casts to it). One
+host buffer of the request's padded shape, page-locked when the device is
+CUDA, is kept and reused while the shape stays; a new shape replaces it.
+Each frame is cast and written into it in chunks of ``STAGE_CHUNK_BYTES``
+by torch's CPU copy on its intra-op threads (the pad rows and columns
+zeroed, no padded or stacked copy made), and each chunk's copy to the
+device is issued without waiting, on the current stream, as soon as it is
+written, so the host writes the next chunk while the last one crosses the
+bus. An event after the last copy guards the buffer: the next upload waits
+for it before writing. The cast is torch's own ``Tensor.to`` on the CPU
+(round to nearest even, as on the device: every finite, infinite or
+out-of-range value gives the bits the device's cast gives; a NaN stays a
+NaN), so the model receives what it would have cast itself, and at bf16 half
+the bytes cross the bus. ``staged_uploads`` counts the staged uploads. The
+projections and the depth range (a few hundred bytes) are copied plainly.
+
 With ``tiles`` > 1 each frame runs in row bands (``predict/tiled.py``),
 with the feature cache too. Over several ranks each takes its share of the
 work items.
@@ -46,14 +64,14 @@ from .tiled import HALO_ROWS, tiled_forward
 from .viridis import viridis_rgb
 
 
-def _pad_to_multiple(imgs: np.ndarray, base: int = 32) -> tuple[np.ndarray, int, int]:
-    """Zero-pad [V,H,W,3] bottom/right to multiples of ``base``."""
-    V, H, W, C = imgs.shape
-    ph = (-H) % base
-    pw = (-W) % base
-    if ph or pw:
-        imgs = np.pad(imgs, ((0, 0), (0, ph), (0, pw), (0, 0)))
-    return imgs, H, W
+# staged bytes per host pass and device copy: long runs for the host's threads, an early first
+# copy and a short last one (on an H100's host, 2-64 MB chunks of a 2752x1856 bf16 map: 16 fastest)
+STAGE_CHUNK_BYTES = 16 << 20
+
+
+def _padded(H: int, W: int, base: int = 32) -> tuple[int, int]:
+    """(H, W) rounded up to multiples of ``base``."""
+    return H + (-H) % base, W + (-W) % base
 
 
 def colorize_depth(depth: np.ndarray) -> np.ndarray:
@@ -127,14 +145,50 @@ class PredictEngine:
         self.feature_cache = feature_cache
         self._feat_cache: dict = {}  # image id -> {stageK: [1,C,h,w]}, oldest first
         self.cache_hits = self.cache_misses = 0
+        self._staging = None  # host buffer [N,H,W,3] of the frames, reused while the shape stays
+        self._staged = None  # event after the last copy out of it (CUDA)
+        self.staged_uploads = 0
+
+    def _upload_frames(self, frames: list[np.ndarray], dtype: torch.dtype) -> torch.Tensor:
+        """The frames [H,W,3] (one padded shape) on the device as [N,H',W',3]
+        in ``dtype``, zero-padded bottom/right to multiples of 32, staged in
+        chunks through the engine's host buffer (module docstring)."""
+        H, W = _padded(*frames[0].shape[:2])
+        shape = (len(frames), H, W, 3)
+        if self._staged is not None:
+            self._staged.synchronize()  # the last upload's copies have read the buffer
+        if self._staging is None or self._staging.shape != shape or self._staging.dtype != dtype:
+            self._staging = None  # at most one buffer
+            self._staging = torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        rows = max(1, STAGE_CHUNK_BYTES // (W * 3 * self._staging.element_size()))
+        for n, frame in enumerate(frames):
+            src = torch.from_numpy(np.ascontiguousarray(frame, np.float32))
+            h, w = src.shape[:2]
+            for r0 in range(0, H, rows):
+                chunk = self._staging[n, r0:r0 + rows]
+                k = min(max(h - r0, 0), len(chunk))  # the chunk's rows of the frame
+                chunk[:k, :w].copy_(src[r0:r0 + k])
+                if w < W:
+                    chunk[:k, w:].zero_()
+                if k < len(chunk):
+                    chunk[k:].zero_()
+                out[n, r0:r0 + rows].copy_(chunk, non_blocking=True)
+        if self.device.type == "cuda":
+            self._staged = torch.cuda.Event()
+            self._staged.record(torch.cuda.current_stream(self.device))
+        self.staged_uploads += 1
+        return out
 
     @torch.no_grad()
-    def _forward(self, imgs: np.ndarray | None, projs: dict, depth_values: np.ndarray,
+    def _forward(self, imgs: list[np.ndarray] | None, projs: dict, depth_values: np.ndarray,
                  features: dict | None = None):
+        """``imgs``: each sample's frames [V,H,W,3], or None with ``features``."""
         dev = self.device
-        with span("engine.upload"):  # pageable copies: the host waits for each
+        with span("engine.upload"):  # the frames staged, the rest plain
             if imgs is not None:
-                imgs = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(dev)
+                x = self._upload_frames([f for im in imgs for f in im], self.model.compute_dtype)
+                imgs = x.reshape((len(imgs), -1) + x.shape[1:])
             projs = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
                      for k, v in projs.items()}
             dv = torch.from_numpy(np.asarray(depth_values, np.float32)).to(dev)
@@ -159,44 +213,46 @@ class PredictEngine:
         if self.tiles > 1 and len(samples) > 1:
             return [self.predict_batch([s])[0] for s in samples]
         with span("engine.request"):
-            padded = [_pad_to_multiple(np.asarray(s.imgs)) for s in samples]
-            # one sample: a view, not a copy of its [V,H,W,3] float32 frames
-            imgs = padded[0][0][None] if len(padded) == 1 else np.stack([p[0] for p in padded])
+            imgs = [np.asarray(s.imgs) for s in samples]
+            shapes = {(len(im),) + _padded(*im.shape[1:3]) for im in imgs}
+            if len(shapes) > 1:
+                raise ValueError(f"the samples of a batch pad to one shape, not {sorted(shapes)}")
             projs = {k: np.stack([np.asarray(s.proj_matrices[k]) for s in samples])
                      for k in samples[0].proj_matrices}
             dv = np.stack([np.asarray(s.depth_values) for s in samples])
             if self.feature_cache and all(getattr(s, "view_ids", ()) for s in samples):
-                per_sample = [self._cached_features(s, imgs[i]) for i, s in enumerate(samples)]
+                per_sample = [self._cached_features(s, im) for s, im in zip(samples, imgs)]
                 features = {k: torch.stack([f[k] for f in per_sample]) for k in per_sample[0]}
                 depth, prob = self._forward(None, projs, dv, features)  # {stageK: [B,V,C,h,w]}
             else:
                 depth, prob = self._forward(imgs, projs, dv)
-            return [(depth[i][: p[1], : p[2]], prob[i][: p[1], : p[2]])
-                    for i, p in enumerate(padded)]
+            return [(depth[i][:im.shape[1], :im.shape[2]], prob[i][:im.shape[1], :im.shape[2]])
+                    for i, im in enumerate(imgs)]
 
     # -- cross-sample feature caching -----------------------------------
     @torch.no_grad()
     def _view_features(self, image_id, img: np.ndarray) -> dict:
-        """The pyramid {stageK: [C,h,w]} of one padded view [H,W,3], from the
-        cache or computed and cached (evicting the least recently used)."""
+        """The pyramid {stageK: [C,h,w]} of one view [H,W,3] (padded here),
+        from the cache or computed and cached (evicting the least recently
+        used)."""
         if image_id in self._feat_cache:
             self.cache_hits += 1
             feats = self._feat_cache.pop(image_id)
         else:
             self.cache_misses += 1
-            with span("engine.upload"):
-                x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(self.device)
             dtype = next(self.model.parameters()).dtype
+            with span("engine.upload"):
+                x = self._upload_frames([img], dtype)[0]
             with span("model.features"):
                 feats = {k: v[0] for k, v in
-                         self.model.feature_module()(x.permute(2, 0, 1)[None].to(dtype)).items()}
+                         self.model.feature_module()(x.permute(2, 0, 1)[None]).items()}
         self._feat_cache[image_id] = feats  # most recently used last
         while len(self._feat_cache) > self.feature_cache:
             del self._feat_cache[next(iter(self._feat_cache))]
         return feats
 
     def _cached_features(self, sample, imgs: np.ndarray) -> dict:
-        """{stageK: [V,C,h,w]} of one sample's padded views [V,H,W,3]."""
+        """{stageK: [V,C,h,w]} of one sample's views [V,H,W,3]."""
         per_view = [self._view_features(sample.view_ids[v], imgs[v]) for v in range(len(imgs))]
         return {k: torch.stack([fv[k] for fv in per_view]) for k in per_view[0]}
 
